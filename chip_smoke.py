@@ -23,7 +23,22 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    Endpoint latencies are printed with TF32 off (as compared) and with
    cuDNN's TF32 on (PyTorch's default), and one ``reconstruct`` is
    profiled.
-4. Print the ``kernels`` JSON line, then the result line
+4. The ``bn_leaky_train`` kernels (statistics, apply, backward reduce,
+   backward apply) against their plain versions at every (M, C, slope) of a
+   WRN-28-2 train step at batch 768, timed beside their bytes bound; the
+   train-mode fused conv site's forward and backward at the four encoder
+   shapes against plain autograd.
+5. Training: the SHOT-VAE train step (``shotvae_torch.train.steps``) of the
+   headline configuration (CIFAR-10 shape, WRN-28-2, BCE reconstruction,
+   optimal-match mixup) at 768 labeled + 768 unlabeled, seeded random
+   weights and data: a few steps with every kernel's launch count checked
+   and the loss finite; step ms with TF32 off and with cuDNN TF32 on,
+   unlabeled images/s and one profiled step; the eval step's latency at
+   768; one step on the card against the same step on the CPU at 16 + 16
+   with every draw injected, the crops and flips replayed: metrics, each
+   parameter's gradient (to within what one ulp of the weights moves the
+   CPU's), the parameters and running statistics after it.
+6. Print the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits with an error, printing no result, where torch sees no card or where
@@ -36,6 +51,7 @@ import copy
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -45,12 +61,53 @@ BATCH = 768          # ShotVaeConfig.batch_size, the headline batch
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12          # H100 SXM f32 without tensor cores
-TOL_BN = 1e-5      # abs + rel: same arithmetic, at most an FMA contraction apart
+TOL_BN = 1e-5      # abs + rel: same arithmetic, at most an FMA contraction
+#                    apart; norm-wise for sums over the rows
 TOL_CONV = 2e-4    # abs + rel: f32 sums of 9*Cin terms in other orders
 TOL_SAMPLE = 1e-6  # abs + rel: sampler outputs that no draw can change
 MOMENT_SE = 6.0    # sampler moments may differ by at most 6 standard errors
 SAMPLE_SEEDS = 32  # draws per sampler for the moments
 TOL_E2E = 1e-3     # abs + rel: 28 f32 layers, other summation orders, TF32 off
+TOL_GRAD = 1e-3    # norm-wise: conv and BN gradients, sums of B*H*W terms
+TOL_STEP = 1e-3    # abs + rel: one train step, card against CPU, TF32 off
+# Its gradients, norm-wise rel per parameter: f32 rounding alone moves them
+# by up to a few 1e-2 (a one-ulp change of the weights moves the CPU's own
+# by as much: LeakyReLU masks flip at pre-activations within rounding of 0,
+# and BN backwards cancel), while a zeroed, swapped or cut gradient is off
+# by about 1
+TOL_GRAD_STEP = 0.1
+ULP_FACTOR = 3.0   # ... or 3x the CPU's own one-ulp spread, where larger
+TRAIN_STEPS = 3    # counted train steps at full batch
+COMPARE_BATCH = 16  # per stream, for the card-against-CPU step
+# (M, C, slope, BN sites per forward, backward launches per train step) of
+# a WRN-28-2 SHOT-VAE train step; the M are for a batch of b. Encoder sites
+# (22 fused before a stride-1 3x3 conv, 6 standalone: 2 before a stride-2
+# conv, 3 shortcut norms, the transition) run in all 4 forwards and get a
+# gradient in all 4; the decoder's 5 (ReLU, slope 0) run in all 4 forwards
+# and get a gradient in forwards 1 and 3 only, whose reconstructions enter
+# the loss.
+BN_TRAIN_SITES = lambda b: [  # noqa: E731
+    (b * 1024, 16, 0.01, 2, 8),   # g1u1 norm1 (fused) + shortcut norm
+    (b * 1024, 32, 0.01, 9, 36),  # 7 fused; g2u1 norm1 + shortcut norm
+    (b * 256, 64, 0.01, 9, 36),   # 7 fused; g3u1 norm1 + shortcut norm
+    (b * 64, 128, 0.01, 8, 32),   # 7 fused; the transition
+    (b, 1024, 0.0, 1, 2), (b * 4, 512, 0.0, 1, 2), (b * 16, 256, 0.0, 1, 2),
+    (b * 64, 128, 0.0, 1, 2), (b * 256, 64, 0.0, 1, 2)]  # decoder norm0-4
+# kernel launches per train step at WRN-28-2, from the sites above: the
+# fused conv kernel at the 22 fused sites of each of 4 forwards (its
+# backward is cuDNN plus the bn_leaky kernels); statistics and apply at all
+# 33 sites of each forward (apply standalone in the forward, as the
+# recompute of the fused sites in the backward); the two backward kernels
+# 28 * 4 + 5 * 2 = 122 times; no eval kernel
+EXPECTED_TRAIN_LAUNCHES = {"fused_bn_act_conv": 88, "bn_act_inference": 0,
+                           "fused_joint_sample": 0, "bn_stats": 132,
+                           "bn_apply": 132, "bn_bwd_reduce": 122,
+                           "bn_bwd_apply": 122}
+# the eval step at WRN-28-2: one serving forward with the kernel's draw
+EXPECTED_EVAL_LAUNCHES = {"fused_bn_act_conv": 22, "bn_act_inference": 11,
+                          "fused_joint_sample": 1, "bn_stats": 0,
+                          "bn_apply": 0, "bn_bwd_reduce": 0,
+                          "bn_bwd_apply": 0}
 # kernel launches per endpoint at WRN-28-2: (fused conv, bn_act, sample)
 EXPECTED_LAUNCHES = {"classify": (22, 6, 0), "encode": (22, 6, 0),
                      "reconstruct": (22, 11, 1), "generate": (0, 5, 0)}
@@ -90,6 +147,25 @@ def time_ms(fn, iters: int = 10, reps: int = 5) -> float:
     return start.elapsed_time(end) / (reps * iters)
 
 
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def host_ms(dev, fn, reps: int = 5) -> float:
+    """Mean wall time of ``fn()`` after one warm-up, ending in a device
+    synchronise."""
+    fn()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    _sync(dev)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
 def device_breakdown(fn, top: int = 8) -> dict:
     """One ``fn()`` under torch.profiler: wall time, device busy time and
     the kernels that took the most device time."""
@@ -115,15 +191,21 @@ def device_breakdown(fn, top: int = 8) -> dict:
                     for e in kernels[:top]]}
 
 
-def max_err(got, want, tol: float) -> float:
-    """max |got - want|; raises where it exceeds tol * (1 + |want|)."""
+def max_err(got, want, tol: float, *, normwise: bool = False,
+            what: str = "") -> float:
+    """max |got - want|; raises where it exceeds tol * (1 + |want|), or,
+    ``normwise``, tol * (1 + max |want|): the measure for sums over many
+    rows, whose rounding scales with the tensor and not with each entry."""
     import torch
 
-    diff = (got.double() - want.double()).abs()
-    check(bool(torch.isfinite(got).all()), "non-finite kernel output")
-    bad = diff > tol * (1.0 + want.double().abs())
-    check(not bool(bad.any()), f"kernel disagrees with its plain version: "
-          f"max abs err {float(diff.max()):.3e} beyond tol {tol}")
+    got, want = got.detach().double(), want.detach().double()
+    diff = (got - want).abs()
+    check(bool(torch.isfinite(got).all()), f"non-finite output {what}")
+    scale = want.abs().max() if normwise else want.abs()
+    bad = diff > tol * (1.0 + scale)
+    check(not bool(bad.any()), f"kernel disagrees with its plain version "
+          f"{what}: max abs err {float(diff.max()):.3e} beyond tol {tol}"
+          f"{' norm-wise' if normwise else ''}")
     return float(diff.max())
 
 
@@ -401,38 +483,414 @@ def end_to_end(batch: int, kernels):
         e2e_err["reconstruct"] = max_err(recon[:n].cpu(),
                                          want.permute(0, 2, 3, 1), TOL_E2E)
 
-    def latency_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / 5 * 1e3
-
-    timing = {name: latency_ms(fn) for name, fn in endpoints.items()}
+    dev = gpu.device
+    timing = {name: host_ms(dev, fn) for name, fn in endpoints.items()}
     breakdown = device_breakdown(endpoints["reconstruct"])
     # PyTorch's default lets cuDNN convolve in TF32; the library convs (not
     # the hand kernels) then run on the tensor cores
     torch.backends.cudnn.allow_tf32 = True
-    timing_tf32 = {name: latency_ms(fn) for name, fn in endpoints.items()}
+    timing_tf32 = {name: host_ms(dev, fn) for name, fn in endpoints.items()}
     torch.backends.cudnn.allow_tf32 = False
     return launches, e2e_err, timing, timing_tf32, breakdown
+
+
+# ----------------------------------------------------------------- phase 4
+
+
+def events_ms(fn, iters: int = 10) -> float:
+    """Device time of one ``fn()`` between CUDA events, after warm-up, for
+    work (autograd) that is not captured in a CUDA graph; host launch time
+    is included where the card waits for it."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bn_leaky_phase(dev, batch: int):
+    """The four bn_leaky_train kernels at each (M, C, slope) of a train
+    step: each against its plain version on the same inputs, timed."""
+    import torch
+
+    from shotvae_torch.ops.kernels import bn_leaky as bl
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    rows = {k: [] for k in ("bn_stats", "bn_apply", "bn_bwd_reduce",
+                            "bn_bwd_apply")}
+    err = {k: 0.0 for k in rows}
+    for m, c, slope, n_fwd, n_bwd in BN_TRAIN_SITES(batch):
+        x = torch.randn((m, c), generator=gen, device=dev) * 2 + 0.5
+        gamma = torch.rand((c,), generator=gen, device=dev) + 0.5
+        beta = torch.randn((c,), generator=gen, device=dev) * 0.5
+        g = torch.randn((m, c), generator=gen, device=dev)
+        stats = bl.bn_stats_plain(x)
+        y, xhat = bl.bn_apply_plain(x, stats, gamma, beta, slope)
+        sums = bl.bn_bwd_reduce_plain(g, xhat, gamma, beta, slope)
+        calls = {
+            "bn_stats": (lambda: bl.bn_stats(x),
+                         lambda: bl.bn_stats_plain(x),
+                         lambda: torch.var_mean(x, 0, correction=0),
+                         4 * m * c + 12 * c, 4 * n_fwd),
+            "bn_apply": (lambda: bl.bn_apply(x, stats, gamma, beta, slope),
+                         lambda: bl.bn_apply_plain(x, stats, gamma, beta,
+                                                   slope),
+                         None, 12 * m * c + 20 * c, 4 * n_fwd),
+            "bn_bwd_reduce": (lambda: bl.bn_bwd_reduce(g, xhat, gamma, beta,
+                                                       slope),
+                              lambda: bl.bn_bwd_reduce_plain(
+                                  g, xhat, gamma, beta, slope),
+                              None, 8 * m * c + 16 * c, n_bwd),
+            "bn_bwd_apply": (lambda: bl.bn_bwd_apply(g, xhat, gamma, beta,
+                                                     stats, sums, slope),
+                             lambda: bl.bn_bwd_apply_plain(
+                                 g, xhat, gamma, beta, stats, sums, slope),
+                             None, 12 * m * c + 28 * c, n_bwd),
+        }
+        for name, (kernel, plain, library, nbytes, launches) in calls.items():
+            got, want = kernel(), plain()
+            if isinstance(got, torch.Tensor):
+                got, want = (got,), (want,)
+            e = max(max_err(a, b, TOL_BN, normwise=name == "bn_bwd_reduce",
+                            what=f"{name} at {(m, c, slope)}")
+                    for a, b in zip(got, want))
+            err[name] = max(err[name], e)
+            rows[name].append(dict(
+                shape=[m, c], slope=slope, launches=launches, max_abs_err=e,
+                ms=time_ms(kernel), plain_ms=time_ms(plain),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                library_ms=None if library is None else time_ms(library)))
+    return rows, err
+
+
+def conv_bwd_phase(dev, batch: int):
+    """The train-mode fused conv site, forward and backward, at each
+    encoder shape against the same function as plain autograd ops."""
+    import torch
+
+    from shotvae_torch.ops.kernels.fused_conv import (
+        fused_bn_act_conv_train, fused_bn_act_conv_train_plain)
+
+    b = batch
+    # (B, Cin, H, W, Cout, fused sites per forward)
+    cases = [(b, 16, 32, 32, 32, 1), (b, 32, 32, 32, 32, 7),
+             (b, 64, 16, 16, 64, 7), (b, 128, 8, 8, 128, 7)]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    rows, err = [], 0.0
+    for bb, cin, h, w, cout, n in cases:
+        cl = dict(memory_format=torch.channels_last)
+        x = (torch.randn((bb, cin, h, w), generator=gen, device=dev) * 1.5
+             + 0.3).contiguous(**cl)
+        gamma = torch.rand((cin,), generator=gen, device=dev) + 0.5
+        beta = torch.randn((cin,), generator=gen, device=dev) * 0.5
+        wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
+              * (2.0 / (9 * cin)) ** 0.5).contiguous(**cl)
+        gy = torch.randn((bb, cout, h, w), generator=gen,
+                         device=dev).contiguous(**cl)
+
+        def run(fn):
+            ins = [t.detach().requires_grad_() for t in (x, gamma, beta, wt)]
+            y, mean, var = fn(*ins)
+            y.backward(gy)
+            return [y.detach(), mean.detach(), var.detach()] + [
+                t.grad for t in ins]
+
+        got = run(fused_bn_act_conv_train)
+        want = run(fused_bn_act_conv_train_plain)
+        tols = [TOL_CONV, TOL_BN, TOL_BN] + [TOL_GRAD] * 4
+        names = ("y", "mean", "var", "dx", "dgamma", "dbeta", "dw")
+        e = max(max_err(a, c, t, normwise=n.startswith("d"),
+                        what=f"{n} at {(bb, cin, h, w, cout)}")
+                for a, c, t, n in zip(got, want, tols, names))
+        err = max(err, e)
+        rows.append(dict(shape=[bb, cin, h, w, cout], launches=4 * n,
+                         max_abs_err=e,
+                         fwd_bwd_ms=events_ms(
+                             lambda: run(fused_bn_act_conv_train)),
+                         plain_fwd_bwd_ms=events_ms(
+                             lambda: run(fused_bn_act_conv_train_plain))))
+    return rows, err
+
+
+# ----------------------------------------------------------------- phase 5
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the port, by the name its entry carries."""
+    from shotvae_torch.ops.kernels import bn_leaky as bl
+    from shotvae_torch.ops.kernels.bn_act import bn_act_inference
+    from shotvae_torch.ops.kernels.fused_conv import fused_bn_act_conv
+    from shotvae_torch.ops.kernels.fused_sample import fused_joint_sample
+
+    return {"fused_bn_act_conv": fused_bn_act_conv,
+            "bn_act_inference": bn_act_inference,
+            "fused_joint_sample": fused_joint_sample,
+            "bn_stats": bl.bn_stats, "bn_apply": bl.bn_apply,
+            "bn_bwd_reduce": bl.bn_bwd_reduce,
+            "bn_bwd_apply": bl.bn_bwd_apply}
+
+
+def trainer(model):
+    """The headline configuration's train step over ``model`` (CIFAR-10,
+    ``--br --om``, SGD with the multistep LR at CIFAR-10's 45,000 train
+    images per epoch, the epoch-0 loss weights)."""
+    from shotvae_torch.config import ShotVaeConfig
+    from shotvae_torch.ops.schedules import (multistep_lr,
+                                             shot_vae_epoch_schedules)
+    from shotvae_torch.train.state import TrainState, sgd_torch
+    from shotvae_torch.train.steps import make_shot_vae_train_step
+
+    cfg = ShotVaeConfig(br=True, om=True)
+    spec = cfg.apply_dataset_overrides()
+    opt = sgd_torch(model, lr=cfg.lr, weight_decay=cfg.wd)
+    steps_per_epoch = (50000 - spec.valid_per_class * spec.num_classes) \
+        // cfg.batch_size
+    state = TrainState(model, opt, multistep_lr(cfg.lr, cfg.adjust_lr,
+                                                steps_per_epoch))
+    step = make_shot_vae_train_step(
+        model, opt, num_classes=spec.num_classes, bce=cfg.br,
+        x_sigma=cfg.x_sigma, epsilon=cfg.epsilon, optimal_match=cfg.om)
+    return state, step, shot_vae_epoch_schedules(0, cfg)
+
+
+def _state_errors(got, want, tol: float) -> float:
+    return max(max_err(got[k].cpu().float(), want[k].float(), tol,
+                       what=f"after a train step: {k}")
+               for k in want if not k.endswith("num_batches_tracked"))
+
+
+def normwise_rel_err(got, want) -> float:
+    """max |got - want| / max |want|: for gradients, whose size says
+    nothing of the parameters'."""
+    got, want = got.detach().double(), want.detach().double()
+    diff = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    return diff / scale if scale else (0.0 if diff == 0 else math.inf)
+
+
+def one_ulp_apart(model):
+    """A copy of ``model`` with every parameter moved one ulp up or down,
+    at random (seeded)."""
+    import torch
+
+    other = copy.deepcopy(model)
+    g = torch.Generator().manual_seed(SEED + 11)
+    with torch.no_grad():
+        for p in other.parameters():
+            up = torch.rand(p.shape, generator=g) < 0.5
+            p.copy_(torch.nextafter(p, torch.where(up, math.inf, -math.inf)))
+    return other
+
+
+def step_inputs(batch: int):
+    """Seeded uint8 images and labels of both streams, and every draw of
+    one train step at ``batch`` + ``batch`` (the ``inject`` dict)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 10)
+    t = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
+    inject = {f"eps_{i}": t(rng.standard_normal((batch, 128), np.float32))
+              for i in range(1, 5)}
+    inject.update({f"unif_{i}": t(rng.random((batch, 10), np.float32))
+                   for i in (3, 4)})
+    inject.update(lam_sm=float(rng.beta(0.1, 0.1)),
+                  perm_sm=t(rng.permutation(batch)),
+                  lam_mx=float(rng.beta(2.0, 2.0)),
+                  perm_mx=t(rng.permutation(batch)))
+    for s in ("l", "u"):
+        inject[f"aug_{s}"] = (t(rng.integers(0, 9, batch)),
+                              t(rng.integers(0, 9, batch)),
+                              t(rng.random(batch) < 0.5))
+    images = [t(rng.integers(0, 256, (batch, 32, 32, 3), dtype=np.uint8))
+              for _ in range(2)]
+    labels = [t(rng.integers(0, 10, batch)) for _ in range(2)]
+    return images[0], labels[0], images[1], labels[1], inject
+
+
+def train_once(model, inputs):
+    """One train step of ``model`` on ``step_inputs``: its metrics, each
+    parameter's gradient on the CPU, and the state after it."""
+    import torch
+
+    state, step, sched = trainer(model)
+    *data, inject = inputs
+    metrics = step(state, *data, sched, torch.Generator().manual_seed(SEED),
+                   inject)
+    params = dict(model.named_parameters())
+    check(all(p.grad is not None for p in params.values()),
+          "a parameter got no gradient")
+    return (metrics, {n: p.grad.cpu() for n, p in params.items()},
+            model.state_dict())
+
+
+def compare_train_step(dev, batch: int):
+    """One train step of the same model on ``dev`` and on the CPU at
+    ``batch`` + ``batch``, every draw injected and the crops and flips
+    replayed. Holds the metrics, each parameter's gradient (the step moves
+    a parameter by a few hundredths of its size, so the parameters after it
+    would hide a wrong gradient), then the parameters and running
+    statistics after it. A gradient may differ norm-wise by TOL_GRAD_STEP,
+    or by ULP_FACTOR times as much as the CPU's own moves when the weights
+    move by one ulp (a third step, on the CPU), where that is larger; so a
+    gradient that is rounding alone, such as that of a conv bias before a
+    BatchNorm, is not held. Returns the errors, the largest share of its
+    tolerance that a gradient used and the largest one-ulp spread."""
+    import torch
+
+    cpu_model = random_model("cpu")
+    dev_model = copy.deepcopy(cpu_model).to(dev)
+    ulp_model = one_ulp_apart(cpu_model)
+    inputs = step_inputs(batch)
+    (m_dev, g_dev, sd_dev), (m_cpu, g_cpu, sd_cpu), (_, g_ulp, _) = [
+        train_once(model, inputs)
+        for model in (dev_model, cpu_model, ulp_model)]
+    metric_err = max(max_err(m_dev[k].cpu(), m_cpu[k], TOL_STEP,
+                             what=f"train step metric {k}") for k in m_cpu)
+    errs, spreads, share = [], [], 0.0
+    for n, want in g_cpu.items():
+        spread = normwise_rel_err(g_ulp[n], want)
+        tol = max(TOL_GRAD_STEP, ULP_FACTOR * spread)
+        e = normwise_rel_err(g_dev[n], want)
+        check(bool(torch.isfinite(g_dev[n]).all()) and e <= tol,
+              f"card and CPU disagree on the gradient of {n}: {e:.3e} "
+              f"norm-wise, beyond tol {tol:.3e} (one-ulp spread "
+              f"{spread:.3e})")
+        errs.append(e)
+        spreads.append(spread)
+        share = max(share, e / tol)
+    return (metric_err, max(errs), statistics.median(errs), share,
+            max(spreads), statistics.median(spreads),
+            _state_errors(sd_dev, sd_cpu, TOL_STEP))
+
+
+VS_CPU_KEYS = ("metrics_max_abs_err", "grad_max_rel_err",
+               "grad_median_rel_err", "grad_max_share_of_tol",
+               "grad_one_ulp_spread_max", "grad_one_ulp_spread_median",
+               "state_max_abs_err")
+
+
+def step_times(dev, run, batch: int, suffix: str) -> dict:
+    """Wall time of 10 single steps after 2 more, each ending in a device
+    synchronise: the median and the range, and unlabeled images/s at the
+    median."""
+    reps = 10
+    for _ in range(2):
+        run()
+    _sync(dev)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    median = (times[(reps - 1) // 2] + times[reps // 2]) / 2
+    return {f"step_ms{suffix}": median,
+            f"step_ms_range{suffix}": [times[0], times[-1]],
+            f"unlabeled_images_per_s{suffix}": batch / median * 1e3}
+
+
+def train_phase(dev, batch: int, steps: int = TRAIN_STEPS):
+    """The training main path on ``dev``: ``steps`` SHOT-VAE train steps at
+    ``batch`` + ``batch`` with every kernel's launches counted, then step
+    times, one profiled step, the eval step, and one step held against the
+    CPU. On the CPU no wrapper launches a kernel: every count must be 0."""
+    import torch
+
+    from shotvae_torch.train.steps import make_vae_eval_step
+
+    counters = kernel_counters()
+    cuda = dev.type == "cuda"
+    model = random_model(dev.type)
+    state, step, sched = trainer(model)
+    g = torch.Generator().manual_seed(SEED + 9)
+    data = [torch.randint(0, 256, (batch, 32, 32, 3), generator=g,
+                          dtype=torch.uint8).to(dev),
+            (torch.arange(batch) % 10).to(dev),
+            torch.randint(0, 256, (batch, 32, 32, 3), generator=g,
+                          dtype=torch.uint8).to(dev),
+            torch.randint(0, 10, (batch,), generator=g).to(dev)]
+    run = lambda: step(state, *data, sched, g)  # noqa: E731
+    run()  # compiles every kernel variant the step needs
+    _sync(dev)
+
+    for k in counters.values():
+        k.launches = 0
+    metrics = [run() for _ in range(steps)]
+    _sync(dev)
+    launches = {name: k.launches for name, k in counters.items()}
+    want = {name: n * steps if cuda else 0
+            for name, n in EXPECTED_TRAIN_LAUNCHES.items()}
+    check(launches == want, f"train steps launched {launches}, expected "
+          f"{want}")
+    for m in metrics:
+        check(all(bool(torch.isfinite(v)) for v in m.values()),
+              f"non-finite train metrics {m}")
+    last = {k: float(v) for k, v in metrics[-1].items()}
+
+    timing = step_times(dev, run, batch, "")
+    profile = device_breakdown(run, top=12) if cuda else None
+    profile_tf32 = None
+    if cuda:
+        # PyTorch's default lets cuDNN convolve in TF32: the library convs
+        # (dgrad, wgrad, the decoder) then run on the tensor cores; the
+        # profile names the cuDNN kernels it chose
+        torch.backends.cudnn.allow_tf32 = True
+        timing.update(step_times(dev, run, batch, "_cudnn_tf32"))
+        profile_tf32 = device_breakdown(run, top=12)
+        torch.backends.cudnn.allow_tf32 = False
+
+    evaluate = make_vae_eval_step(model, num_classes=10, bce=True,
+                                  x_sigma=1.0)
+    weight = torch.ones(batch, device=dev)
+    eval_run = lambda: evaluate(data[2], data[3], weight,  # noqa: E731
+                                generator=g)
+    for k in counters.values():
+        k.launches = 0
+    eval_metrics, recon = eval_run()
+    _sync(dev)
+    eval_launches = {name: k.launches for name, k in counters.items()}
+    want = {name: n if cuda else 0
+            for name, n in EXPECTED_EVAL_LAUNCHES.items()}
+    check(eval_launches == want, f"eval step launched {eval_launches}, "
+          f"expected {want}")
+    check(recon.shape == (batch, 32, 32, 3)
+          and float(eval_metrics["count"]) == batch
+          and all(bool(torch.isfinite(v)) for v in eval_metrics.values()),
+          "eval step gave a wrong shape, count or a non-finite metric")
+    timing["eval_step_ms"] = host_ms(dev, eval_run)
+
+    errs = compare_train_step(dev, min(COMPARE_BATCH, batch))
+    return dict(launches=launches, eval_launches=eval_launches,
+                last_metrics=last, timing=timing, profile=profile,
+                profile_cudnn_tf32=profile_tf32,
+                vs_cpu=dict(zip(VS_CPU_KEYS, errs)))
 
 
 # -------------------------------------------------------------------- main
 
 
-def summarize(name, route, source, replaces, bound_by, rows, err, launches):
-    """One kernel's entry: per-shape times weighted by launches per
-    ``reconstruct`` at batch 768."""
+def summarize(name, route, source, replaces, bound_by, rows, err, launches,
+              per: str = f"reconstruct at batch {BATCH}"):
+    """One kernel's entry: per-shape times weighted by the launches per
+    ``per`` (a ``reconstruct`` or a train step at batch 768), which are
+    ``launches_per_unit``; ``launches`` counts the whole main path."""
     total = lambda key: sum(r[key] * r["launches"] for r in rows)  # noqa: E731
     return dict(name=name, route=route, source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=total("ms"),
                 plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
                 bound_by=bound_by,
                 library_ms=(None if rows[0]["library_ms"] is None
-                            else total("library_ms")))
+                            else total("library_ms")), per=per,
+                launches_per_unit=sum(r["launches"] for r in rows))
 
 
 def main() -> int:
@@ -451,9 +909,6 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from shotvae_torch.ops.kernels import _build
-    from shotvae_torch.ops.kernels.bn_act import bn_act_inference
-    from shotvae_torch.ops.kernels.fused_conv import fused_bn_act_conv
-    from shotvae_torch.ops.kernels.fused_sample import fused_joint_sample
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -479,27 +934,85 @@ def main() -> int:
             print(f"{name} {json.dumps(row)}")
         print(f"{name} phase {time.perf_counter() - t0:.1f} s")
 
-    counters = (fused_bn_act_conv, bn_act_inference, fused_joint_sample)
+    serving = ("fused_bn_act_conv", "bn_act_inference", "fused_joint_sample")
+    counters = tuple(kernel_counters()[name] for name in serving)
     launches, e2e_err, timing, timing_tf32, breakdown = end_to_end(BATCH,
                                                                    counters)
     print("e2e_vs_cpu_max_abs_err " + json.dumps(e2e_err))
     print(f"e2e_ms_at_batch_{BATCH} " + json.dumps(timing))
     print(f"e2e_ms_at_batch_{BATCH}_cudnn_tf32 " + json.dumps(timing_tf32))
     print(f"reconstruct_profile_at_batch_{BATCH} " + json.dumps(breakdown))
-    conv_n, bn_n, sample_n = launches
+    serve = dict(zip(serving, launches))
+
+    t0 = time.perf_counter()
+    bn_rows, bn_err = bn_leaky_phase(dev, BATCH)
+    for name, rows in bn_rows.items():
+        for row in rows:
+            print(f"{name} {json.dumps(row)}")
+    print(f"bn_leaky_train phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    conv_bwd_rows, conv_bwd_err = conv_bwd_phase(dev, BATCH)
+    for row in conv_bwd_rows:
+        print(f"fused_bn_act_conv_train {json.dumps(row)}")
+    print(f"fused conv backward phase {time.perf_counter() - t0:.1f} s, "
+          f"max abs err {conv_bwd_err:.3e}")
+    t0 = time.perf_counter()
+    train = train_phase(dev, BATCH)
+    for key in ("launches", "eval_launches", "last_metrics", "timing",
+                "profile", "profile_cudnn_tf32"):
+        print(f"train_{key}_at_batch_{BATCH}+{BATCH} "
+              + json.dumps(train[key]))
+    print(f"train_step_vs_cpu_at_{COMPARE_BATCH}+{COMPARE_BATCH} "
+          + json.dumps(train["vs_cpu"]))
+    print(f"train phase {time.perf_counter() - t0:.1f} s")
+    conv_train = sum(r["launches"] for r in conv_bwd_rows)
+    check(conv_train * TRAIN_STEPS == train["launches"]["fused_bn_act_conv"],
+          f"the fused conv backward rows weigh {conv_train} launches per "
+          f"train step; {TRAIN_STEPS} steps launched "
+          f"{train['launches']['fused_bn_act_conv']}")
+
     entries = [
         summarize("bn_act_inference", "triton",
                   "shotvae_torch/ops/kernels/bn_act.py",
                   "shotvae_tpu/ops/pallas/fused_bn_act.py:261", "bytes",
-                  *phases["bn_act_inference"], bn_n),
+                  *phases["bn_act_inference"], serve["bn_act_inference"]),
         summarize("fused_bn_act_conv", "cuda", "shotvae_torch/csrc/fused_conv.cu",
                   "shotvae_tpu/ops/pallas/fused_conv.py:170", "operations",
-                  *phases["fused_bn_act_conv"], conv_n),
+                  *phases["fused_bn_act_conv"], serve["fused_bn_act_conv"]),
         summarize("fused_joint_sample", "triton",
                   "shotvae_torch/ops/kernels/fused_sample.py",
                   "shotvae_tpu/ops/pallas/fused_sample.py:62", "bytes",
-                  *phases["fused_joint_sample"], sample_n),
-    ]
+                  *phases["fused_joint_sample"], serve["fused_joint_sample"]),
+    ] + [
+        summarize(f"bn_leaky_train {part}", "triton",
+                  "shotvae_torch/ops/kernels/bn_leaky.py",
+                  f"shotvae_tpu/ops/pallas/fused_bn_act.py:{line}", "bytes",
+                  bn_rows[name], bn_err[name], 0,
+                  per=f"train step at {BATCH} + {BATCH}")
+        for part, name, line in (("stats", "bn_stats", 140),
+                                 ("apply", "bn_apply", 176),
+                                 ("backward reduce", "bn_bwd_reduce", 206),
+                                 ("backward apply", "bn_bwd_apply", 217))]
+    # launches: every main-path run (serving, TRAIN_STEPS train steps, one
+    # eval step), each counted from 0
+    for entry, name in zip(entries, ("bn_act_inference", "fused_bn_act_conv",
+                                     "fused_joint_sample", "bn_stats",
+                                     "bn_apply", "bn_bwd_reduce",
+                                     "bn_bwd_apply")):
+        by_path = {"serve": serve.get(name, 0),
+                   "train": train["launches"][name],
+                   "eval": train["eval_launches"][name]}
+        check(sum(by_path.values()) > 0, f"{name} never launched on the "
+              f"main path")
+        entry.update(launches=sum(by_path.values()),
+                     launches_by_path=by_path)
+        # the launch weights of the entry's times against the counts: per
+        # reconstruct (as end_to_end asserted) or per train step
+        unit = (EXPECTED_LAUNCHES["reconstruct"][serving.index(name)]
+                if name in serving else by_path["train"] / TRAIN_STEPS)
+        check(entry["launches_per_unit"] == unit, f"{name}'s timed rows "
+              f"weigh {entry['launches_per_unit']} launches per "
+              f"{entry['per']}; the main path launched {unit}")
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

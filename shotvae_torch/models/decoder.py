@@ -8,10 +8,10 @@ channels 1024->512->256->128->64, and a final ConvTranspose to
 
 ``decoder`` keeps the reference Sequential's indices (ConvTranspose at 0, 3,
 ..., 15, BatchNorm at 1, 4, ..., 13; the ReLUs at 2, 5, ... hold no
-parameters and are fused into the BatchNorms, which run the ``bn_act``
-kernel with slope 0). The JAX package's subpixel split of the stride-2
-ConvTranspose is a TPU workaround and is not ported: these are native
-``ConvTranspose2d``.
+parameters and are fused into the BatchNorms, which run with slope 0: the
+``bn_act`` kernel in eval mode, the ``bn_leaky`` kernels in train mode).
+The JAX package's subpixel split of the stride-2 ConvTranspose is a TPU
+workaround and is not ported: these are native ``ConvTranspose2d``.
 """
 
 from __future__ import annotations

@@ -8,7 +8,12 @@
   at every site of the model, LeakyReLU(0.01) or ReLU (slope 0). In eval
   mode its running statistics are folded into one per-channel scale/shift,
   applied by the ``bn_act`` kernel alone or as the prologue of the
-  ``fused_conv`` kernel. Train mode is the training slice and raises.
+  ``fused_conv`` kernel. In train mode it normalises with the biased batch
+  statistics through the ``bn_leaky`` kernels, alone or as the train-mode
+  fused conv site, and updates its running statistics in place with
+  momentum 0.1 from the BIASED batch variance, which is what flax tracks
+  (the JAX package's README "Parity and documented deviations" 7; torch's
+  own BatchNorm2d tracks the unbiased one).
 * Activations are NCHW tensors in ``channels_last`` memory format, whose
   memory is the (N*H*W, C) rows the kernels take.
 """
@@ -19,14 +24,15 @@ import torch
 from torch import nn
 
 from shotvae_torch.ops.kernels.bn_act import bn_act_inference
+from shotvae_torch.ops.kernels.bn_leaky import bn_leaky_train
 from shotvae_torch.ops.kernels.fused_conv import (bn_affine_from_stats,
-                                                  fused_bn_act_conv)
+                                                  from_rows,
+                                                  fused_bn_act_conv,
+                                                  fused_bn_act_conv_train,
+                                                  to_rows)
 
 LEAKY_SLOPE = 0.01  # torch nn.LeakyReLU default negative_slope
 RELU_SLOPE = 0.0
-_TRAIN_SLICE = ("train-mode BatchNorm is not ported yet: it is the training "
-                "slice (ROADMAP.md queue 1 item 4, queue 2 bn_leaky_train); "
-                "call .eval() to serve")
 
 
 def zero_biases_(module: nn.Module) -> nn.Module:
@@ -54,33 +60,51 @@ class BatchNorm(nn.BatchNorm2d):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.slope = slope
 
-    def _check_eval(self):
-        if self.training:
-            raise NotImplementedError(_TRAIN_SLICE)
-
     def scale_shift(self):
         """The eval-mode affine, folded from the running statistics."""
         return bn_affine_from_stats(self.running_mean, self.running_var,
                                     self.weight, self.bias, self.eps)
 
+    @torch.no_grad()
+    def _track(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """running = 0.9 * running + 0.1 * batch statistic (flax's
+        momentum 0.9), in place."""
+        self.running_mean.mul_(1.0 - self.momentum).add_(mean,
+                                                         alpha=self.momentum)
+        self.running_var.mul_(1.0 - self.momentum).add_(var,
+                                                        alpha=self.momentum)
+        self.num_batches_tracked.add_(1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """act(BN(x)) through the ``bn_act`` kernel."""
-        self._check_eval()
+        """act(BN(x)): the ``bn_leaky`` kernels in train mode, the ``bn_act``
+        kernel in eval mode."""
         x = channels_last(x)
-        n, c, h, w = x.shape
-        rows = x.permute(0, 2, 3, 1).reshape(n * h * w, c)
-        y = bn_act_inference(rows, self.weight, self.bias, self.running_mean,
-                             self.running_var, self.eps, self.slope)
-        return y.reshape(n, h, w, c).permute(0, 3, 1, 2)
+        n, _, h, w = x.shape
+        rows = to_rows(x)
+        if self.training:
+            y, mean, var = bn_leaky_train(rows, self.weight, self.bias,
+                                          self.eps, self.slope)
+            self._track(mean, var)
+        else:
+            y = bn_act_inference(rows, self.weight, self.bias,
+                                 self.running_mean, self.running_var,
+                                 self.eps, self.slope)
+        return from_rows(y, n, h, w)
 
     def act_conv(self, x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
         """conv(act(BN(x))) for a 3x3 stride-1 bias-free ``conv``, through
-        the ``fused_conv`` kernel."""
-        self._check_eval()
+        the train-mode or the eval-mode fused conv site."""
         if conv.stride != (1, 1) or conv.padding != (1, 1) \
                 or conv.bias is not None:
             raise ValueError("act_conv fuses only a 3x3, stride-1, "
                              "padding-1, bias-free conv")
+        x = channels_last(x)
+        if self.training:
+            y, mean, var = fused_bn_act_conv_train(
+                x, self.weight, self.bias, conv.weight, eps=self.eps,
+                slope=self.slope)
+            self._track(mean, var)
+            return y
         scale, shift = self.scale_shift()
-        return fused_bn_act_conv(channels_last(x), scale, shift, conv.weight,
+        return fused_bn_act_conv(x, scale, shift, conv.weight,
                                  slope=self.slope)

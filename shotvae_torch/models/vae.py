@@ -7,9 +7,12 @@ Parameter paths are the reference's (``feature_extractor``,
 ``feature_reconstructor``), the names ``shotvae_tpu/io/torch_export.py``
 emits, so an exported checkpoint loads with ``strict=True``.
 
-Eval mode only in this slice (``module.eval()``); a train-mode forward
-raises ``NotImplementedError``. Methods take and return NCHW tensors; the
-serving API (``shotvae_torch.api``) keeps the JAX package's NHWC layout.
+Train mode (``module.train()``) normalises with batch statistics through the
+``bn_leaky`` kernels and draws the latent with the differentiable
+``sampling.joint_latent``, as the JAX train step does; eval mode serves
+through the eval kernels and the ``fused_sample`` kernel, which has no
+gradient. Methods take and return NCHW tensors; the serving API
+(``shotvae_torch.api``) keeps the JAX package's NHWC layout.
 """
 
 from __future__ import annotations
@@ -86,25 +89,36 @@ class VariationalAutoEncoder(nn.Module):
         """(B, Dc + Dd) latent -> (B, C, H, W) reconstruction logits, f32."""
         return self.feature_reconstructor(latent.to(torch.float32))
 
-    def forward(self, x: torch.Tensor, *, noise: Optional[dict] = None,
+    def forward(self, x: torch.Tensor, *, labels=None, mixup: bool = False,
+                labels_mixup=None, mixup_lam=None, noise: Optional[dict] = None,
                 generator: Optional[torch.Generator] = None):
-        """-> (reconstruction logits, mean, log_sigma, log_alpha).
+        """-> (reconstruction logits, mean, log_sigma, log_alpha), as
+        shotvae_tpu/models/vae.py:107-124.
 
-        The latent is drawn by the ``fused_sample`` kernel, seeded from
-        ``generator``. ``noise`` ({"eps", "unif"}) injects the draws
-        instead, with ``sampling.joint_latent``'s semantics, for
-        deterministic replay against the JAX model.
+        ``labels`` replace the discrete draw with their one-hots (-1 rows
+        keep the draw); with ``mixup`` the one-hots of ``labels`` and
+        ``labels_mixup`` are combined with weight ``mixup_lam``. In train
+        mode, or with labels or ``noise`` ({"eps", "unif"}, injected draws
+        for deterministic replay against the JAX model), the latent comes
+        from the differentiable ``sampling.joint_latent``. Otherwise (eval
+        mode, no labels, no noise) the ``fused_sample`` kernel draws it.
+        Either draw is seeded by one draw from ``generator``, which does
+        not synchronise the card where ``generator`` is a host generator.
         """
         norm_mean, norm_log_sigma, disc_log_alpha = self.encode(x)
-        if noise is None:
+        if self.training or labels is not None or noise is not None:
+            latent = sampling.joint_latent(
+                norm_mean, norm_log_sigma, disc_log_alpha,
+                self.sample_temperature, labels=labels,
+                labels_mixup=labels_mixup if mixup else None,
+                mixup_lam=mixup_lam if mixup else None, noise=noise,
+                generator=(None if generator is None else
+                           sampling.device_generator(generator,
+                                                     norm_mean.device)))
+        else:
             latent = fused_joint_sample(norm_mean, norm_log_sigma,
                                         disc_log_alpha,
                                         self.sample_temperature,
                                         generator=generator)
-        else:
-            latent = sampling.joint_latent(norm_mean, norm_log_sigma,
-                                           disc_log_alpha,
-                                           self.sample_temperature,
-                                           noise=noise, generator=generator)
         recon = self.decode(latent)
         return recon, norm_mean, norm_log_sigma, disc_log_alpha

@@ -6,9 +6,12 @@ and 3, then a final BN+LeakyReLU transition. Parameter paths are the
 reference's (``encoder.wideblock{k}.wide_block.wideunit{i}.{f,i}_block.*``),
 so an exported reference state_dict loads with ``strict=True``.
 
-Kernel sites in eval mode: every stride-1 BN->act->conv3x3 runs the
-``fused_conv`` kernel; a BN->act before a stride-2 conv or a 1x1 shortcut,
-and the transition, run the ``bn_act`` kernel.
+Kernel sites, the same in both modes: every stride-1 BN->act->conv3x3 is a
+fused conv site (``fused_conv``: its kernel, behind the ``bn_leaky``
+statistics in train mode); a BN->act before a stride-2 conv or a 1x1
+shortcut, and the transition, are standalone BN sites (``bn_leaky`` in train
+mode, ``bn_act`` in eval mode). At WRN-28-2 that is 22 fused and 6
+standalone sites per forward.
 """
 
 from __future__ import annotations

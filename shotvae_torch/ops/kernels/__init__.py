@@ -1,2 +1,15 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version and a
 launch counter (``<wrapper>.launches``)."""
+
+import torch
+
+
+def refuse_grad(name: str, training_path: str, *tensors) -> None:
+    """Raise where grad mode is on and an input requires grad: the kernel
+    has no gradient (as in the JAX package), and its output would silently
+    cut the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no gradient, as in the JAX package; run it under "
+            f"torch.no_grad() or torch.inference_mode(), and train through "
+            f"{training_path}")

@@ -15,7 +15,8 @@ four BN vectors, and streams the block. The TPU kernel's lane fold (``_fold_fact
 row tiling exist for the TPU's 128-lane vectors and are not carried over.
 
 On the CPU the wrapper runs the plain version; on a CUDA tensor it launches
-the kernel or raises.
+the kernel or raises. Like the JAX kernel it has no gradient: under grad
+mode, an input that requires grad raises (training runs ``bn_leaky``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import functools
 
 import torch
 
+from shotvae_torch.ops.kernels import refuse_grad
 from shotvae_torch.ops.kernels.fused_conv import bn_affine_from_stats
 
 LEAKY_SLOPE = 0.01
@@ -73,7 +75,11 @@ def bn_act_inference(x, weight, bias, running_mean, running_var,
                      eps: float = 1e-5, slope: float = LEAKY_SLOPE):
     """Eval-mode BN + LeakyReLU(slope) on (M, C) rows, the running
     statistics folded to one per-channel scale/shift as
-    fused_bn_act.py:252-254 does (slope 0 is the decoder's ReLU)."""
+    fused_bn_act.py:252-254 does (slope 0 is the decoder's ReLU). It has
+    no gradient: an input that requires grad under grad mode raises."""
+    refuse_grad("bn_act_inference", "train mode (model.train(): "
+                "shotvae_torch.ops.kernels.bn_leaky.bn_leaky_train)",
+                x, weight, bias, running_mean, running_var)
     if x.device.type == "cpu":
         return bn_act_plain(x, weight, bias, running_mean, running_var, eps,
                             slope)

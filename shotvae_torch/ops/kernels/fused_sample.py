@@ -23,7 +23,9 @@ the plain version below takes the same uniforms through the same arithmetic.
 The seed is one draw from the caller's ``torch.Generator``.
 
 On the CPU the wrapper runs the plain version; on a CUDA tensor it launches
-the kernel or raises.
+the kernel or raises. Like the JAX kernel it has no gradient: under grad
+mode, an input that requires grad raises (training draws through
+``sampling.joint_latent``).
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from typing import Optional
 
 import torch
 
-from shotvae_torch.ops.sampling import gumbel_softmax_from_uniform
+from shotvae_torch.ops.kernels import refuse_grad
+from shotvae_torch.ops.sampling import draw_seed, gumbel_softmax_from_uniform
 
 _TWO_PI = 2.0 * math.pi
 _BLOCK_B = 32
@@ -113,17 +116,15 @@ def _compiled():
     return triton.jit(_sample_kernel, do_not_specialize=["seed"])
 
 
-def draw_seed(generator: Optional[torch.Generator] = None) -> int:
-    """One 31-bit seed from the caller's generator (the default CPU
-    generator when None)."""
-    device = "cpu" if generator is None else generator.device
-    return int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
-                             device=device).item())
-
-
 def fused_joint_sample(mean, log_sigma, log_alpha, temperature: float = 0.67,
                        *, generator: Optional[torch.Generator] = None):
-    """[z ; y] sample, shape (B, Dc + Dd) f32, seeded from ``generator``."""
+    """[z ; y] sample, shape (B, Dc + Dd) f32, seeded from ``generator``.
+    It has no gradient: an input that requires grad under grad mode
+    raises."""
+    refuse_grad("fused_joint_sample", "the reparameterised "
+                "shotvae_torch.ops.sampling.joint_latent (a train-mode "
+                "VariationalAutoEncoder forward takes it)",
+                mean, log_sigma, log_alpha)
     seed = draw_seed(generator)
     if mean.device.type == "cpu":
         return fused_joint_sample_plain(

@@ -1,0 +1,113 @@
+"""Mixup and label-smoothing interpolation for the SHOT-VAE.
+
+Port of shotvae_tpu/ops/mixup.py:19-168 (the parts the SHOT-VAE step runs).
+The optimal-match partner comes from the vectorised pairwise Gaussian KL
+with the diagonal masked, as in the JAX package.
+
+Randomness: ``generator`` is a host (CPU) ``torch.Generator``. The
+interpolation weight is drawn on the host, as the reference did
+(shotvae_tpu/ops/mixup.py:7-8), by a numpy ``Generator`` seeded with one
+draw from it (``torch.distributions.Beta`` takes no generator); it is a
+Python scalar, so the card is not synchronised for it. The partner
+permutation is drawn on the tensors' device by ``torch.randperm`` with a
+generator seeded from ``generator``. ``lam=`` / ``index=`` override the
+draws for deterministic replay.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from shotvae_torch.ops.sampling import device_generator, draw_seed
+
+
+class MixupBatch(NamedTuple):
+    """Interpolated inputs and posterior targets (no gradient)."""
+
+    image: torch.Tensor       # lam * x + (1-lam) * x[perm]
+    z_mean: torch.Tensor      # interpolated posterior mean
+    z_sigma: torch.Tensor     # interpolated posterior *sigma*
+    disc_alpha: torch.Tensor  # interpolated posterior *probabilities*
+    partner_labels: Optional[torch.Tensor]  # labels[perm] (label smoothing)
+    lam: float
+
+
+def pairwise_gaussian_kl(z_mean, z_log_sigma):
+    """KL[N_i || N_j] for every ordered pair, (B, B), as matrix products."""
+    z_mean = z_mean.to(torch.float32)
+    z_log_sigma = z_log_sigma.to(torch.float32)
+    dim = z_mean.shape[1]
+    var = torch.exp(2.0 * z_log_sigma)
+    inv_var = torch.exp(-2.0 * z_log_sigma)
+    ls_row = z_log_sigma.sum(1)
+    term_logdet = ls_row[None, :] - ls_row[:, None]
+    term_trace = 0.5 * (var @ inv_var.T)
+    mu_sq = z_mean * z_mean
+    term_mahal = 0.5 * (mu_sq @ inv_var.T
+                        - 2.0 * (z_mean @ (z_mean * inv_var).T)
+                        + (mu_sq * inv_var).sum(1)[None, :])
+    return term_logdet + term_trace + term_mahal - 0.5 * dim
+
+
+def optimal_match_index(z_mean, z_log_sigma):
+    """Partner = the smallest-KL *other* sample of each row; the diagonal
+    is masked, since the expanded KL has float32 noise there."""
+    kl = pairwise_gaussian_kl(z_mean, z_log_sigma)
+    eye = torch.eye(kl.shape[0], dtype=kl.dtype, device=kl.device)
+    return torch.argmin(kl + eye * 3.4e38, dim=1)
+
+
+def draw_beta(generator: Optional[torch.Generator], a: float,
+              b: float) -> float:
+    """One Beta(a, b) draw on the host, from a numpy generator seeded by
+    ``generator``."""
+    return float(np.random.default_rng(draw_seed(generator)).beta(a, b))
+
+
+def _permutation(generator, n: int, device):
+    return torch.randperm(n, generator=device_generator(generator, device),
+                          device=device)
+
+
+def mixup_vae_data(image, z_mean, z_log_sigma, disc_log_alpha, *,
+                   optimal_match: bool = False, lam=None, index=None,
+                   generator: Optional[torch.Generator] = None) -> MixupBatch:
+    """Posterior-interpolation mixup for the unlabeled stream: lam ~
+    Beta(2, 2); partner from a random permutation or the optimal KL match;
+    image, z-mean, z-*sigma* and y-*alpha* (probabilities) interpolated.
+    An injected ``index`` wins even under ``optimal_match``."""
+    if lam is None:
+        lam = draw_beta(generator, 2.0, 2.0)
+    if index is None:
+        index = (optimal_match_index(z_mean, z_log_sigma) if optimal_match
+                 else _permutation(generator, image.shape[0], image.device))
+    return _interpolate(image, z_mean, z_log_sigma, disc_log_alpha, index,
+                        lam, labels=None)
+
+
+def label_smoothing(image, z_mean, z_log_sigma, disc_log_alpha, labels, *,
+                    epsilon: float = 0.1, lam=None, index=None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> MixupBatch:
+    """Label-smoothing-strength interpolation for the labeled stream: lam ~
+    Beta(eps, eps), a random-permutation partner, and the partner's
+    label."""
+    if lam is None:
+        lam = draw_beta(generator, epsilon, epsilon) if epsilon > 0 else 1.0
+    if index is None:
+        index = _permutation(generator, image.shape[0], image.device)
+    return _interpolate(image, z_mean, z_log_sigma, disc_log_alpha, index,
+                        lam, labels=labels)
+
+
+def _interpolate(image, z_mean, z_log_sigma, disc_log_alpha, index, lam, *,
+                 labels):
+    lam = float(lam)
+    index = torch.as_tensor(index, device=image.device).long()
+    mix = lambda t: lam * t + (1.0 - lam) * t[index]  # noqa: E731
+    return MixupBatch(mix(image), mix(z_mean), mix(torch.exp(z_log_sigma)),
+                      mix(torch.exp(disc_log_alpha)),
+                      None if labels is None else labels[index], lam)

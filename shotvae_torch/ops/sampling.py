@@ -15,6 +15,21 @@ import torch
 GUMBEL_EPS = 1e-12  # parity: shotvae_tpu/ops/sampling.py:15
 
 
+def draw_seed(generator: Optional[torch.Generator] = None) -> int:
+    """One 31-bit seed from the caller's generator (the default CPU
+    generator when None)."""
+    device = "cpu" if generator is None else generator.device
+    return int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                             device=device).item())
+
+
+def device_generator(generator: Optional[torch.Generator],
+                     device) -> torch.Generator:
+    """A generator on ``device`` seeded by one draw from ``generator``. With
+    a host (CPU) ``generator`` the draw does not synchronise the card."""
+    return torch.Generator(device=device).manual_seed(draw_seed(generator))
+
+
 def sample_gaussian(mean, log_sigma, *, eps=None,
                     generator: Optional[torch.Generator] = None):
     """z = mu + exp(log_sigma) * eps,  eps ~ N(0, I). ``eps`` overrides the

@@ -1,0 +1,225 @@
+"""The SHOT-VAE train step and the VAE eval step.
+
+Port of shotvae_tpu/train/steps.py:30-44, 108-124, 261-384 and 470-528.
+The train step keeps the reference's four forwards (labeled, label-smoothed
+labeled, unlabeled, mixed unlabeled) with one backward over
+``loss_supervised + loss_unsupervised`` (the gradient of the sum equals the
+reference's two accumulated ``.backward()`` calls) and one SGD update.
+Stop-gradients are ``.detach()``. The BatchNorm running statistics update
+in all four forwards, the decoder's included, as the JAX step threads
+``batch_stats`` through them.
+
+Randomness: ``generator`` is a host (CPU) ``torch.Generator``. Every random
+site seeds from it (the card is not synchronised for that): the crops and
+flips and the latent draws on the model's device, the mixup weights on the
+host, the mixup permutations on the device. ``inject`` replays pre-drawn
+randomness instead, under the JAX step's keys ``eps_1..eps_4``, ``unif_3``,
+``unif_4``, ``lam_sm``, ``perm_sm``, ``lam_mx``, ``perm_mx``, plus
+``aug_l`` / ``aug_u``, the ``(off_y, off_x, flip)`` of ``augment_batch``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from shotvae_torch.data.pipeline import augment_batch, to_float
+from shotvae_torch.ops import losses, mixup
+from shotvae_torch.ops.sampling import device_generator, label_onehot
+from shotvae_torch.train.state import TrainState
+
+
+def _device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def _prepare(images_u8, device, *, augment: bool, generator=None,
+             offsets=None) -> torch.Tensor:
+    """uint8 NHWC -> float NCHW (channels_last) on ``device``; ``augment``:
+    the train-time pad 4, 32x32 crop and flip of ``augment_batch``."""
+    x = to_float(torch.as_tensor(images_u8).to(device))
+    if augment:
+        gen = None if offsets is not None else device_generator(generator,
+                                                                 device)
+        x = augment_batch(x, generator=gen, offsets=offsets)
+    return x.permute(0, 3, 1, 2)
+
+
+def _noise(inject, device, eps_key: str, unif_key: Optional[str] = None):
+    """The ``noise`` dict of one forward from the injected draws."""
+    if not inject:
+        return None
+    out = {name: torch.as_tensor(inject[key]).to(device)
+           for name, key in (("eps", eps_key), ("unif", unif_key))
+           if key in inject}
+    return out or None
+
+
+def _cont_posterior(mean, log_sigma, target: mixup.MixupBatch, batch: int):
+    return (((mean - target.z_mean) ** 2).sum()
+            + ((torch.exp(log_sigma) - target.z_sigma) ** 2).sum()) / batch
+
+
+def make_shot_vae_train_step(model, optimizer, *, num_classes: int, bce: bool,
+                             x_sigma: float, epsilon: float,
+                             optimal_match: bool, aug: bool = True):
+    """The SHOT-VAE step: ``step(state, img_l, lab_l, img_u, lab_u, sched,
+    generator, inject=None) -> metrics``.
+
+    ``state`` is the ``TrainState`` of this ``model`` and ``optimizer``;
+    the step puts the model in train mode, updates its parameters and BN
+    running statistics in place and advances ``state.step``. Images are
+    uint8 NHWC batches, labels integer class indices (``lab_u`` feeds only
+    the ``kl_inference`` metric). ``sched`` is the dict of
+    ``ops.schedules.shot_vae_epoch_schedules``. Returns the JAX step's
+    metrics as 0-d tensors on the model's device. ``aug=False`` turns the
+    crops and flips off.
+    """
+
+    def elbo(x, recon, mean, log_sigma, log_alpha, sched):
+        terms = losses.elbo_terms(x, recon, mean, log_sigma, log_alpha,
+                                  num_classes=num_classes, bce=bce,
+                                  x_sigma=x_sigma)
+        r, ckl, dkl = terms
+        return (r + sched["kl_beta_c"] * losses.mi_hinge(ckl, sched["cmi"])
+                + sched["kl_beta_d"] * losses.mi_hinge(dkl, sched["dmi"])), \
+            terms
+
+    def loss_fn(x_l, lab_l, x_u, lab_u, sched, generator, inj):
+        dev = x_l.device
+        batch_l, batch_u = x_l.shape[0], x_u.shape[0]
+        onehot_l = label_onehot(lab_l, num_classes)
+
+        # labeled forward 1: the ground-truth label path
+        recon_l, mean_l, ls_l, la_l = model(
+            x_l, labels=lab_l, noise=_noise(inj, dev, "eps_1"),
+            generator=generator)
+        elbo_l, (r_l, ckl_l, dkl_l) = elbo(x_l, recon_l, mean_l, ls_l, la_l,
+                                           sched)
+
+        # labeled forward 2: the label-smoothing interpolation
+        sm = mixup.label_smoothing(
+            x_l, mean_l.detach(), ls_l.detach(), la_l.detach(), lab_l,
+            epsilon=epsilon, lam=inj.get("lam_sm"), index=inj.get("perm_sm"),
+            generator=generator)
+        _, mean_sm, ls_sm, la_sm = model(
+            sm.image, labels=lab_l, mixup=True,
+            labels_mixup=sm.partner_labels, mixup_lam=sm.lam,
+            noise=_noise(inj, dev, "eps_2"), generator=generator)
+        onehot_p = label_onehot(sm.partner_labels, num_classes)
+        disc_post_l = (sm.lam * losses.cls_nll(la_sm, onehot_l)
+                       + (1.0 - sm.lam) * losses.cls_nll(la_sm, onehot_p))
+        elbo_l = elbo_l + sched["kl_beta_c"] * sched["pwm"] * \
+            _cont_posterior(mean_sm, ls_sm, sm, batch_l)
+        loss_supervised = sched["ew"] * elbo_l + disc_post_l
+
+        # unlabeled forward 3: the Gumbel-softmax path
+        recon_u, mean_u, ls_u, la_u = model(
+            x_u, noise=_noise(inj, dev, "eps_3", "unif_3"),
+            generator=generator)
+        elbo_u, (r_u, ckl_u, dkl_u) = elbo(x_u, recon_u, mean_u, ls_u, la_u,
+                                           sched)
+        inference_kl = losses.inference_kl_metric(la_u.detach(), lab_u,
+                                                  num_classes)
+
+        # unlabeled forward 4: the posterior mixup
+        mx = mixup.mixup_vae_data(
+            x_u, mean_u.detach(), ls_u.detach(), la_u.detach(),
+            optimal_match=optimal_match, lam=inj.get("lam_mx"),
+            index=inj.get("perm_mx"), generator=generator)
+        _, mean_mx, ls_mx, la_mx = model(
+            mx.image, noise=_noise(inj, dev, "eps_4", "unif_4"),
+            generator=generator)
+        disc_post_u = losses.cls_nll(la_mx, mx.disc_alpha)
+        elbo_u = elbo_u + sched["kl_beta_c"] * sched["pwm"] * \
+            _cont_posterior(mean_mx, ls_mx, mx, batch_u)
+        loss_unsupervised = sched["ew"] * elbo_u + sched["ucw"] * disc_post_u
+
+        total = loss_supervised + loss_unsupervised
+        metrics = {
+            "loss": total,
+            "loss_supervised": loss_supervised,
+            "loss_unsupervised": loss_unsupervised,
+            "recon_l": r_l, "cont_kl_l": ckl_l, "disc_kl_l": dkl_l,
+            "recon_u": r_u, "cont_kl_u": ckl_u, "disc_kl_u": dkl_u,
+            "kl_inference": inference_kl,
+        }
+        return total, metrics
+
+    def step(state: TrainState, img_l, lab_l, img_u, lab_u, sched,
+             generator: Optional[torch.Generator] = None, inject=None):
+        if state.model is not model or state.optimizer is not optimizer:
+            raise ValueError("state holds another model or optimizer than "
+                             "the step was made for")
+        inj = inject or {}
+        dev = _device(model)
+        model.train()
+        x_l = _prepare(img_l, dev, augment=aug, generator=generator,
+                       offsets=inj.get("aug_l"))
+        x_u = _prepare(img_u, dev, augment=aug, generator=generator,
+                       offsets=inj.get("aug_u"))
+        lab_l = torch.as_tensor(lab_l).to(dev).long()
+        lab_u = torch.as_tensor(lab_u).to(dev).long()
+        total, metrics = loss_fn(x_l, lab_l, x_u, lab_u, sched, generator,
+                                 inj)
+        optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        state.apply_gradients()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def make_vae_eval_step(model, *, num_classes: int, bce: bool, x_sigma: float):
+    """The eval pass: ``step(img, lab, weight, generator=None, inject=None)
+    -> (metrics, sigmoid reconstruction NHWC)``.
+
+    BN uses the running statistics, but z and y are still sampled (the
+    reference's ``Sample`` has no eval switch), by the ``fused_sample``
+    kernel unless ``inject`` ({"eps", "unif"}) replays the draws.
+    ``weight`` is a per-sample 0/1 mask, so a ragged tail batch padded to
+    the full batch biases no metric; the metrics are weighted SUMS plus
+    the effective ``count``, as shotvae_tpu/train/steps.py:470-528.
+    """
+
+    @torch.inference_mode()
+    def step(img, lab, weight, generator: Optional[torch.Generator] = None,
+             inject=None):
+        dev = _device(model)
+        model.eval()
+        x = _prepare(img, dev, augment=False)
+        recon, mean, ls, la = model(x, noise=_noise(inject, dev, "eps",
+                                                    "unif"),
+                                    generator=generator)
+        w = torch.as_tensor(weight).to(dev).to(torch.float32)
+        lab = torch.as_tensor(lab).to(dev).long()
+        if bce:
+            recon_per = losses.bce_per_sample(recon, x)
+        else:
+            recon_per = ((torch.sigmoid(recon) - x) ** 2).flatten(1).sum(1) \
+                / (2 * x_sigma**2)
+        lss = 2.0 * ls
+        ckl_per = 0.5 * (mean**2 + torch.exp(lss) - lss - 1.0).sum(1)
+        dkl_per = (torch.exp(la) * (la - math.log(1.0 / num_classes))).sum(1)
+        recon_sig = torch.sigmoid(recon)
+        mse_per = ((recon_sig - x) ** 2).flatten(1).sum(1) / (2 * x_sigma**2)
+        elbo_per = mse_per + 0.01 * (ckl_per + dkl_per)  # the reference's
+        probs = torch.exp(la)                            # ad-hoc "ELBO"
+        top1_per = torch.argmax(probs, 1) == lab
+        topk = torch.topk(probs, min(5, num_classes), dim=1).indices
+        top5_per = (topk == lab[:, None]).any(1)
+        metrics = {
+            "recon_sum": (recon_per * w).sum(),
+            "cont_kl_sum": (ckl_per * w).sum(),
+            "disc_kl_sum": (dkl_per * w).sum(),
+            "mse_sum": (mse_per * w).sum(),
+            "elbo_sum": (elbo_per * w).sum(),
+            "top1_count": (top1_per * w).sum(),
+            "top5_count": (top5_per * w).sum(),
+            "count": w.sum(),
+        }
+        return metrics, recon_sig.permute(0, 2, 3, 1)
+
+    return step

@@ -3,15 +3,28 @@ launch counted on the CPU, chip_smoke.py refusing to run off the card, and
 its sampler check failing a wrong sampler."""
 
 import importlib.util
+import math
 import os
 import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite runs in several worker processes at once, and the port's
+    many small CPU ops slow down many times over when every process also
+    runs a pool of intra-op threads; these tests use one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -55,14 +68,100 @@ def test_entry_points_need_an_explicit_cpu(monkeypatch, tmp_path):
 
 
 def test_train_mode_and_other_encoders_raise():
+    """Train mode now runs (and updates the running statistics); an encoder
+    not ported yet still raises."""
     from shotvae_torch.models.vae import VariationalAutoEncoder
 
     model = VariationalAutoEncoder("wideresnet-10-1", continuous_latent_dim=8,
                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model.encode(torch.zeros(1, 3, 32, 32))
+    before = model.feature_extractor.encoder.transition.norm.running_mean.clone()
+    recon, mean, _, _ = model(torch.rand(2, 3, 32, 32))
+    assert recon.shape == (2, 3, 32, 32) and mean.shape == (2, 8)
+    recon.sum().backward()
+    for head in (model.continuous_inference.mean.fc,
+                 model.feature_extractor.encoder.pre_process.conv0):
+        assert head.weight.grad.abs().sum() > 0  # the draw kept the graph
+    after = model.feature_extractor.encoder.transition.norm.running_mean
+    assert not torch.equal(before, after)
     with pytest.raises(NotImplementedError, match="queue 1"):
         VariationalAutoEncoder("preactresnet-18", device="cpu")
+
+
+def test_gradless_kernels_refuse_grad():
+    """fused_joint_sample and bn_act_inference have no gradient in JAX:
+    under grad mode an input that requires grad raises, naming the
+    training path; without grad they run. An eval-mode forward under grad
+    mode raises at a BN site."""
+    from shotvae_torch.models.vae import VariationalAutoEncoder
+    from shotvae_torch.ops.kernels.bn_act import bn_act_inference
+    from shotvae_torch.ops.kernels.fused_sample import fused_joint_sample
+
+    c = torch.ones(4)
+    w = torch.ones(4, requires_grad=True)
+    mean = torch.zeros(2, 3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="bn_leaky_train"):
+        bn_act_inference(torch.randn(6, 4), w, c * 0, c * 0, c)
+    with pytest.raises(RuntimeError, match="joint_latent"):
+        fused_joint_sample(mean, torch.zeros(2, 3), torch.zeros(2, 10))
+    with torch.no_grad():
+        bn_act_inference(torch.randn(6, 4), w, c * 0, c * 0, c)
+        fused_joint_sample(mean, torch.zeros(2, 3), torch.zeros(2, 10))
+    model = VariationalAutoEncoder("wideresnet-10-1", continuous_latent_dim=8,
+                                   device="cpu").eval()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        model(torch.rand(2, 3, 32, 32))
+    with torch.inference_mode():
+        model(torch.rand(2, 3, 32, 32))
+
+
+def test_eval_fused_conv_gives_jax_gradients():
+    """The eval-mode fused conv carries the JAX VJP of (x, scale, shift, w)
+    on the CPU: no gradient is dropped."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from shotvae_tpu.ops.pallas import fused_conv as jax_conv
+    from shotvae_torch.ops.kernels.fused_conv import fused_bn_act_conv
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 6, 6, 8)).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, 8).astype(np.float32)
+    shift = rng.normal(size=8).astype(np.float32) * 0.3
+    wk = rng.normal(size=(3, 3, 8, 4)).astype(np.float32) * 0.2
+    g = rng.normal(size=(2, 6, 6, 4)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(jax_conv.fused_bn_act_conv,
+                         *map(jnp.asarray, (x, scale, shift, wk)))
+        want = vjp(jnp.asarray(g))
+    ins = [torch.tensor(x).permute(0, 3, 1, 2), torch.tensor(scale),
+           torch.tensor(shift), torch.tensor(wk).permute(3, 2, 0, 1)]
+    for t in ins:
+        t.requires_grad_()
+    fused_bn_act_conv(*ins).backward(torch.tensor(g).permute(0, 3, 1, 2))
+    got = [ins[0].grad.permute(0, 2, 3, 1), ins[1].grad, ins[2].grad,
+           ins[3].grad.permute(2, 3, 1, 0)]
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_bn_leaky_wrappers_count_no_launch_on_cpu():
+    from shotvae_torch.ops.kernels import bn_leaky
+    from shotvae_torch.ops.kernels.fused_conv import (fused_bn_act_conv,
+                                                      fused_bn_act_conv_train)
+
+    counters = (bn_leaky.bn_stats, bn_leaky.bn_apply, bn_leaky.bn_bwd_reduce,
+                bn_leaky.bn_bwd_apply, fused_bn_act_conv)
+    x = torch.randn(1, 4, 5, 5, requires_grad=True)
+    gamma = torch.ones(4, requires_grad=True)
+    y, _, _ = bn_leaky.bn_leaky_train(x.detach().reshape(25, 4).clone()
+                                      .requires_grad_(), gamma, gamma * 0)
+    y.sum().backward()
+    out, _, _ = fused_bn_act_conv_train(x, gamma, gamma.detach() * 0,
+                                        torch.randn(8, 4, 3, 3))
+    out.sum().backward()
+    assert [k.launches for k in counters] == [0] * len(counters)
 
 
 def test_kernel_wrappers_count_no_launch_on_cpu():
@@ -125,3 +224,106 @@ def test_chip_smoke_sampler_check_fails_a_wrong_sampler(wrong, monkeypatch):
                         _WRONG_SAMPLERS[wrong](fused_sample.fused_joint_sample))
     with pytest.raises(RuntimeError):
         chip_smoke.sample_phase(torch.device("cpu"), 768)
+
+
+def _chip_smoke(monkeypatch):
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn: 0.0)
+    monkeypatch.setattr(chip_smoke, "events_ms", lambda fn: 0.0)
+    return chip_smoke
+
+
+_WRONG_BN_KERNELS = {
+    "bn_stats": lambda bl: lambda x, eps=1e-5: bl.bn_stats_plain(x * 1.001,
+                                                                 eps),
+    "bn_apply": lambda bl: lambda x, st, g, b, slope=0.01: bl.bn_apply_plain(
+        x, st, g, b, 0.02),
+    "bn_bwd_reduce": lambda bl: lambda g, xh, ga, be, slope=0.01:
+        bl.bn_bwd_reduce_plain(g, xh.roll(1, 0), ga, be, slope),
+    "bn_bwd_apply": lambda bl: lambda g, xh, ga, be, st, su, slope=0.01:
+        bl.bn_bwd_apply_plain(g, xh, ga, be, st, su.flip(0), slope),
+}
+
+
+@pytest.mark.parametrize("wrong", [None, *_WRONG_BN_KERNELS])
+def test_chip_smoke_bn_leaky_check_fails_a_wrong_kernel(wrong, monkeypatch):
+    """chip_smoke.py's bn_leaky_train phase on the CPU at batch 2: it
+    passes the plain kernels, and fails a kernel that scales the
+    statistics, uses another slope, reads xhat a row off or swaps the two
+    sums."""
+    from shotvae_torch.ops.kernels import bn_leaky
+
+    chip_smoke = _chip_smoke(monkeypatch)
+    if wrong is None:
+        rows, err = chip_smoke.bn_leaky_phase(torch.device("cpu"), 2)
+        assert set(err.values()) == {0.0}
+        assert [sum(r["launches"] for r in rows[k]) for k in rows] \
+            == [132, 132, 122, 122]
+        return
+    monkeypatch.setattr(bn_leaky, wrong, _WRONG_BN_KERNELS[wrong](bn_leaky))
+    with pytest.raises(RuntimeError, match="disagrees"):
+        chip_smoke.bn_leaky_phase(torch.device("cpu"), 2)
+
+
+def test_chip_smoke_train_phases_run_on_cpu(monkeypatch):
+    """The fused conv backward phase and the train-step phase at a tiny
+    batch on the CPU: plain autograd agrees, no launch is counted, the
+    step's metrics are finite and the card-against-CPU step is exact when
+    both sides are the CPU."""
+    chip_smoke = _chip_smoke(monkeypatch)
+    rows, err = chip_smoke.conv_bwd_phase(torch.device("cpu"), 2)
+    assert err < chip_smoke.TOL_GRAD and len(rows) == 4
+    out = chip_smoke.train_phase(torch.device("cpu"), 2, steps=1)
+    assert set(out["launches"].values()) == {0}
+    assert set(out["eval_launches"].values()) == {0}
+    assert all(np.isfinite(v) for v in out["last_metrics"].values())
+    spread = out["vs_cpu"].pop("grad_one_ulp_spread_max")
+    assert 0.0 < spread < math.inf
+    assert 0.0 <= out["vs_cpu"].pop("grad_one_ulp_spread_median") <= spread
+    assert set(out["vs_cpu"].values()) == {0.0}
+
+
+_WRONG_BN_GRADS = {  # on (dx, dgamma, dbeta, d eps, d slope)
+    "dgamma zeroed": lambda r: (r[0], torch.zeros_like(r[1]), *r[2:]),
+    "dgamma and dbeta swapped": lambda r: (r[0], r[2], r[1], *r[3:]),
+    "graph cut at dx": lambda r: (torch.zeros_like(r[0]), *r[1:]),
+}
+
+
+@pytest.mark.parametrize("wrong", list(_WRONG_BN_GRADS))
+def test_chip_smoke_train_step_check_fails_a_wrong_gradient(wrong,
+                                                            monkeypatch):
+    """chip_smoke.py's card-against-CPU train step at batch 2 on the CPU,
+    with a fault planted in the training BN's backward of the first
+    (card-side) step only: the gradient check fails it, within its
+    tolerance for rounding."""
+    from shotvae_torch.ops.kernels import bn_leaky
+
+    chip_smoke = _chip_smoke(monkeypatch)
+    fn = bn_leaky._BnLeakyTrain
+    backward = fn.backward
+    faulty = staticmethod(
+        lambda ctx, *g: _WRONG_BN_GRADS[wrong](backward(ctx, *g)))
+    trainer, made = chip_smoke.trainer, []
+
+    def planted(model):
+        state, step, sched = trainer(model)
+        first = not made
+        made.append(model)
+
+        def run(*args, **kwargs):
+            if first:
+                monkeypatch.setattr(fn, "backward", faulty)
+            try:
+                return step(*args, **kwargs)
+            finally:
+                monkeypatch.setattr(fn, "backward", staticmethod(backward))
+        return state, run, sched
+
+    monkeypatch.setattr(chip_smoke, "trainer", planted)
+    with pytest.raises(RuntimeError, match="disagree on the gradient"):
+        chip_smoke.compare_train_step(torch.device("cpu"), 2)
+    assert len(made) == 3
