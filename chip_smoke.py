@@ -38,7 +38,18 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    with every draw injected, the crops and flips replayed: metrics, each
    parameter's gradient (to within what one ulp of the weights moves the
    CPU's), the parameters and running statistics after it.
-6. Print the ``kernels`` JSON line, then the result line
+6. The bf16 trunk (``VariationalAutoEncoder(dtype=torch.bfloat16)``, the
+   JAX package's default): the bf16 variants of the ``bn_leaky`` and
+   ``bn_act`` kernels and the tensor-core bf16 fused conv
+   (``csrc/fused_conv_bf16.cu``, its HMMA instructions counted in the
+   built library) against their plain versions at every main-path shape,
+   timed beside their bounds; the train-mode fused site's bf16 backward;
+   three bf16 train steps at 768 + 768 with the bf16 launch counts checked,
+   step times, one profiled step and the bf16 eval step; one bf16 step on
+   the card against the same bf16 step on the CPU at 16 + 16, each metric,
+   gradient, update and running statistic within max(a floor, 3x the CPU's
+   own distance between its bf16 and f32 steps on the same inputs).
+7. Print the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits with an error, printing no result, where torch sees no card or where
@@ -77,6 +88,17 @@ TOL_STEP = 1e-3    # abs + rel: one train step, card against CPU, TF32 off
 # by about 1
 TOL_GRAD_STEP = 0.1
 ULP_FACTOR = 3.0   # ... or 3x the CPU's own one-ulp spread, where larger
+BF16_FLOPS = 989e12        # H100 SXM dense bf16 on the tensor cores
+ULP_BF16 = 2.0 ** -7  # one bf16 ulp, relative, at most: a bf16 output of the
+#                    kernel and of its plain version round f32 values that
+#                    may differ in their last bits, so they may land on
+#                    neighbouring bf16 values; the f32 tolerance above is
+#                    added as slack
+# The bf16 card-against-CPU step: each metric, gradient, update and running
+# statistic within max(BF16_FLOOR norm-wise, BF16_FACTOR x the CPU's own
+# distance between its bf16 and its f32 step on the same inputs)
+BF16_FACTOR = 3.0
+BF16_FLOOR = 1e-3
 TRAIN_STEPS = 3    # counted train steps at full batch
 COMPARE_BATCH = 16  # per stream, for the card-against-CPU step
 # (M, C, slope, BN sites per forward, backward launches per train step) of
@@ -192,32 +214,44 @@ def device_breakdown(fn, top: int = 8) -> dict:
 
 
 def max_err(got, want, tol: float, *, normwise: bool = False,
-            what: str = "") -> float:
-    """max |got - want|; raises where it exceeds tol * (1 + |want|), or,
-    ``normwise``, tol * (1 + max |want|): the measure for sums over many
-    rows, whose rounding scales with the tensor and not with each entry."""
+            ulp: float = 0.0, what: str = "") -> float:
+    """max |got - want|; raises where it exceeds ulp * |want| + tol * (1 +
+    |want|), or, ``normwise``, the same of max |want|: the measure for sums
+    over many rows, whose rounding scales with the tensor and not with each
+    entry. ``ulp`` is ULP_BF16 for a bf16 output."""
     import torch
 
     got, want = got.detach().double(), want.detach().double()
     diff = (got - want).abs()
     check(bool(torch.isfinite(got).all()), f"non-finite output {what}")
     scale = want.abs().max() if normwise else want.abs()
-    bad = diff > tol * (1.0 + scale)
+    bad = diff > ulp * scale + tol * (1.0 + scale)
     check(not bool(bad.any()), f"kernel disagrees with its plain version "
           f"{what}: max abs err {float(diff.max()):.3e} beyond tol {tol}"
+          f"{f' + {ulp:.3e} relative' if ulp else ''}"
           f"{' norm-wise' if normwise else ''}")
     return float(diff.max())
+
+
+def ulp_of(t) -> float:
+    """The relative ulp that ``max_err`` allows a tensor of t's dtype."""
+    import torch
+
+    return ULP_BF16 if t.dtype == torch.bfloat16 else 0.0
 
 
 # ----------------------------------------------------------------- phase 2
 
 
-def bn_act_phase(dev, batch: int):
-    """bn_act_inference at each (M, C, slope) of the serving forward."""
+def bn_act_phase(dev, batch: int, dtype=None):
+    """bn_act_inference at each (M, C, slope) of the serving forward (the
+    eval step's in bf16), x and y in ``dtype`` (None: float32)."""
     import torch
 
     from shotvae_torch.ops.kernels.bn_act import bn_act_inference, bn_act_plain
 
+    dtype = dtype or torch.float32
+    size = torch.finfo(dtype).bits // 8
     b = batch
     # (M, C, slope, launches per reconstruct)
     cases = [(b * 32 * 32, 16, 0.01, 1),   # group-1 shortcut norm
@@ -229,58 +263,77 @@ def bn_act_phase(dev, batch: int):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows, err = [], 0.0
     for m, c, slope, n in cases:
-        x = torch.randn((m, c), generator=gen, device=dev) * 2 + 0.5
+        x = (torch.randn((m, c), generator=gen, device=dev) * 2
+             + 0.5).to(dtype)
         w = torch.rand((c,), generator=gen, device=dev) + 0.5
         bias = torch.randn((c,), generator=gen, device=dev) * 0.5
         rm = torch.randn((c,), generator=gen, device=dev) * 0.5
         rv = torch.rand((c,), generator=gen, device=dev) * 1.5 + 0.5
         kernel = lambda: bn_act_inference(x, w, bias, rm, rv, 1e-5, slope)  # noqa: E731
         plain = lambda: bn_act_plain(x, w, bias, rm, rv, 1e-5, slope)  # noqa: E731
-        e = max_err(kernel(), plain(), TOL_BN)
+        got = kernel()
+        check(got.dtype == dtype, f"bn_act gave {got.dtype} for {dtype}")
+        e = max_err(got, plain(), TOL_BN, ulp=ulp_of(got),
+                    what=f"bn_act at {(m, c, slope)} {dtype}")
         err = max(err, e)
+        nbytes = 2 * size * m * c + 16 * c
         rows.append(dict(shape=[m, c], slope=slope, launches=n, max_abs_err=e,
                          ms=time_ms(kernel), plain_ms=time_ms(plain),
-                         bound_ms=(8 * m * c + 16 * c) / HBM_BYTES_PER_S * 1e3,
+                         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                          library_ms=None))
     return rows, err
 
 
-def conv_phase(dev, batch: int):
-    """fused_bn_act_conv at each (B, Cin, H, W, Cout) of the encoder."""
+def conv_phase(dev, batch: int, dtype=None):
+    """fused_bn_act_conv at each (B, Cin, H, W, Cout) of the encoder, x, the
+    weight and y in ``dtype`` (None: float32). In bf16 the kernel is held
+    against the f32 conv (TF32 off) of the bf16-rounded activation and
+    weight, within one bf16 ulp plus TOL_CONV; the plain version and the
+    library call then convolve in bf16."""
     import torch
     import torch.nn.functional as F
 
     from shotvae_torch.ops.kernels.fused_conv import (fused_bn_act_conv,
                                                       fused_bn_act_conv_plain)
 
+    dtype = dtype or torch.float32
+    size, peak = ((2, BF16_FLOPS) if dtype == torch.bfloat16
+                  else (4, F32_FLOPS))
     b = batch
-    # (B, Cin, H, W, Cout, launches per encode)
+    # (B, Cin, H, W, Cout, launches per encoder forward)
     cases = [(b, 16, 32, 32, 32, 1), (b, 32, 32, 32, 32, 7),
              (b, 64, 16, 16, 64, 7), (b, 128, 8, 8, 128, 7)]
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     rows, err = [], 0.0
     for bb, cin, h, w, cout, n in cases:
-        x = torch.randn((bb, cin, h, w), generator=gen, device=dev).contiguous(
-            memory_format=torch.channels_last)
+        cl = dict(memory_format=torch.channels_last)
+        x = torch.randn((bb, cin, h, w), generator=gen,
+                        device=dev).to(dtype).contiguous(**cl)
         scale = torch.rand((cin,), generator=gen, device=dev) + 0.5
         shift = torch.randn((cin,), generator=gen, device=dev) * 0.5  # != 0
         wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
-              * (2.0 / (9 * cin)) ** 0.5).contiguous(
-                  memory_format=torch.channels_last)
+              * (2.0 / (9 * cin)) ** 0.5).to(dtype).contiguous(**cl)
         kernel = lambda: fused_bn_act_conv(x, scale, shift, wt)  # noqa: E731
         plain = lambda: fused_bn_act_conv_plain(x, scale, shift, wt)  # noqa: E731
-        pre = x * scale[:, None, None] + shift[:, None, None]
-        act = torch.where(pre > 0, pre, 0.01 * pre)
+        pre = x.float() * scale[:, None, None] + shift[:, None, None]
+        act = torch.where(pre > 0, pre, 0.01 * pre).to(dtype)
         library = lambda: F.conv2d(act, wt, padding=1)  # noqa: E731
-        e = max_err(kernel(), plain(), TOL_CONV)
+        got = kernel()
+        check(got.dtype == dtype, f"fused conv gave {got.dtype} for {dtype}")
+        e = max_err(got, F.conv2d(act.float(), wt.float(), padding=1),
+                    TOL_CONV, ulp=ulp_of(got),
+                    what=f"fused conv at {(bb, cin, h, w, cout)} {dtype}")
         err = max(err, e)
         flops = 2 * bb * h * w * 9 * cin * cout
-        nbytes = 4 * (bb * h * w * (cin + cout) + 9 * cin * cout + 2 * cin)
+        nbytes = (size * (bb * h * w * (cin + cout) + 9 * cin * cout)
+                  + 8 * cin)
         rows.append(dict(shape=[bb, cin, h, w, cout], launches=n,
                          max_abs_err=e, ms=time_ms(kernel),
                          plain_ms=time_ms(plain),
-                         bound_ms=max(flops / F32_FLOPS,
+                         bound_ms=max(flops / peak,
                                       nbytes / HBM_BYTES_PER_S) * 1e3,
+                         bound_by=("operations" if flops / peak
+                                   > nbytes / HBM_BYTES_PER_S else "bytes"),
                          library_ms=time_ms(library)))
     return rows, err
 
@@ -383,9 +436,9 @@ def sample_phase(dev, batch: int):
 # ----------------------------------------------------------------- phase 3
 
 
-def random_model(device: str):
+def random_model(device: str, dtype=None):
     """A full-width WRN-28-2 SHOT-VAE with seeded random weights and BN
-    statistics, on the CPU."""
+    statistics (the same for every ``dtype``, the trunk's compute dtype)."""
     import torch
 
     from shotvae_torch.models.layers import BatchNorm
@@ -393,7 +446,8 @@ def random_model(device: str):
 
     torch.manual_seed(SEED)
     model = VariationalAutoEncoder("wideresnet-28-2", continuous_latent_dim=128,
-                                   disc_latent_dim=10, device=device)
+                                   disc_latent_dim=10, device=device,
+                                   dtype=dtype)
     g = torch.Generator().manual_seed(SEED + 3)
     with torch.no_grad():
         for m in model.modules():
@@ -515,22 +569,27 @@ def events_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bn_leaky_phase(dev, batch: int):
+def bn_leaky_phase(dev, batch: int, dtype=None):
     """The four bn_leaky_train kernels at each (M, C, slope) of a train
-    step: each against its plain version on the same inputs, timed."""
+    step: each against its plain version on the same inputs, timed. x, y,
+    g and dx are in ``dtype`` (None: float32); xhat, the statistics and
+    the sums are always f32."""
     import torch
 
     from shotvae_torch.ops.kernels import bn_leaky as bl
 
+    dtype = dtype or torch.float32
+    e_ = torch.finfo(dtype).bits // 8  # bytes of an x, y, g or dx element
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     rows = {k: [] for k in ("bn_stats", "bn_apply", "bn_bwd_reduce",
                             "bn_bwd_apply")}
     err = {k: 0.0 for k in rows}
     for m, c, slope, n_fwd, n_bwd in BN_TRAIN_SITES(batch):
-        x = torch.randn((m, c), generator=gen, device=dev) * 2 + 0.5
+        x = (torch.randn((m, c), generator=gen, device=dev) * 2
+             + 0.5).to(dtype)
         gamma = torch.rand((c,), generator=gen, device=dev) + 0.5
         beta = torch.randn((c,), generator=gen, device=dev) * 0.5
-        g = torch.randn((m, c), generator=gen, device=dev)
+        g = torch.randn((m, c), generator=gen, device=dev).to(dtype)
         stats = bl.bn_stats_plain(x)
         y, xhat = bl.bn_apply_plain(x, stats, gamma, beta, slope)
         sums = bl.bn_bwd_reduce_plain(g, xhat, gamma, beta, slope)
@@ -538,28 +597,31 @@ def bn_leaky_phase(dev, batch: int):
             "bn_stats": (lambda: bl.bn_stats(x),
                          lambda: bl.bn_stats_plain(x),
                          lambda: torch.var_mean(x, 0, correction=0),
-                         4 * m * c + 12 * c, 4 * n_fwd),
+                         e_ * m * c + 12 * c, 4 * n_fwd),
             "bn_apply": (lambda: bl.bn_apply(x, stats, gamma, beta, slope),
                          lambda: bl.bn_apply_plain(x, stats, gamma, beta,
                                                    slope),
-                         None, 12 * m * c + 20 * c, 4 * n_fwd),
+                         None, (2 * e_ + 4) * m * c + 20 * c, 4 * n_fwd),
             "bn_bwd_reduce": (lambda: bl.bn_bwd_reduce(g, xhat, gamma, beta,
                                                        slope),
                               lambda: bl.bn_bwd_reduce_plain(
                                   g, xhat, gamma, beta, slope),
-                              None, 8 * m * c + 16 * c, n_bwd),
+                              None, (e_ + 4) * m * c + 16 * c, n_bwd),
             "bn_bwd_apply": (lambda: bl.bn_bwd_apply(g, xhat, gamma, beta,
                                                      stats, sums, slope),
                              lambda: bl.bn_bwd_apply_plain(
                                  g, xhat, gamma, beta, stats, sums, slope),
-                             None, 12 * m * c + 28 * c, n_bwd),
+                             None, (2 * e_ + 4) * m * c + 28 * c, n_bwd),
         }
         for name, (kernel, plain, library, nbytes, launches) in calls.items():
             got, want = kernel(), plain()
             if isinstance(got, torch.Tensor):
                 got, want = (got,), (want,)
+            check([a.dtype for a in got] == [b.dtype for b in want],
+                  f"{name} gave {[a.dtype for a in got]} for {dtype}")
             e = max(max_err(a, b, TOL_BN, normwise=name == "bn_bwd_reduce",
-                            what=f"{name} at {(m, c, slope)}")
+                            ulp=ulp_of(a),
+                            what=f"{name} at {(m, c, slope)} {dtype}")
                     for a, b in zip(got, want))
             err[name] = max(err[name], e)
             rows[name].append(dict(
@@ -570,14 +632,22 @@ def bn_leaky_phase(dev, batch: int):
     return rows, err
 
 
-def conv_bwd_phase(dev, batch: int):
+def conv_bwd_phase(dev, batch: int, dtype=None):
     """The train-mode fused conv site, forward and backward, at each
-    encoder shape against the same function as plain autograd ops."""
+    encoder shape against the same function as plain autograd ops, x, y and
+    dx in ``dtype`` (None: float32), the f32 weight cast to it by the site.
+    In bf16, y and the gradients are held norm-wise to one bf16 ulp plus
+    the f32 tolerance: the kernel folds BN into x * scale + shift where the
+    plain version normalises, so an activation may round to the
+    neighbouring bf16 value, which moves a conv output by an ulp of its
+    largest terms; the sums over the rows of bf16 gradients carry the same."""
     import torch
 
     from shotvae_torch.ops.kernels.fused_conv import (
         fused_bn_act_conv_train, fused_bn_act_conv_train_plain)
 
+    dtype = dtype or torch.float32
+    ulp = ULP_BF16 if dtype == torch.bfloat16 else 0.0
     b = batch
     # (B, Cin, H, W, Cout, fused sites per forward)
     cases = [(b, 16, 32, 32, 32, 1), (b, 32, 32, 32, 32, 7),
@@ -587,13 +657,13 @@ def conv_bwd_phase(dev, batch: int):
     for bb, cin, h, w, cout, n in cases:
         cl = dict(memory_format=torch.channels_last)
         x = (torch.randn((bb, cin, h, w), generator=gen, device=dev) * 1.5
-             + 0.3).contiguous(**cl)
+             + 0.3).to(dtype).contiguous(**cl)
         gamma = torch.rand((cin,), generator=gen, device=dev) + 0.5
         beta = torch.randn((cin,), generator=gen, device=dev) * 0.5
         wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
               * (2.0 / (9 * cin)) ** 0.5).contiguous(**cl)
         gy = torch.randn((bb, cout, h, w), generator=gen,
-                         device=dev).contiguous(**cl)
+                         device=dev).to(dtype).contiguous(**cl)
 
         def run(fn):
             ins = [t.detach().requires_grad_() for t in (x, gamma, beta, wt)]
@@ -604,10 +674,15 @@ def conv_bwd_phase(dev, batch: int):
 
         got = run(fused_bn_act_conv_train)
         want = run(fused_bn_act_conv_train_plain)
+        check([a.dtype for a in got] == [dtype] + [torch.float32] * 2
+              + [dtype] + [torch.float32] * 3,
+              f"fused site gave {[a.dtype for a in got]} for {dtype}")
         tols = [TOL_CONV, TOL_BN, TOL_BN] + [TOL_GRAD] * 4
         names = ("y", "mean", "var", "dx", "dgamma", "dbeta", "dw")
-        e = max(max_err(a, c, t, normwise=n.startswith("d"),
-                        what=f"{n} at {(bb, cin, h, w, cout)}")
+        e = max(max_err(a, c, t, normwise=n not in ("mean", "var")
+                        and (n != "y" or bool(ulp)),
+                        ulp=0.0 if n in ("mean", "var") else ulp,
+                        what=f"{n} at {(bb, cin, h, w, cout)} {dtype}")
                 for a, c, t, n in zip(got, want, tols, names))
         err = max(err, e)
         rows.append(dict(shape=[bb, cin, h, w, cout], launches=4 * n,
@@ -798,18 +873,52 @@ def step_times(dev, run, batch: int, suffix: str) -> dict:
             f"unlabeled_images_per_s{suffix}": batch / median * 1e3}
 
 
-def train_phase(dev, batch: int, steps: int = TRAIN_STEPS):
-    """The training main path on ``dev``: ``steps`` SHOT-VAE train steps at
-    ``batch`` + ``batch`` with every kernel's launches counted, then step
-    times, one profiled step, the eval step, and one step held against the
-    CPU. On the CPU no wrapper launches a kernel: every count must be 0."""
+def zero_counts(counters) -> None:
+    for k in counters.values():
+        k.launches = k.launches_bf16 = 0
+
+
+def read_counts(counters, dtype) -> dict:
+    """Each kernel's launches of its ``dtype`` variant."""
+    import torch
+
+    attr = "launches_bf16" if dtype == torch.bfloat16 else "launches"
+    return {name: getattr(k, attr) for name, k in counters.items()}
+
+
+def check_counts(counters, dtype, expected: dict, what: str) -> dict:
+    """The launches of the ``dtype`` variants must be ``expected`` and those
+    of the other variants 0, except the f32 sampler's under a bf16 trunk
+    (the heads and the sampler stay f32); returns the ``dtype`` counts."""
+    import torch
+
+    bf16 = dtype == torch.bfloat16
+    want = {n: 0 if bf16 and n == "fused_joint_sample" else c
+            for n, c in expected.items()}
+    want_other = {n: c if bf16 and n == "fused_joint_sample" else 0
+                  for n, c in expected.items()}
+    got = read_counts(counters, dtype)
+    other = read_counts(counters, torch.float32 if bf16 else torch.bfloat16)
+    check(got == want and other == want_other,
+          f"{what} launched {got} ({dtype}) and {other} (other dtype), "
+          f"expected {want} and {want_other}")
+    return got
+
+
+def train_phase(dev, batch: int, steps: int = TRAIN_STEPS, dtype=None):
+    """The training main path on ``dev`` with the trunk in ``dtype`` (None:
+    float32): ``steps`` SHOT-VAE train steps at ``batch`` + ``batch`` with
+    every kernel's launches counted, then step times, one profiled step,
+    the eval step, and one step held against the CPU. On the CPU no wrapper
+    launches a kernel: every count must be 0."""
     import torch
 
     from shotvae_torch.train.steps import make_vae_eval_step
 
     counters = kernel_counters()
     cuda = dev.type == "cuda"
-    model = random_model(dev.type)
+    bf16 = dtype == torch.bfloat16
+    model = random_model(dev.type, dtype)
     state, step, sched = trainer(model)
     g = torch.Generator().manual_seed(SEED + 9)
     data = [torch.randint(0, 256, (batch, 32, 32, 3), generator=g,
@@ -822,15 +931,13 @@ def train_phase(dev, batch: int, steps: int = TRAIN_STEPS):
     run()  # compiles every kernel variant the step needs
     _sync(dev)
 
-    for k in counters.values():
-        k.launches = 0
+    zero_counts(counters)
     metrics = [run() for _ in range(steps)]
     _sync(dev)
-    launches = {name: k.launches for name, k in counters.items()}
-    want = {name: n * steps if cuda else 0
-            for name, n in EXPECTED_TRAIN_LAUNCHES.items()}
-    check(launches == want, f"train steps launched {launches}, expected "
-          f"{want}")
+    launches = check_counts(
+        counters, dtype, {name: n * steps if cuda else 0
+                          for name, n in EXPECTED_TRAIN_LAUNCHES.items()},
+        "train steps")
     for m in metrics:
         check(all(bool(torch.isfinite(v)) for v in m.values()),
               f"non-finite train metrics {m}")
@@ -839,7 +946,7 @@ def train_phase(dev, batch: int, steps: int = TRAIN_STEPS):
     timing = step_times(dev, run, batch, "")
     profile = device_breakdown(run, top=12) if cuda else None
     profile_tf32 = None
-    if cuda:
+    if cuda and not bf16:
         # PyTorch's default lets cuDNN convolve in TF32: the library convs
         # (dgrad, wgrad, the decoder) then run on the tensor cores; the
         # profile names the cuDNN kernels it chose
@@ -853,37 +960,148 @@ def train_phase(dev, batch: int, steps: int = TRAIN_STEPS):
     weight = torch.ones(batch, device=dev)
     eval_run = lambda: evaluate(data[2], data[3], weight,  # noqa: E731
                                 generator=g)
-    for k in counters.values():
-        k.launches = 0
+    zero_counts(counters)
     eval_metrics, recon = eval_run()
     _sync(dev)
-    eval_launches = {name: k.launches for name, k in counters.items()}
-    want = {name: n if cuda else 0
-            for name, n in EXPECTED_EVAL_LAUNCHES.items()}
-    check(eval_launches == want, f"eval step launched {eval_launches}, "
-          f"expected {want}")
+    eval_launches = check_counts(
+        counters, dtype, {name: n if cuda else 0
+                          for name, n in EXPECTED_EVAL_LAUNCHES.items()},
+        "eval step")
+    if bf16:  # the f32 sampler's launch under the bf16 trunk
+        eval_launches["fused_joint_sample"] = read_counts(
+            counters, torch.float32)["fused_joint_sample"]
     check(recon.shape == (batch, 32, 32, 3)
           and float(eval_metrics["count"]) == batch
           and all(bool(torch.isfinite(v)) for v in eval_metrics.values()),
           "eval step gave a wrong shape, count or a non-finite metric")
     timing["eval_step_ms"] = host_ms(dev, eval_run)
 
-    errs = compare_train_step(dev, min(COMPARE_BATCH, batch))
+    n = min(COMPARE_BATCH, batch)
+    vs_cpu = (compare_train_step_bf16(dev, n) if bf16
+              else dict(zip(VS_CPU_KEYS, compare_train_step(dev, n))))
     return dict(launches=launches, eval_launches=eval_launches,
                 last_metrics=last, timing=timing, profile=profile,
-                profile_cudnn_tf32=profile_tf32,
-                vs_cpu=dict(zip(VS_CPU_KEYS, errs)))
+                profile_cudnn_tf32=profile_tf32, vs_cpu=vs_cpu)
+
+
+def _dist(a, b) -> float:
+    return float((a.detach().cpu().double()
+                  - b.detach().cpu().double()).abs().max())
+
+
+def compare_train_step_bf16(dev, batch: int) -> dict:
+    """One bf16 train step of the same model on ``dev`` and on the CPU at
+    ``batch`` + ``batch``, every draw injected and the crops and flips
+    replayed, calibrated in the same run: the CPU also takes the f32 step
+    on the same inputs, and each metric, gradient, parameter update and
+    running statistic of the card's bf16 step must lie within
+    max(BF16_FLOOR x its largest value, BF16_FACTOR x the CPU's own
+    distance between its bf16 and its f32 step), max abs. The step at
+    random weights is chaotic: one bf16 rounding that flips between the
+    card and the CPU moves it about as far as bf16 moves it from f32, hence
+    the factor; a zeroed, swapped or cut gradient is off by the gradient
+    itself. Returns the worst share of its tolerance that a tensor used,
+    which tensor, and the two distances relative to each tensor's largest
+    value."""
+    import torch
+
+    cpu16 = random_model("cpu", torch.bfloat16)
+    dev16 = copy.deepcopy(cpu16).to(dev)
+    cpu32 = random_model("cpu")
+    before = {n: p.detach().clone() for n, p in cpu16.named_parameters()}
+    inputs = step_inputs(batch)
+
+    def flat(run):
+        metrics, grads, sd = run
+        out = {f"metric {k}": v for k, v in metrics.items()}
+        out.update({f"grad {k}": v for k, v in grads.items()})
+        out.update({f"update {k}": sd[k].cpu() - v
+                    for k, v in before.items()})
+        out.update({f"state {k}": v for k, v in sd.items()
+                    if k not in before
+                    and not k.endswith("num_batches_tracked")})
+        return out
+
+    got, want, f32 = [flat(train_once(m, inputs))
+                      for m in (dev16, cpu16, cpu32)]
+    worst, worst_key, errs, own = 0.0, "", [], []
+    for k, w in want.items():
+        e, d = _dist(got[k], w), _dist(w, f32[k])
+        tol = max(BF16_FLOOR * float(w.detach().abs().max()), BF16_FACTOR * d)
+        check(bool(torch.isfinite(got[k]).all()) and e <= tol,
+              f"bf16 card and CPU disagree on {k}: {e:.3e} max abs, beyond "
+              f"tol {tol:.3e} (the CPU's bf16-vs-f32 distance {d:.3e})")
+        share = e / tol if tol else 0.0
+        if share >= worst:
+            worst, worst_key = share, k
+        errs.append(e / max(float(w.detach().abs().max()), 1e-30))
+        own.append(d / max(float(w.detach().abs().max()), 1e-30))
+    return dict(tensors=len(want), worst_share_of_tol=worst,
+                worst_tensor=worst_key,
+                rel_err_max=max(errs), rel_err_median=statistics.median(errs),
+                cpu_bf16_vs_f32_rel_max=max(own),
+                cpu_bf16_vs_f32_rel_median=statistics.median(own))
 
 
 # -------------------------------------------------------------------- main
 
 
+def bf16_phases(dev, batch: int, steps: int = TRAIN_STEPS) -> dict:
+    """The bf16 trunk's phases: the bf16 kernels against their plain
+    versions at every main-path shape, the train-mode fused site's bf16
+    backward, then the bf16 train and eval steps (``train_phase``)."""
+    from shotvae_torch.config import ShotVaeConfig
+
+    dtype = ShotVaeConfig(br=True, om=True).compute_dtype()  # bf16 default
+    out = {}
+    for name, fn in (("bn_leaky_train", bn_leaky_phase),
+                     ("bn_act_inference", bn_act_phase),
+                     ("fused_bn_act_conv", conv_phase),
+                     ("fused_bn_act_conv_train", conv_bwd_phase)):
+        t0 = time.perf_counter()
+        out[name] = fn(dev, batch, dtype)
+        rows = out[name][0]
+        for part, part_rows in (rows.items() if isinstance(rows, dict)
+                                else ((name, rows),)):
+            for row in part_rows:
+                print(f"{part} bf16 {json.dumps(row)}")
+        print(f"{name} bf16 phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["train"] = train_phase(dev, batch, steps, dtype)
+    print(f"train bf16 phase {time.perf_counter() - t0:.1f} s")
+    conv_train = sum(r["launches"] for r in out["fused_bn_act_conv_train"][0])
+    launched = out["train"]["launches"]["fused_bn_act_conv"]
+    check(dev.type != "cuda" or conv_train * steps == launched,
+          f"the bf16 fused conv backward rows weigh {conv_train} launches "
+          f"per train step; {steps} steps launched {launched}")
+    return out
+
+
+def sass_count(name: str, op: str) -> int:
+    """Lines of ``op`` in the SASS of ``csrc/<name>.cu``'s built library."""
+    from shotvae_torch.ops.kernels import _build
+
+    out = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
+                          str(_build.library_path(name))],
+                         capture_output=True, text=True, check=True,
+                         timeout=120).stdout
+    return sum(op in line for line in out.splitlines())
+
+
 def summarize(name, route, source, replaces, bound_by, rows, err, launches,
               per: str = f"reconstruct at batch {BATCH}"):
     """One kernel's entry: per-shape times weighted by the launches per
-    ``per`` (a ``reconstruct`` or a train step at batch 768), which are
-    ``launches_per_unit``; ``launches`` counts the whole main path."""
+    ``per`` (a ``reconstruct``, an eval step or a train step at batch 768),
+    which are ``launches_per_unit``; ``launches`` counts the whole main
+    path. A ``bound_by`` of None is taken from the rows: what bounds the
+    rows that carry most of the summed bound."""
     total = lambda key: sum(r[key] * r["launches"] for r in rows)  # noqa: E731
+    if bound_by is None:
+        by = {}
+        for r in rows:
+            by[r["bound_by"]] = (by.get(r["bound_by"], 0.0)
+                                 + r["bound_ms"] * r["launches"])
+        bound_by = max(by, key=by.get)
     return dict(name=name, route=route, source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=total("ms"),
                 plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
@@ -891,6 +1109,51 @@ def summarize(name, route, source, replaces, bound_by, rows, err, launches,
                 library_ms=(None if rows[0]["library_ms"] is None
                             else total("library_ms")), per=per,
                 launches_per_unit=sum(r["launches"] for r in rows))
+
+
+def bf16_entries(bf16: dict) -> list:
+    """The bf16 kernels' entries: the bn_leaky kernels per train step, the
+    eval kernel and the fused conv per eval step (one encoder forward),
+    each with its launches on the bf16 train and eval paths, and its
+    weights checked against them."""
+    train = bf16["train"]
+    bn_rows, bn_err = bf16["bn_leaky_train"]
+    step = f"train step at {BATCH} + {BATCH}"
+    evals = f"eval step at {BATCH}"
+    entries = [
+        (summarize("bn_act_inference bf16", "triton",
+                   "shotvae_torch/ops/kernels/bn_act.py",
+                   "shotvae_tpu/ops/pallas/fused_bn_act.py:261", "bytes",
+                   *bf16["bn_act_inference"], 0, per=evals),
+         "bn_act_inference", "eval"),
+        (summarize("fused_bn_act_conv bf16", "cuda",
+                   "shotvae_torch/csrc/fused_conv_bf16.cu",
+                   "shotvae_tpu/ops/pallas/fused_conv.py:170", None,
+                   *bf16["fused_bn_act_conv"], 0, per=evals),
+         "fused_bn_act_conv", "eval"),
+    ] + [
+        (summarize(f"bn_leaky_train {part} bf16", "triton",
+                   "shotvae_torch/ops/kernels/bn_leaky.py",
+                   f"shotvae_tpu/ops/pallas/fused_bn_act.py:{line}", "bytes",
+                   bn_rows[name], bn_err[name], 0, per=step),
+         name, "train")
+        for part, name, line in (("stats", "bn_stats", 140),
+                                 ("apply", "bn_apply", 176),
+                                 ("backward reduce", "bn_bwd_reduce", 206),
+                                 ("backward apply", "bn_bwd_apply", 217))]
+    for entry, name, unit_path in entries:
+        by_path = {"train_bf16": train["launches"][name],
+                   "eval_bf16": train["eval_launches"][name]}
+        check(sum(by_path.values()) > 0, f"{name} bf16 never launched on "
+              f"the main path")
+        entry.update(launches=sum(by_path.values()),
+                     launches_by_path=by_path)
+        unit = by_path["train_bf16"] / TRAIN_STEPS \
+            if unit_path == "train" else by_path["eval_bf16"]
+        check(entry["launches_per_unit"] == unit, f"{name} bf16's timed rows "
+              f"weigh {entry['launches_per_unit']} launches per "
+              f"{entry['per']}; the main path launched {unit}")
+    return [entry for entry, _, _ in entries]
 
 
 def main() -> int:
@@ -916,12 +1179,16 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    logs = {name: _build.build(name) for name in _build.sources()}
+    logs = _build.build_all()
     print(f"built {_build.sources()} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    hmma = {name: sass_count(name, "HMMA") for name in _build.sources()}
+    print("sass_hmma_lines " + json.dumps(hmma))
+    check(hmma["fused_conv_bf16"] > 0, "the bf16 fused conv's SASS has no "
+          "HMMA (tensor-core) instruction")
 
     dev = torch.device("cuda")
     phases = {}
@@ -965,6 +1232,13 @@ def main() -> int:
     print(f"train_step_vs_cpu_at_{COMPARE_BATCH}+{COMPARE_BATCH} "
           + json.dumps(train["vs_cpu"]))
     print(f"train phase {time.perf_counter() - t0:.1f} s")
+    bf16 = bf16_phases(dev, BATCH)
+    for key in ("launches", "eval_launches", "last_metrics", "timing",
+                "profile"):
+        print(f"train_bf16_{key}_at_batch_{BATCH}+{BATCH} "
+              + json.dumps(bf16["train"][key]))
+    print(f"train_bf16_step_vs_cpu_at_{COMPARE_BATCH}+{COMPARE_BATCH} "
+          + json.dumps(bf16["train"]["vs_cpu"]))
     conv_train = sum(r["launches"] for r in conv_bwd_rows)
     check(conv_train * TRAIN_STEPS == train["launches"]["fused_bn_act_conv"],
           f"the fused conv backward rows weigh {conv_train} launches per "
@@ -977,7 +1251,7 @@ def main() -> int:
                   "shotvae_tpu/ops/pallas/fused_bn_act.py:261", "bytes",
                   *phases["bn_act_inference"], serve["bn_act_inference"]),
         summarize("fused_bn_act_conv", "cuda", "shotvae_torch/csrc/fused_conv.cu",
-                  "shotvae_tpu/ops/pallas/fused_conv.py:170", "operations",
+                  "shotvae_tpu/ops/pallas/fused_conv.py:170", None,
                   *phases["fused_bn_act_conv"], serve["fused_bn_act_conv"]),
         summarize("fused_joint_sample", "triton",
                   "shotvae_torch/ops/kernels/fused_sample.py",
@@ -1013,6 +1287,12 @@ def main() -> int:
         check(entry["launches_per_unit"] == unit, f"{name}'s timed rows "
               f"weigh {entry['launches_per_unit']} launches per "
               f"{entry['per']}; the main path launched {unit}")
+    # the sampler also ran once in the bf16 eval step (the heads stay f32)
+    sampler = entries[2]
+    sampler["launches_by_path"]["eval_bf16_trunk"] = \
+        bf16["train"]["eval_launches"]["fused_joint_sample"]
+    sampler["launches"] = sum(sampler["launches_by_path"].values())
+    entries += bf16_entries(bf16)
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

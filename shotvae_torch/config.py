@@ -7,14 +7,17 @@ Field names and defaults follow the reference flag names
 (main_shot_vae.py:30-106), and ``apply_dataset_overrides`` reproduces the
 per-dataset values the reference sets inside ``main()``. Fields of the
 reference surface that drive a part the port does not have yet (the loop,
-checkpoints, data parallelism, bf16) come with the slice that adds it.
-Pure Python.
+checkpoints, data parallelism) come with the slice that adds it.
+``compute_dtype`` is the model's trunk dtype, as shotvae_tpu/train/loop.py:223
+picks it from ``bf16``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
+
+import torch
 
 
 @dataclass
@@ -48,6 +51,12 @@ class ShotVaeConfig:
     # Optimal transport estimation
     epsilon: float = 0.1
     om: bool = False
+    # bfloat16 trunk compute (shotvae_tpu/config.py:65; ``--no-bf16`` opts out)
+    bf16: bool = True
+
+    def compute_dtype(self) -> Optional[torch.dtype]:
+        """The model's ``dtype``: bfloat16 with ``bf16``, else None (f32)."""
+        return torch.bfloat16 if self.bf16 else None
 
     def apply_dataset_overrides(self, *, m2: bool = False) -> "DatasetSpec":
         """Per-dataset hard-coded overrides + dataset facts, in one place."""

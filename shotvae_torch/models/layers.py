@@ -16,11 +16,20 @@
   own BatchNorm2d tracks the unbiased one).
 * Activations are NCHW tensors in ``channels_last`` memory format, whose
   memory is the (N*H*W, C) rows the kernels take.
+* Precision follows flax's ``dtype`` (not autocast): a module's ``dtype``
+  is its compute dtype, None meaning the parameters' float32. ``conv``
+  casts a conv's input, weight and bias to it on every call, as flax's
+  ``promote_dtype`` does, so the f32 parameters keep their names and get
+  f32 gradients through the cast. ``BatchNorm`` writes its output in its
+  ``dtype``; its statistics, running statistics and parameters stay f32.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from shotvae_torch.ops.kernels.bn_act import bn_act_inference
@@ -48,17 +57,36 @@ def channels_last(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous(memory_format=torch.channels_last)
 
 
+def conv(module: nn.Module, x: torch.Tensor,
+         dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``module`` (an ``nn.Conv2d`` or ``nn.ConvTranspose2d``) on ``x`` with
+    the input, weight and bias cast to ``dtype`` (default: the weight's)."""
+    dtype = dtype or module.weight.dtype
+    w = module.weight.to(dtype)
+    b = None if module.bias is None else module.bias.to(dtype)
+    x = x.to(dtype)
+    if isinstance(module, nn.ConvTranspose2d):
+        return F.conv_transpose2d(x, w, b, module.stride, module.padding,
+                                  module.output_padding, module.groups,
+                                  module.dilation)
+    return F.conv2d(x, w, b, module.stride, module.padding, module.dilation,
+                    module.groups)
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """AdaptiveAvgPool2d((1,1)) + flatten: (B, C, H, W) -> (B, C)."""
     return x.mean(dim=(2, 3))
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d followed by LeakyReLU(``slope``) (ReLU for slope 0)."""
+    """BatchNorm2d followed by LeakyReLU(``slope``) (ReLU for slope 0),
+    with its output in ``dtype`` (None: float32)."""
 
-    def __init__(self, num_features: int, slope: float = LEAKY_SLOPE):
+    def __init__(self, num_features: int, slope: float = LEAKY_SLOPE,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.slope = slope
+        self.dtype = dtype or torch.float32
 
     def scale_shift(self):
         """The eval-mode affine, folded from the running statistics."""
@@ -78,7 +106,7 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """act(BN(x)): the ``bn_leaky`` kernels in train mode, the ``bn_act``
         kernel in eval mode."""
-        x = channels_last(x)
+        x = channels_last(x.to(self.dtype))
         n, _, h, w = x.shape
         rows = to_rows(x)
         if self.training:
@@ -93,12 +121,13 @@ class BatchNorm(nn.BatchNorm2d):
 
     def act_conv(self, x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
         """conv(act(BN(x))) for a 3x3 stride-1 bias-free ``conv``, through
-        the train-mode or the eval-mode fused conv site."""
+        the train-mode or the eval-mode fused conv site, in ``dtype`` (the
+        sites cast the weight)."""
         if conv.stride != (1, 1) or conv.padding != (1, 1) \
                 or conv.bias is not None:
             raise ValueError("act_conv fuses only a 3x3, stride-1, "
                              "padding-1, bias-free conv")
-        x = channels_last(x)
+        x = channels_last(x.to(self.dtype))
         if self.training:
             y, mean, var = fused_bn_act_conv_train(
                 x, self.weight, self.bias, conv.weight, eps=self.eps,

@@ -13,6 +13,13 @@ Train mode (``module.train()``) normalises with batch statistics through the
 through the eval kernels and the ``fused_sample`` kernel, which has no
 gradient. Methods take and return NCHW tensors; the serving API
 (``shotvae_torch.api``) keeps the JAX package's NHWC layout.
+
+``dtype`` (None: float32, as in JAX) is the trunk's compute dtype, as
+``VariationalAutoEncoder(dtype=jnp.bfloat16)``: the encoder and decoder
+compute in it; the pooled features are pooled in it and then cast to f32
+for the heads, which, the sampler and the parameters stay f32; the latent
+is cast to it before the decoder, whose logits come back as f32
+(shotvae_tpu/models/vae.py:92-105).
 """
 
 from __future__ import annotations
@@ -33,12 +40,13 @@ from shotvae_torch.ops import sampling
 from shotvae_torch.ops.kernels.fused_sample import fused_joint_sample
 
 
-def build_encoder(encoder_name: str, *,
-                  num_input_channels: int = 3) -> nn.Module:
+def build_encoder(encoder_name: str, *, num_input_channels: int = 3,
+                  dtype: Optional[torch.dtype] = None) -> nn.Module:
     """Resolve an encoder by name; the port has the WideResNet so far."""
     if "wideresnet" in encoder_name:
         depth, width = parse_wideresnet_name(encoder_name)
-        return WideResNet(depth, width, num_input_channels=num_input_channels)
+        return WideResNet(depth, width, num_input_channels=num_input_channels,
+                          dtype=dtype)
     raise NotImplementedError(
         f"{encoder_name} is not ported yet (ROADMAP.md queue 1 item 9: "
         "PreActResNet and DenseNet encoders)")
@@ -54,13 +62,15 @@ class VariationalAutoEncoder(nn.Module):
                  img_size: Tuple[int, int] = (32, 32),
                  continuous_latent_dim: int = 128, disc_latent_dim: int = 10,
                  sample_temperature: float = 0.67,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.continuous_latent_dim = continuous_latent_dim
         self.disc_latent_dim = disc_latent_dim
         self.sample_temperature = sample_temperature
         self.feature_extractor = build_encoder(
-            encoder_name, num_input_channels=num_input_channels)
+            encoder_name, num_input_channels=num_input_channels, dtype=dtype)
         feat = self.feature_extractor.num_feature_channel
         self.continuous_inference = nn.ModuleDict(OrderedDict(
             mean=_linear_head(feat, continuous_latent_dim),
@@ -69,7 +79,7 @@ class VariationalAutoEncoder(nn.Module):
         self.feature_reconstructor = Decoder(
             continuous_latent_dim + disc_latent_dim,
             num_channel=num_input_channels,
-            kernel_size=(img_size[0] // 32, img_size[1] // 32))
+            kernel_size=(img_size[0] // 32, img_size[1] // 32), dtype=dtype)
         zero_biases_(self)
         self.to(device=resolve_device(device),
                 memory_format=torch.channels_last)
@@ -77,7 +87,7 @@ class VariationalAutoEncoder(nn.Module):
     def encode(self, x: torch.Tensor):
         """(B, C, H, W) f32 -> (mean, log_sigma, log_alpha), all f32."""
         features = self.feature_extractor(channels_last(x))
-        avg = global_avg_pool(features).to(torch.float32)
+        avg = global_avg_pool(features).to(torch.float32)  # pooled in dtype
         ci = self.continuous_inference
         norm_mean = ci.mean.fc(avg)
         norm_log_sigma = ci.log_sigma.fc(avg)
@@ -87,7 +97,8 @@ class VariationalAutoEncoder(nn.Module):
 
     def decode(self, latent: torch.Tensor) -> torch.Tensor:
         """(B, Dc + Dd) latent -> (B, C, H, W) reconstruction logits, f32."""
-        return self.feature_reconstructor(latent.to(torch.float32))
+        return self.feature_reconstructor(
+            latent.to(self.dtype or torch.float32)).to(torch.float32)
 
     def forward(self, x: torch.Tensor, *, labels=None, mixup: bool = False,
                 labels_mixup=None, mixup_lam=None, noise: Optional[dict] = None,

@@ -12,17 +12,22 @@ statistics in train mode); a BN->act before a stride-2 conv or a 1x1
 shortcut, and the transition, are standalone BN sites (``bn_leaky`` in train
 mode, ``bn_act`` in eval mode). At WRN-28-2 that is 22 fused and 6
 standalone sites per forward.
+
+``dtype`` (None: float32) is the trunk's compute dtype, as the JAX
+package's ``dtype``: every conv, BN output and residual add is in it; the
+image is cast by the stem conv.
 """
 
 from __future__ import annotations
 
 import re
 from collections import OrderedDict
+from typing import Optional
 
 import torch
 from torch import nn
 
-from shotvae_torch.models.layers import BatchNorm
+from shotvae_torch.models.layers import BatchNorm, conv
 
 NUM_INIT_FEATURES = 16  # conv0's width
 
@@ -30,12 +35,13 @@ NUM_INIT_FEATURES = 16  # conv0's width
 class PreProcess(nn.Module):
     """The stem for 32x32 inputs: a 3x3 stride-1 conv."""
 
-    def __init__(self, in_channels: int):
+    def __init__(self, in_channels: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.conv0 = nn.Conv2d(in_channels, NUM_INIT_FEATURES, 3, padding=1)
 
     def forward(self, x):
-        return self.conv0(x)
+        return conv(self.conv0, x, self.dtype)
 
 
 class WideResUnit(nn.Module):
@@ -43,19 +49,21 @@ class WideResUnit(nn.Module):
     shortcut from the pre-activation input when channels or stride
     change)."""
 
-    def __init__(self, in_features: int, features: int, stride: int = 1):
+    def __init__(self, in_features: int, features: int, stride: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.stride = stride
+        self.dtype = dtype
         self.f_block = nn.ModuleDict(OrderedDict(
-            norm1=BatchNorm(in_features),
+            norm1=BatchNorm(in_features, dtype=dtype),
             conv1=nn.Conv2d(in_features, features, 3, stride=stride,
                             padding=1, bias=False),
-            norm2=BatchNorm(features),
+            norm2=BatchNorm(features, dtype=dtype),
             conv2=nn.Conv2d(features, features, 3, padding=1, bias=False)))
         self.i_block = None
         if in_features != features or stride != 1:
             self.i_block = nn.ModuleDict(OrderedDict(
-                norm=BatchNorm(in_features),
+                norm=BatchNorm(in_features, dtype=dtype),
                 conv=nn.Conv2d(in_features, features, 1, stride=stride,
                                bias=False)))
 
@@ -64,10 +72,10 @@ class WideResUnit(nn.Module):
         if self.stride == 1:
             h = f.norm1.act_conv(x, f.conv1)
         else:
-            h = f.conv1(f.norm1(x))
+            h = conv(f.conv1, f.norm1(x), self.dtype)
         h = f.norm2.act_conv(h, f.conv2)
         if self.i_block is not None:
-            x = self.i_block.conv(self.i_block.norm(x))
+            x = conv(self.i_block.conv, self.i_block.norm(x), self.dtype)
         return h + x
 
 
@@ -76,24 +84,27 @@ class WideResNet(nn.Module):
     inputs."""
 
     def __init__(self, depth: int = 28, width: int = 2,
-                 num_input_channels: int = 3):
+                 num_input_channels: int = 3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if (depth - 4) % 6:
             raise ValueError(f"depth should be 6n+4, got {depth}")
         block_depth = (depth - 4) // 6
         widths = [16 * width, 32 * width, 64 * width]
         self.num_feature_channel = widths[-1]
-        blocks = OrderedDict(pre_process=PreProcess(num_input_channels))
+        blocks = OrderedDict(pre_process=PreProcess(num_input_channels, dtype))
         cin = NUM_INIT_FEATURES
         for group, features in enumerate(widths, start=1):
             units = OrderedDict()
             for i in range(1, block_depth + 1):
                 stride = 2 if (group > 1 and i == 1) else 1
-                units[f"wideunit{i}"] = WideResUnit(cin, features, stride)
+                units[f"wideunit{i}"] = WideResUnit(cin, features, stride,
+                                                    dtype)
                 cin = features
             blocks[f"wideblock{group}"] = nn.ModuleDict(
                 {"wide_block": nn.Sequential(units)})
-        blocks["transition"] = nn.ModuleDict({"norm": BatchNorm(cin)})
+        blocks["transition"] = nn.ModuleDict({"norm": BatchNorm(cin,
+                                                                dtype=dtype)})
         self.encoder = nn.ModuleDict(blocks)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,21 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version and a
-launch counter (``<wrapper>.launches``)."""
+launch counter per data type (``<wrapper>.launches`` for float32,
+``<wrapper>.launches_bf16`` for bfloat16)."""
 
 import torch
+
+
+def count_launch(wrapper, dtype: torch.dtype) -> None:
+    """Count one launch of ``wrapper``'s kernel for ``dtype`` data."""
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
+
+
+def init_counts(*wrappers) -> None:
+    for wrapper in wrappers:
+        wrapper.launches = wrapper.launches_bf16 = 0
 
 
 def refuse_grad(name: str, training_path: str, *tensors) -> None:

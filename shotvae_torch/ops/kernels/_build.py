@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Tuple
 
@@ -26,12 +27,14 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """The path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    nvcc = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError(f"nvcc not found (looked on PATH and in {cuda_home})")
-    return nvcc
+    path = shutil.which(name) or os.path.join(cuda_home, "bin", name)
+    if not os.path.exists(path):
+        raise RuntimeError(f"{name} not found (looked on PATH and in "
+                           f"{cuda_home})")
+    return path
 
 
 def _target(name: str) -> Tuple[Path, Path]:
@@ -49,7 +52,7 @@ def build(name: str) -> str:
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")  # no half-written library
-    out = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    out = subprocess.run([cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                          capture_output=True, text=True)
     log = out.stdout + out.stderr
     if out.returncode:
@@ -68,3 +71,16 @@ def load(name: str) -> ctypes.CDLL:
 
 def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build_all() -> Dict[str, str]:
+    """Build every source, one nvcc each, all started together; returns
+    each one's nvcc output."""
+    names = sources()
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu``'s library is built."""
+    return _target(name)[1]

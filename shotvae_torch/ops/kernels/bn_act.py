@@ -5,9 +5,15 @@ kernel ``_inference_kernel`` :244): ``y = leaky(x * scale[c] + shift[c])``
 over (M, C) rows, scale/shift folded from the running statistics inside
 the kernel, so one launch is the whole function.
 
-What bounds it on the H100: memory. Per element it reads 4 bytes and writes
-4 bytes for two flops and a select, far below the card's
-operations-per-byte line, so the least time is 8·M·C bytes / 3.35 TB/s.
+x and y are float32 or bfloat16 (the bf16 trunk's eval step), the BN
+vectors float32; the kernel computes in f32 and rounds y to x's dtype
+(fused_bn_act.py:245-246, 266). The bf16 variant is a separate launch,
+counted on ``launches_bf16``.
+
+What bounds it on the H100: memory. Per element it reads and writes one
+value (4 + 4 bytes in f32, 2 + 2 in bf16) for two flops and a select, far
+below the card's operations-per-byte line, so the least time is those bytes
+over 3.35 TB/s.
 The design does that one read and one write and nothing else: a program
 owns a block of rows by a power-of-two block of channels (masked where C
 is not a multiple of it), folds its channels' scale/shift once from the
@@ -25,7 +31,7 @@ import functools
 
 import torch
 
-from shotvae_torch.ops.kernels import refuse_grad
+from shotvae_torch.ops.kernels import count_launch, init_counts, refuse_grad
 from shotvae_torch.ops.kernels.fused_conv import bn_affine_from_stats
 
 LEAKY_SLOPE = 0.01
@@ -53,10 +59,10 @@ def _bn_act_kernel(x_ptr, w_ptr, b_ptr, mean_ptr, var_ptr, y_ptr, M, C, eps,
     scale = tl.load(w_ptr + cols, mask=col_ok, other=0.0) * tl.rsqrt(var + eps)
     shift = (tl.load(b_ptr + cols, mask=col_ok, other=0.0)
              - tl.load(mean_ptr + cols, mask=col_ok, other=0.0) * scale)
-    x = tl.load(x_ptr + offs, mask=mask, other=0.0)
+    x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
     y = x * scale[None, :] + shift[None, :]
     y = tl.where(y >= 0, y, slope * y)
-    tl.store(y_ptr + offs, y, mask=mask)
+    tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
 
 
 @functools.cache
@@ -83,9 +89,10 @@ def bn_act_inference(x, weight, bias, running_mean, running_var,
     if x.device.type == "cpu":
         return bn_act_plain(x, weight, bias, running_mean, running_var, eps,
                             slope)
-    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
-        raise ValueError(f"bn_act kernel takes contiguous 2-D float32 rows, "
-                         f"got {x.dtype} {tuple(x.shape)} "
+    if (x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 2
+            or not x.is_contiguous()):
+        raise ValueError(f"bn_act kernel takes contiguous 2-D float32 or "
+                         f"bfloat16 rows, got {x.dtype} {tuple(x.shape)} "
                          f"contiguous={x.is_contiguous()}")
     m, c = x.shape
     vecs = (weight, bias, running_mean, running_var)
@@ -100,8 +107,8 @@ def bn_act_inference(x, weight, bias, running_mean, running_var,
     with torch.cuda.device(x.device):
         _compiled()[grid](x, *vecs, y, m, c, float(eps), float(slope),
                           BLOCK_M=block_m, BLOCK_C=block_c, num_warps=4)
-    bn_act_inference.launches += 1
+    count_launch(bn_act_inference, x.dtype)
     return y
 
 
-bn_act_inference.launches = 0
+init_counts(bn_act_inference)

@@ -14,10 +14,17 @@ statistics in f32:
 * ``bn_bwd_apply`` (``_bwd_apply_kernel`` :111, called at :217):
   ``dx = gamma * invstd * (g' - (sum g' + xhat * sum g' xhat) / M)``.
 
+Data types, as the TPU kernels write them (fused_bn_act.py:145, 182-183,
+212, 223): x and y, and g and dx, are float32 or bfloat16 (the bf16 trunk);
+the statistics, xhat and the sums are always float32. A kernel loads bf16,
+computes in f32 and stores with a round-to-nearest-even cast (Triton's
+default for a float downcast). Triton compiles a variant per pointer type,
+so the bf16 kernels are separate launches, counted on ``launches_bf16``.
+
 What bounds them on the H100: memory. Each is one or two passes over (M, C)
-f32 rows with a handful of flops per element, far below the card's
+rows with a handful of flops per element, far below the card's
 operations-per-byte line; the least times are 4, 12, 8 and 12 bytes per
-element over 3.35 TB/s.
+element over 3.35 TB/s in f32, and 2, 8, 6 and 8 with bf16 x/y/g/dx.
 
 Design. A program owns a block of rows by a power-of-two block of channels
 (masked where C is not a multiple of it), the pattern of ``bn_act.py``. The
@@ -43,6 +50,8 @@ from __future__ import annotations
 import functools
 
 import torch
+
+from shotvae_torch.ops.kernels import count_launch, init_counts
 
 LEAKY_SLOPE = 0.01
 _BLOCK_ELEMS = 4096      # elements per program and row block: 16 KiB of f32
@@ -106,7 +115,7 @@ def _stats_kernel(x_ptr, part_ptr, M, C, ITERS, BLOCK_M: tl.constexpr,
                 + tl.arange(0, BLOCK_M))
         mask = (rows[:, None] < M) & col_ok[None, :]
         x = tl.load(x_ptr + rows[:, None].to(tl.int64) * C + cols[None, :],
-                    mask=mask, other=0.0)
+                    mask=mask, other=0.0).to(tl.float32)
         acc += x
         acc2 += x * x
     out = part_ptr + tl.program_id(0) * 2 * C + cols
@@ -129,7 +138,7 @@ def _bwd_reduce_kernel(g_ptr, xhat_ptr, gamma_ptr, beta_ptr, part_ptr, M, C,
                 + tl.arange(0, BLOCK_M))
         mask = (rows[:, None] < M) & col_ok[None, :]
         offs = rows[:, None].to(tl.int64) * C + cols[None, :]
-        g = tl.load(g_ptr + offs, mask=mask, other=0.0)
+        g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
         xhat = tl.load(xhat_ptr + offs, mask=mask, other=0.0)
         pre = xhat * gamma[None, :] + beta[None, :]
         gp = g * tl.where(pre >= 0, 1.0, slope)
@@ -178,10 +187,11 @@ def _apply_kernel(x_ptr, stats_ptr, gamma_ptr, beta_ptr, y_ptr, xhat_ptr, M,
     invstd = tl.load(stats_ptr + 2 * C + cols, mask=col_ok, other=0.0)
     gamma = tl.load(gamma_ptr + cols, mask=col_ok, other=0.0)
     beta = tl.load(beta_ptr + cols, mask=col_ok, other=0.0)
-    x = tl.load(x_ptr + offs, mask=mask, other=0.0)
+    x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
     xhat = (x - mean[None, :]) * invstd[None, :]
     y = xhat * gamma[None, :] + beta[None, :]
-    tl.store(y_ptr + offs, tl.where(y >= 0, y, slope * y), mask=mask)
+    y = tl.where(y >= 0, y, slope * y)
+    tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
     tl.store(xhat_ptr + offs, xhat, mask=mask)
 
 
@@ -198,13 +208,13 @@ def _bwd_apply_kernel(g_ptr, xhat_ptr, gamma_ptr, beta_ptr, stats_ptr,
     invstd = tl.load(stats_ptr + 2 * C + cols, mask=col_ok, other=0.0)
     sum_gp = tl.load(sums_ptr + cols, mask=col_ok, other=0.0)
     sum_gpx = tl.load(sums_ptr + C + cols, mask=col_ok, other=0.0)
-    g = tl.load(g_ptr + offs, mask=mask, other=0.0)
+    g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
     xhat = tl.load(xhat_ptr + offs, mask=mask, other=0.0)
     pre = xhat * gamma[None, :] + beta[None, :]
     gp = g * tl.where(pre >= 0, 1.0, slope)
     dx = (gamma * invstd)[None, :] * (
         gp - inv_m * (sum_gp[None, :] + xhat * sum_gpx[None, :]))
-    tl.store(dx_ptr + offs, dx, mask=mask)
+    tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=mask)
 
 
 @functools.cache
@@ -231,16 +241,19 @@ def _blocks(m: int, c: int):
     return block_m, block_c, -(-m // block_m), -(-c // block_c)
 
 
-def _check(*tensors, c: int):
-    """Kernel arguments: contiguous f32 on one card, C channels last."""
-    dev = tensors[0].device
-    for t in tensors:
-        if (t.dtype != torch.float32 or t.device != dev
+def _check(data, *f32, c: int):
+    """Kernel arguments: contiguous, on one card, C channels last; ``data``
+    (x or g) float32 or bfloat16, the rest (xhat, statistics, sums,
+    gamma, beta) float32."""
+    for t in (data, *f32):
+        ok = ((torch.float32, torch.bfloat16) if t is data
+              else (torch.float32,))
+        if (t.dtype not in ok or t.device != data.device
                 or not t.is_contiguous() or t.shape[-1] != c):
             raise ValueError(
-                f"bn_leaky kernels take contiguous float32 (M, C) rows and "
-                f"(C,) vectors on one card, C={c}; got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device} contiguous="
+                f"bn_leaky kernels take contiguous float32 or bfloat16 (M, C) "
+                f"rows with float32 xhat and (C,) vectors on one card, C={c}; "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device} contiguous="
                 f"{t.is_contiguous()}")
 
 
@@ -274,23 +287,25 @@ def bn_stats(x, eps: float = 1e-5):
     m, c = x.shape
     _check(x, c=c)
     out = _reduce("_stats_kernel", (x,), (), m, c, eps, stats=True)
-    bn_stats.launches += 1
+    count_launch(bn_stats, x.dtype)
     return out
 
 
 def bn_apply(x, stats, gamma, beta, slope: float = LEAKY_SLOPE):
-    """-> (y, xhat) from (M, C) rows and ``bn_stats``'s (3, C) output."""
+    """-> (y, xhat) from (M, C) rows and ``bn_stats``'s (3, C) output; y in
+    x's dtype, xhat float32."""
     if x.device.type == "cpu":
         return bn_apply_plain(x, stats, gamma, beta, slope)
     m, c = x.shape
     _check(x, stats, gamma, beta, c=c)
-    y, xhat = torch.empty_like(x), torch.empty_like(x)
+    y = torch.empty_like(x)
+    xhat = torch.empty(x.shape, device=x.device, dtype=torch.float32)
     block_m, block_c, row_blocks, col_blocks = _blocks(m, c)
     with torch.cuda.device(x.device):
         _compiled()["_apply_kernel"][(row_blocks, col_blocks)](
             x, stats, gamma, beta, y, xhat, m, c, float(slope),
             BLOCK_M=block_m, BLOCK_C=block_c, num_warps=4)
-    bn_apply.launches += 1
+    count_launch(bn_apply, x.dtype)
     return y, xhat
 
 
@@ -302,14 +317,14 @@ def bn_bwd_reduce(g, xhat, gamma, beta, slope: float = LEAKY_SLOPE):
     _check(g, xhat, gamma, beta, c=c)
     out = _reduce("_bwd_reduce_kernel", (g, xhat, gamma, beta),
                   (float(slope),), m, c, 0.0, stats=False)
-    bn_bwd_reduce.launches += 1
+    count_launch(bn_bwd_reduce, g.dtype)
     return out
 
 
 def bn_bwd_apply(g, xhat, gamma, beta, stats, sums,
                  slope: float = LEAKY_SLOPE):
-    """dx of the (M, C) rows, from ``bn_stats``'s and ``bn_bwd_reduce``'s
-    outputs."""
+    """dx of the (M, C) rows, in g's dtype, from ``bn_stats``'s and
+    ``bn_bwd_reduce``'s outputs."""
     if g.device.type == "cpu":
         return bn_bwd_apply_plain(g, xhat, gamma, beta, stats, sums, slope)
     m, c = g.shape
@@ -320,12 +335,11 @@ def bn_bwd_apply(g, xhat, gamma, beta, stats, sums,
         _compiled()["_bwd_apply_kernel"][(row_blocks, col_blocks)](
             g, xhat, gamma, beta, stats, sums, dx, m, c, 1.0 / m,
             float(slope), BLOCK_M=block_m, BLOCK_C=block_c, num_warps=4)
-    bn_bwd_apply.launches += 1
+    count_launch(bn_bwd_apply, g.dtype)
     return dx
 
 
-for _wrapper in (bn_stats, bn_apply, bn_bwd_reduce, bn_bwd_apply):
-    _wrapper.launches = 0
+init_counts(bn_stats, bn_apply, bn_bwd_reduce, bn_bwd_apply)
 
 
 # ------------------------------------------------------------------ autograd

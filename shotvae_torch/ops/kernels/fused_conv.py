@@ -1,13 +1,22 @@
-"""Fused BN affine + LeakyReLU + 3x3 conv (forward), as a CUDA C++ kernel.
+"""Fused BN affine + LeakyReLU + 3x3 conv (forward), as CUDA C++ kernels.
 
 Replaces the forward of ``fused_bn_act_conv``
 (shotvae_tpu/ops/pallas/fused_conv.py:230, kernel ``_kernel`` :101):
 ``conv3x3_SAME(leaky(x * scale + shift), w)``, stride 1, with the
-activated tensor never written to device memory. The kernel is
-``shotvae_torch/csrc/fused_conv.cu``; its header says what bounds it on the
-H100 (operations: f32 FMAs) and how its design answers that. The TPU
-kernel's batch-tile sizing (``_pick_tile``) and flat-row shift-and-mask
-layout are not carried over.
+activated tensor never written to device memory. Two kernels, by x's
+dtype, each counted on its own counter:
+
+* float32: ``shotvae_torch/csrc/fused_conv.cu``, a direct conv on the CUDA
+  cores (``fused_bn_act_conv.launches``);
+* bfloat16: ``shotvae_torch/csrc/fused_conv_bf16.cu``, an implicit GEMM on
+  the tensor cores (``fused_bn_act_conv.launches_bf16``). As the TPU kernel
+  does in bf16, the activation is computed in f32 and rounded to bf16 before
+  the product (fused_conv.py:115), the weight is cast to bf16 (:167), the
+  sums are f32 and y is bf16.
+
+Each source's header says what bounds it on the H100 and how its design
+answers that. The TPU kernel's batch-tile sizing (``_pick_tile``) and
+flat-row shift-and-mask layout are not carried over.
 
 Tensors are NCHW in ``channels_last`` memory format, so the kernel sees the
 NHWC rows the TPU kernel saw; the (Cout, Cin, 3, 3) weight is reordered once
@@ -29,8 +38,10 @@ Two differentiable sites launch the kernel:
   kernels turn d(act) into dx, dgamma and dbeta: exactly the gradient of
   ``conv(leaky(BN_train(x)))``.
 
-On the CPU the wrapper runs the plain version; on a CUDA tensor it launches
-the kernel or raises.
+Both sites cast the weight to x's dtype on every call, as the JAX kernel
+does, so an f32 master weight gets its gradient through the cast. On the
+CPU the wrapper runs the plain version; on a CUDA tensor it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -40,7 +51,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from shotvae_torch.ops.kernels import _build
+from shotvae_torch.ops.kernels import _build, count_launch, init_counts
 from shotvae_torch.ops.kernels.bn_leaky import (bn_apply, bn_bwd_apply,
                                                 bn_bwd_reduce, bn_stats)
 
@@ -67,16 +78,23 @@ def from_rows(rows, b: int, h: int, w: int):
 
 def fused_bn_act_conv_plain(x, scale, shift, weight, *,
                             slope: float = LEAKY_SLOPE):
-    """The plain version: the activated tensor is materialised, then
-    ``F.conv2d``. x (B, Cin, H, W); weight (Cout, Cin, 3, 3)."""
+    """The plain version: the activated tensor is materialised in x's dtype,
+    then ``F.conv2d`` with the weight in x's dtype (fused_conv.py:197-203).
+    x (B, Cin, H, W); weight (Cout, Cin, 3, 3)."""
     pre = x.to(torch.float32) * scale[:, None, None] + shift[:, None, None]
     act = torch.where(pre > 0, pre, slope * pre).to(x.dtype)
     return F.conv2d(act, weight.to(x.dtype), padding=1)
 
 
-def _lib():
-    lib = _build.load("fused_conv")
-    fn = lib.fused_bn_act_conv3x3_f32
+# x's dtype -> (CUDA source, C entry point, channel multiple it needs)
+_KERNELS = {torch.float32: ("fused_conv", "fused_bn_act_conv3x3_f32", 4),
+            torch.bfloat16: ("fused_conv_bf16", "fused_bn_act_conv3x3_bf16",
+                             8)}
+
+
+def _lib(dtype):
+    source, entry, _ = _KERNELS[dtype]
+    fn = getattr(_build.load(source), entry)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_void_p])
@@ -85,8 +103,9 @@ def _lib():
 
 
 def _fused_conv_forward(x, scale, shift, weight, slope: float):
-    """The kernel's wrapper (no autograd): x (B, Cin, H, W), channels_last
-    on the card; scale/shift (Cin,) f32; weight (Cout, Cin, 3, 3)."""
+    """The kernels' wrapper (no autograd): x (B, Cin, H, W), channels_last
+    on the card, float32 or bfloat16; weight (Cout, Cin, 3, 3) in x's dtype;
+    scale/shift (Cin,) f32. Returns y in x's dtype."""
     b, cin, h, w = x.shape
     cout = weight.shape[0]
     if weight.shape != (cout, cin, 3, 3):
@@ -94,15 +113,22 @@ def _fused_conv_forward(x, scale, shift, weight, slope: float):
                          f"{tuple(weight.shape)}")
     if x.device.type == "cpu":
         return fused_bn_act_conv_plain(x, scale, shift, weight, slope=slope)
-    tensors = (x, scale, shift, weight)
-    if any(t.dtype != torch.float32 or t.device != x.device for t in tensors):
-        raise ValueError("fused_conv kernel takes float32 tensors on one card")
+    if (x.dtype not in _KERNELS or weight.dtype != x.dtype
+            or scale.dtype != torch.float32 or shift.dtype != torch.float32
+            or any(t.device != x.device for t in (scale, shift, weight))):
+        raise ValueError(f"fused_conv kernels take x and the weight both "
+                         f"float32 or both bfloat16, and float32 scale/shift, "
+                         f"on one card; got x {x.dtype}, weight "
+                         f"{weight.dtype}, scale {scale.dtype}, shift "
+                         f"{shift.dtype}")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("fused_conv kernel takes x in channels_last format")
-    if cin % 4 or cout % 4 or scale.shape != (cin,) or shift.shape != (cin,):
-        raise ValueError(f"fused_conv kernel needs Cin and Cout multiples of "
-                         f"4 and (Cin,) scale/shift; got Cin={cin}, "
-                         f"Cout={cout}, {tuple(scale.shape)}/"
+    mult = _KERNELS[x.dtype][2]
+    if (cin % mult or cout % mult or scale.shape != (cin,)
+            or shift.shape != (cin,)):
+        raise ValueError(f"fused_conv {x.dtype} kernel needs Cin and Cout "
+                         f"multiples of {mult} and (Cin,) scale/shift; got "
+                         f"Cin={cin}, Cout={cout}, {tuple(scale.shape)}/"
                          f"{tuple(shift.shape)}")
     w2 = weight.permute(2, 3, 1, 0).reshape(9 * cin, cout).contiguous()
     scale, shift = scale.contiguous(), shift.contiguous()
@@ -110,12 +136,12 @@ def _fused_conv_forward(x, scale, shift, weight, slope: float):
                     memory_format=torch.channels_last)
     if any(t.data_ptr() % 16 for t in (x, scale, shift, w2, y)):
         raise ValueError("fused_conv kernel needs 16-byte aligned tensors")
-    err = _lib()(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                 w2.data_ptr(), y.data_ptr(), b, h, w, cin, cout, slope,
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    err = _lib(x.dtype)(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                        w2.data_ptr(), y.data_ptr(), b, h, w, cin, cout,
+                        slope, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_conv kernel launch failed: CUDA error {err}")
-    fused_bn_act_conv.launches += 1
+    count_launch(fused_bn_act_conv, x.dtype)
     return y
 
 
@@ -129,7 +155,9 @@ def _conv_grads(g, act, weight):
 
 
 class _FusedBnActConv(torch.autograd.Function):
-    """The eval-mode site; backward as ``_fused_bwd`` (fused_conv.py:215)."""
+    """The eval-mode site; backward as ``_fused_bwd`` (fused_conv.py:215):
+    the VJP of ``_reference_composition`` (:197-203), whose activation is
+    rounded to x's dtype before the conv and whose dx is cast back to it."""
 
     @staticmethod
     def forward(ctx, x, scale, shift, weight, slope):
@@ -140,26 +168,28 @@ class _FusedBnActConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, scale, shift, weight = ctx.saved_tensors
-        pre = x * scale[:, None, None] + shift[:, None, None]
+        x32 = x.to(torch.float32)
+        pre = x32 * scale[:, None, None] + shift[:, None, None]
         positive = pre > 0
-        act = torch.where(positive, pre, ctx.slope * pre)
+        act = torch.where(positive, pre, ctx.slope * pre).to(x.dtype)
         dact, dw = _conv_grads(g, act, weight)
-        gp = dact * torch.where(positive, 1.0, ctx.slope)
-        return (gp * scale[:, None, None], (gp * x).sum((0, 2, 3)),
-                gp.sum((0, 2, 3)), dw, None)
+        gp = dact.to(torch.float32) * torch.where(positive, 1.0, ctx.slope)
+        return ((gp * scale[:, None, None]).to(x.dtype),
+                (gp * x32).sum((0, 2, 3)), gp.sum((0, 2, 3)), dw, None)
 
 
 def fused_bn_act_conv(x, scale, shift, weight, *, slope: float = LEAKY_SLOPE):
     """``conv3x3_SAME(leaky(x * scale + shift), weight)``, stride 1.
 
-    x: (B, Cin, H, W), channels_last on the card; scale/shift: (Cin,) f32;
-    weight: (Cout, Cin, 3, 3). Returns (B, Cout, H, W) in channels_last.
-    Differentiable in all four, with the JAX VJP.
+    x: (B, Cin, H, W), float32 or bfloat16, channels_last on the card;
+    scale/shift: (Cin,) f32; weight: (Cout, Cin, 3, 3), cast to x's dtype.
+    Returns (B, Cout, H, W) in x's dtype and channels_last. Differentiable
+    in all four, with the JAX VJP.
     """
-    return _FusedBnActConv.apply(x, scale, shift, weight, slope)
+    return _FusedBnActConv.apply(x, scale, shift, weight.to(x.dtype), slope)
 
 
-fused_bn_act_conv.launches = 0
+init_counts(fused_bn_act_conv)
 
 
 class _FusedBnActConvTrain(torch.autograd.Function):
@@ -193,20 +223,24 @@ class _FusedBnActConvTrain(torch.autograd.Function):
 def fused_bn_act_conv_train(x, gamma, beta, weight, *, eps: float = 1e-5,
                             slope: float = LEAKY_SLOPE):
     """``conv3x3_SAME(leaky(BN_train(x)), weight)`` -> (y, mean, var), with
-    the biased batch statistics of x (B, Cin, H, W) that feed the
-    running-stat update. Differentiable in x, gamma, beta and weight."""
-    return _FusedBnActConvTrain.apply(x, gamma, beta, weight, eps, slope)
+    the biased f32 batch statistics of x (B, Cin, H, W) that feed the
+    running-stat update; y and the gradient of x in x's dtype (float32 or
+    bfloat16), the weight cast to it. Differentiable in x, gamma, beta and
+    weight."""
+    return _FusedBnActConvTrain.apply(x, gamma, beta, weight.to(x.dtype), eps,
+                                      slope)
 
 
 def fused_bn_act_conv_train_plain(x, gamma, beta, weight, *,
                                   eps: float = 1e-5,
                                   slope: float = LEAKY_SLOPE):
     """The train-mode site as plain differentiable torch ops, for comparing
-    values and gradients with the kernels."""
+    values and gradients with the kernels: statistics and BN in f32, the
+    activation rounded to x's dtype, the conv in x's dtype."""
     x32 = x.to(torch.float32)
     mean = x32.mean((0, 2, 3))
     var = torch.clamp((x32 * x32).mean((0, 2, 3)) - mean * mean, min=0.0)
     xhat = (x32 - mean[:, None, None]) * torch.rsqrt(var + eps)[:, None, None]
     pre = xhat * gamma[:, None, None] + beta[:, None, None]
-    act = torch.where(pre >= 0, pre, slope * pre)
-    return F.conv2d(act, weight, padding=1), mean, var
+    act = torch.where(pre >= 0, pre, slope * pre).to(x.dtype)
+    return F.conv2d(act, weight.to(x.dtype), padding=1), mean, var

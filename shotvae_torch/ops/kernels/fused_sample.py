@@ -36,7 +36,7 @@ from typing import Optional
 
 import torch
 
-from shotvae_torch.ops.kernels import refuse_grad
+from shotvae_torch.ops.kernels import count_launch, init_counts, refuse_grad
 from shotvae_torch.ops.sampling import draw_seed, gumbel_softmax_from_uniform
 
 _TWO_PI = 2.0 * math.pi
@@ -146,8 +146,8 @@ def fused_joint_sample(mean, log_sigma, log_alpha, temperature: float = 0.67,
                           BLOCK_DC=max(16, 1 << (dc - 1).bit_length()),
                           BLOCK_DD=max(16, 1 << (dd - 1).bit_length()),
                           num_warps=4)
-    fused_joint_sample.launches += 1
+    count_launch(fused_joint_sample, out.dtype)
     return out
 
 
-fused_joint_sample.launches = 0
+init_counts(fused_joint_sample)

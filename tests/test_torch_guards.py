@@ -327,3 +327,123 @@ def test_chip_smoke_train_step_check_fails_a_wrong_gradient(wrong,
     with pytest.raises(RuntimeError, match="disagree on the gradient"):
         chip_smoke.compare_train_step(torch.device("cpu"), 2)
     assert len(made) == 3
+
+
+def _meta(shape, dtype):
+    """A tensor that is on no CPU: a wrapper takes its kernel's route, and
+    its checks run before anything is launched."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+_BAD_KERNEL_CALLS = {
+    "bn_stats float16": lambda bl, ba, fc: bl.bn_stats(
+        _meta((64, 8), torch.float16)),
+    "bn_apply bf16 x, bf16 statistics": lambda bl, ba, fc: bl.bn_apply(
+        _meta((64, 8), torch.bfloat16), _meta((3, 8), torch.bfloat16),
+        _meta((8,), torch.float32), _meta((8,), torch.float32)),
+    "bn_bwd_reduce bf16 g, bf16 xhat": lambda bl, ba, fc: bl.bn_bwd_reduce(
+        _meta((64, 8), torch.bfloat16), _meta((64, 8), torch.bfloat16),
+        _meta((8,), torch.float32), _meta((8,), torch.float32)),
+    "bn_bwd_apply float16": lambda bl, ba, fc: bl.bn_bwd_apply(
+        _meta((64, 8), torch.float16), _meta((64, 8), torch.float32),
+        *[_meta((8,), torch.float32)] * 2, _meta((3, 8), torch.float32),
+        _meta((2, 8), torch.float32)),
+    "bn_act float16": lambda bl, ba, fc: ba.bn_act_inference(
+        _meta((64, 8), torch.float16), *[_meta((8,), torch.float32)] * 4),
+    "bn_act bf16 x, bf16 vectors": lambda bl, ba, fc: ba.bn_act_inference(
+        _meta((64, 8), torch.bfloat16), *[_meta((8,), torch.bfloat16)] * 4),
+    "fused conv float16": lambda bl, ba, fc: fc.fused_bn_act_conv(
+        _meta((2, 8, 4, 4), torch.float16), _meta((8,), torch.float32),
+        _meta((8,), torch.float32), _meta((8, 8, 3, 3), torch.float32)),
+    "fused conv bf16 x, f32 weight": lambda bl, ba, fc: fc._fused_conv_forward(
+        _meta((2, 8, 4, 4), torch.bfloat16), _meta((8,), torch.float32),
+        _meta((8,), torch.float32), _meta((8, 8, 3, 3), torch.float32), 0.01),
+    "fused conv bf16 x, bf16 scale": lambda bl, ba, fc: fc._fused_conv_forward(
+        _meta((2, 8, 4, 4), torch.bfloat16), _meta((8,), torch.bfloat16),
+        _meta((8,), torch.float32), _meta((8, 8, 3, 3), torch.bfloat16),
+        0.01),
+}
+
+
+@pytest.mark.parametrize("call", list(_BAD_KERNEL_CALLS))
+def test_kernel_wrappers_refuse_other_dtypes(call):
+    """Off the CPU a wrapper launches its kernel or raises: float16, and a
+    bf16 tensor beside one that must be f32 (or the reverse), raise before
+    any launch, and no launch is counted."""
+    from shotvae_torch.ops.kernels import bn_act, bn_leaky, fused_conv
+
+    with pytest.raises(ValueError):
+        _BAD_KERNEL_CALLS[call](bn_leaky, bn_act, fused_conv)
+    for k in (bn_leaky.bn_stats, bn_leaky.bn_apply, bn_leaky.bn_bwd_reduce,
+              bn_leaky.bn_bwd_apply, bn_act.bn_act_inference,
+              fused_conv.fused_bn_act_conv):
+        assert k.launches == k.launches_bf16 == 0
+
+
+def test_chip_smoke_bf16_phases_run_on_cpu(monkeypatch):
+    """chip_smoke.py's bf16 phases at batch 2 on the CPU: every plain
+    version agrees with itself in bf16, the outputs keep their dtypes, no
+    launch is counted, and the calibrated card-against-CPU step is exact
+    when both sides are the CPU, against a non-zero bf16-vs-f32 distance."""
+    chip_smoke = _chip_smoke(monkeypatch)
+    out = chip_smoke.bf16_phases(torch.device("cpu"), 2, steps=1)
+    assert set(out["bn_leaky_train"][1].values()) == {0.0}
+    assert out["bn_act_inference"][1] == 0.0
+    assert len(out["fused_bn_act_conv"][0]) == 4
+    assert len(out["fused_bn_act_conv_train"][0]) == 4
+    train = out["train"]
+    assert set(train["launches"].values()) == {0}
+    assert set(train["eval_launches"].values()) == {0}
+    assert all(np.isfinite(v) for v in train["last_metrics"].values())
+    vs_cpu = train["vs_cpu"]
+    assert vs_cpu["worst_share_of_tol"] == 0.0 and vs_cpu["tensors"] > 200
+    assert vs_cpu["cpu_bf16_vs_f32_rel_median"] > 0.0
+
+
+def test_chip_smoke_bf16_conv_check_fails_a_wrong_kernel(monkeypatch):
+    """The bf16 fused conv phase fails a kernel that drops the shift."""
+    from shotvae_torch.ops.kernels import fused_conv
+
+    chip_smoke = _chip_smoke(monkeypatch)
+    forward = fused_conv._fused_conv_forward
+    monkeypatch.setattr(fused_conv, "_fused_conv_forward",
+                        lambda x, s, h, w, slope: forward(x, s, h * 0, w,
+                                                          slope))
+    with pytest.raises(RuntimeError, match="disagrees"):
+        chip_smoke.conv_phase(torch.device("cpu"), 2, torch.bfloat16)
+
+
+@pytest.mark.parametrize("wrong", list(_WRONG_BN_GRADS))
+def test_chip_smoke_bf16_step_check_fails_a_wrong_gradient(wrong,
+                                                           monkeypatch):
+    """chip_smoke.py's calibrated bf16 card-against-CPU step at batch 2 on
+    the CPU, with a fault planted in the training BN's backward of the
+    first (card-side) step only: it fails, within its tolerance of 3x the
+    CPU's own bf16-vs-f32 distance."""
+    from shotvae_torch.ops.kernels import bn_leaky
+
+    chip_smoke = _chip_smoke(monkeypatch)
+    fn = bn_leaky._BnLeakyTrain
+    backward = fn.backward
+    faulty = staticmethod(
+        lambda ctx, *g: _WRONG_BN_GRADS[wrong](backward(ctx, *g)))
+    trainer, made = chip_smoke.trainer, []
+
+    def planted(model):
+        state, step, sched = trainer(model)
+        first = not made
+        made.append(model)
+
+        def run(*args, **kwargs):
+            if first:
+                monkeypatch.setattr(fn, "backward", faulty)
+            try:
+                return step(*args, **kwargs)
+            finally:
+                monkeypatch.setattr(fn, "backward", staticmethod(backward))
+        return state, run, sched
+
+    monkeypatch.setattr(chip_smoke, "trainer", planted)
+    with pytest.raises(RuntimeError, match="bf16 card and CPU disagree"):
+        chip_smoke.compare_train_step_bf16(torch.device("cpu"), 2)
+    assert len(made) == 3
