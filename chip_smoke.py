@@ -6,7 +6,9 @@
 Phases, each of which raises (exit code not 0, no result line) on failure:
 
 1. Print the card's name and power limit (nvidia-smi), then build every
-   CUDA source of ``shotvae_torch/csrc`` with nvcc into ``build/kernels/``.
+   CUDA source of ``shotvae_torch/csrc`` with nvcc into ``build/kernels/``,
+   and require warpgroup products (HGMMA) and TMA copies (UTMALDG or
+   UBLKCP) in the SASS of the bf16 fused conv.
 2. Each kernel against its plain PyTorch version on the card, at every
    distinct shape the serving forward gives it at batch 768, with its
    tolerance; each timed with CUDA events (kernel, plain version, and a
@@ -26,8 +28,9 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
 4. The ``bn_leaky_train`` kernels (statistics, apply, backward reduce,
    backward apply) against their plain versions at every (M, C, slope) of a
    WRN-28-2 train step at batch 768, timed beside their bytes bound; the
-   train-mode fused conv site's forward and backward at the four encoder
-   shapes against plain autograd.
+   two reductions bit-identical over two calls and over two streams at
+   once, and one CUDA kernel per call (torch.profiler); the train-mode fused conv site's forward and
+   backward at the four encoder shapes against plain autograd.
 5. Training: the SHOT-VAE train step (``shotvae_torch.train.steps``) of the
    headline configuration (CIFAR-10 shape, WRN-28-2, BCE reconstruction,
    optimal-match mixup) at 768 labeled + 768 unlabeled, seeded random
@@ -40,10 +43,11 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    CPU's), the parameters and running statistics after it.
 6. The bf16 trunk (``VariationalAutoEncoder(dtype=torch.bfloat16)``, the
    JAX package's default): the bf16 variants of the ``bn_leaky`` and
-   ``bn_act`` kernels and the tensor-core bf16 fused conv
-   (``csrc/fused_conv_bf16.cu``, its HMMA instructions counted in the
-   built library) against their plain versions at every main-path shape,
-   timed beside their bounds; the train-mode fused site's bf16 backward;
+   ``bn_act`` kernels and the bf16 fused conv (``csrc/fused_conv_bf16.cu``,
+   persistent, TMA and warp-specialised ``wgmma``) against their plain
+   versions at every main-path shape, timed beside their bounds, the conv
+   also at the JAX test shapes and ragged ones (``CONV_CHECK_SHAPES``);
+   the train-mode fused site's bf16 backward;
    three bf16 train steps at 768 + 768 with the bf16 launch counts checked,
    step times, one profiled step and the bf16 eval step; one bf16 step on
    the card against the same bf16 step on the CPU at 16 + 16, each metric,
@@ -59,6 +63,7 @@ the script stands without the rest of the repository.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
 import os
@@ -115,6 +120,19 @@ BN_TRAIN_SITES = lambda b: [  # noqa: E731
     (b * 64, 128, 0.01, 8, 32),   # 7 fused; the transition
     (b, 1024, 0.0, 1, 2), (b * 4, 512, 0.0, 1, 2), (b * 16, 256, 0.0, 1, 2),
     (b * 64, 128, 0.0, 1, 2), (b * 256, 64, 0.0, 1, 2)]  # decoder norm0-4
+# (B, Cin, H, W, Cout) at which the bf16 fused conv is held to the f32 conv
+# of its rounded operands but not timed: the JAX package's test shapes
+# (tests/test_pallas.py:135-136), then ragged ones: H and W not multiples
+# of the kernel's 8x8 tile, B = 1, Cin a multiple of 8 but not of 16 (the
+# wrapper pads the weight's input channels), a last N slice of 8 channels;
+# then Cin past the 320 whose weight slice stays in shared memory, so the
+# weights stream through the stages: WRN-28-10's third group (640 -> 640
+# at 8x8) and a ragged one
+CONV_CHECK_SHAPES = [(8, 128, 8, 8, 128), (4, 64, 16, 16, 64),
+                     (2, 32, 32, 32, 32), (6, 128, 8, 8, 64),
+                     (1, 24, 13, 11, 32), (1, 8, 9, 17, 16),
+                     (3, 40, 7, 5, 72), (2, 640, 8, 8, 640),
+                     (1, 360, 5, 9, 40)]
 # kernel launches per train step at WRN-28-2, from the sites above: the
 # fused conv kernel at the 22 fused sites of each of 4 forwards (its
 # backward is cuDNN plus the bn_leaky kernels); statistics and apply at all
@@ -153,7 +171,7 @@ def time_ms(fn, iters: int = 10, reps: int = 5) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):  # the warmed-up stream
         for _ in range(iters):
             fn()
     graph.replay()
@@ -288,8 +306,9 @@ def conv_phase(dev, batch: int, dtype=None):
     """fused_bn_act_conv at each (B, Cin, H, W, Cout) of the encoder, x, the
     weight and y in ``dtype`` (None: float32). In bf16 the kernel is held
     against the f32 conv (TF32 off) of the bf16-rounded activation and
-    weight, within one bf16 ulp plus TOL_CONV; the plain version and the
-    library call then convolve in bf16."""
+    weight, within one bf16 ulp plus TOL_CONV, also at CONV_CHECK_SHAPES
+    (held, not timed); the plain version and the library call then
+    convolve in bf16."""
     import torch
     import torch.nn.functional as F
 
@@ -304,26 +323,33 @@ def conv_phase(dev, batch: int, dtype=None):
     cases = [(b, 16, 32, 32, 32, 1), (b, 32, 32, 32, 32, 7),
              (b, 64, 16, 16, 64, 7), (b, 128, 8, 8, 128, 7)]
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    rows, err = [], 0.0
-    for bb, cin, h, w, cout, n in cases:
-        cl = dict(memory_format=torch.channels_last)
+    cl = dict(memory_format=torch.channels_last)
+
+    def held(bb, cin, h, w, cout):
+        """Seeded inputs at one shape, the kernel's output held to the f32
+        conv of the rounded operands; returns the error and the inputs."""
         x = torch.randn((bb, cin, h, w), generator=gen,
                         device=dev).to(dtype).contiguous(**cl)
         scale = torch.rand((cin,), generator=gen, device=dev) + 0.5
         shift = torch.randn((cin,), generator=gen, device=dev) * 0.5  # != 0
         wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
               * (2.0 / (9 * cin)) ** 0.5).to(dtype).contiguous(**cl)
-        kernel = lambda: fused_bn_act_conv(x, scale, shift, wt)  # noqa: E731
-        plain = lambda: fused_bn_act_conv_plain(x, scale, shift, wt)  # noqa: E731
+        got = fused_bn_act_conv(x, scale, shift, wt)
+        check(got.dtype == dtype, f"fused conv gave {got.dtype} for {dtype}")
         pre = x.float() * scale[:, None, None] + shift[:, None, None]
         act = torch.where(pre > 0, pre, 0.01 * pre).to(dtype)
-        library = lambda: F.conv2d(act, wt, padding=1)  # noqa: E731
-        got = kernel()
-        check(got.dtype == dtype, f"fused conv gave {got.dtype} for {dtype}")
         e = max_err(got, F.conv2d(act.float(), wt.float(), padding=1),
                     TOL_CONV, ulp=ulp_of(got),
                     what=f"fused conv at {(bb, cin, h, w, cout)} {dtype}")
+        return e, (x, scale, shift, wt, act)
+
+    rows, err = [], 0.0
+    for bb, cin, h, w, cout, n in cases:
+        e, (x, scale, shift, wt, act) = held(bb, cin, h, w, cout)
         err = max(err, e)
+        kernel = lambda: fused_bn_act_conv(x, scale, shift, wt)  # noqa: E731
+        plain = lambda: fused_bn_act_conv_plain(x, scale, shift, wt)  # noqa: E731
+        library = lambda: F.conv2d(act, wt, padding=1)  # noqa: E731
         flops = 2 * bb * h * w * 9 * cin * cout
         nbytes = (size * (bb * h * w * (cin + cout) + 9 * cin * cout)
                   + 8 * cin)
@@ -335,6 +361,9 @@ def conv_phase(dev, batch: int, dtype=None):
                          bound_by=("operations" if flops / peak
                                    > nbytes / HBM_BYTES_PER_S else "bytes"),
                          library_ms=time_ms(library)))
+    if dtype == torch.bfloat16:
+        for shape in CONV_CHECK_SHAPES:
+            err = max(err, held(*shape)[0])
     return rows, err
 
 
@@ -569,11 +598,17 @@ def events_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+# the two bn_leaky reductions, each one kernel per call: wrapper -> kernel
+REDUCTIONS = {"bn_stats": "_stats_kernel", "bn_bwd_reduce": "_bwd_reduce_kernel"}
+
+
 def bn_leaky_phase(dev, batch: int, dtype=None):
     """The four bn_leaky_train kernels at each (M, C, slope) of a train
     step: each against its plain version on the same inputs, timed. x, y,
     g and dx are in ``dtype`` (None: float32); xhat, the statistics and
-    the sums are always f32."""
+    the sums are always f32. Each reduction gives one bitstream for one
+    input (two calls compared bit for bit) and, on the card, runs one CUDA
+    kernel per call (torch.profiler over one call at every site)."""
     import torch
 
     from shotvae_torch.ops.kernels import bn_leaky as bl
@@ -584,6 +619,7 @@ def bn_leaky_phase(dev, batch: int, dtype=None):
     rows = {k: [] for k in ("bn_stats", "bn_apply", "bn_bwd_reduce",
                             "bn_bwd_apply")}
     err = {k: 0.0 for k in rows}
+    reductions = []
     for m, c, slope, n_fwd, n_bwd in BN_TRAIN_SITES(batch):
         x = (torch.randn((m, c), generator=gen, device=dev) * 2
              + 0.5).to(dtype)
@@ -613,6 +649,12 @@ def bn_leaky_phase(dev, batch: int, dtype=None):
                                  g, xhat, gamma, beta, stats, sums, slope),
                              None, (2 * e_ + 4) * m * c + 28 * c, n_bwd),
         }
+        for name, fn in (("bn_stats", functools.partial(bl.bn_stats, x)),
+                         ("bn_bwd_reduce", functools.partial(
+                             bl.bn_bwd_reduce, g, xhat, gamma, beta, slope))):
+            check(torch.equal(fn(), fn()), f"{name} gave two bitstreams for "
+                  f"one input at {(m, c, slope)} {dtype}")
+            reductions.append((name, fn))
         for name, (kernel, plain, library, nbytes, launches) in calls.items():
             got, want = kernel(), plain()
             if isinstance(got, torch.Tensor):
@@ -629,7 +671,65 @@ def bn_leaky_phase(dev, batch: int, dtype=None):
                 ms=time_ms(kernel), plain_ms=time_ms(plain),
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                 library_ms=None if library is None else time_ms(library)))
+    for name, fn in reductions if dev.type == "cuda" else ():
+        where = f"{name} at {tuple(fn.args[0].shape)} {dtype}"
+        counter = ("launches_bf16" if dtype == torch.bfloat16
+                   else "launches")
+        launches, counted, kernels = cuda_launches(
+            fn, lambda: getattr(fn.func, counter))
+        # the window's one launch is the one the wrapper counts where it
+        # launches its kernel; the device trace names it where it caught it
+        check(launches == 1 and counted == 1
+              and all(REDUCTIONS[name] in k for k in kernels),
+              f"one {where} call made {launches} kernel launches, "
+              f"{counted} counted by the wrapper ({kernels}), not one "
+              f"{REDUCTIONS[name]}")
+        # two streams at once, each with its own ticket counters
+        want, side = fn(), [torch.cuda.Stream() for _ in range(2)]
+        for s in side:
+            s.wait_stream(torch.cuda.current_stream())
+        got = []
+        for s in side:
+            with torch.cuda.stream(s):
+                got.append(fn())
+        for s in side:
+            torch.cuda.current_stream().wait_stream(s)
+        check(all(torch.equal(a, want) for a in got),
+              f"{where} on two streams at once disagrees with one stream")
     return rows, err
+
+
+def cuda_launches(fn, count):
+    """The kernel launches one ``fn()`` makes, from torch.profiler, after
+    one warm-up call: the host's launch calls (``cudaLaunchKernel``,
+    ``cuLaunchKernel*``), which the profiler records as they are made; how
+    much ``count()`` (a wrapper's launch counter) rose over the same call;
+    and the kernels the device trace shows, which can drop records. A fill
+    kernel before and after ``fn()`` bounds the window and is left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sentinel = torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sentinel.fill_(0.0)
+        torch.cuda.synchronize()
+        before = count()
+        fn()
+        counted = count() - before
+        torch.cuda.synchronize()
+        sentinel.fill_(1.0)
+        torch.cuda.synchronize()
+    events = prof.events()
+    launches = sum(e.device_type == DeviceType.CPU
+                   and e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+                   for e in events) - 2
+    kernels = [e.name for e in events if e.device_type == DeviceType.CUDA
+               and "Fill" not in e.name]
+    return launches, counted, kernels
 
 
 def conv_bwd_phase(dev, batch: int, dtype=None):
@@ -1183,12 +1283,18 @@ def main() -> int:
     print(f"built {_build.sources()} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("registers", "spill", "wgmma",
+                                       "setmaxnreg", "arning")):
                 print(f"  {name}: {line.strip()}")
-    hmma = {name: sass_count(name, "HMMA") for name in _build.sources()}
-    print("sass_hmma_lines " + json.dumps(hmma))
-    check(hmma["fused_conv_bf16"] > 0, "the bf16 fused conv's SASS has no "
-          "HMMA (tensor-core) instruction")
+    # the bf16 conv's warpgroup products (HGMMA) and TMA copies (UTMALDG;
+    # UBLKCP for a plain bulk copy)
+    sass = {op: sass_count("fused_conv_bf16", op)
+            for op in ("HGMMA", "UTMALDG", "UBLKCP", "HMMA")}
+    print("sass_fused_conv_bf16_lines " + json.dumps(sass))
+    check(sass["HGMMA"] > 0, "the bf16 fused conv's SASS has no HGMMA "
+          "(wgmma) instruction")
+    check(sass["UTMALDG"] + sass["UBLKCP"] > 0, "the bf16 fused conv's SASS "
+          "has no TMA copy (UTMALDG or UBLKCP)")
 
     dev = torch.device("cuda")
     phases = {}

@@ -1,0 +1,270 @@
+#!/usr/bin/env python3
+"""Measurements behind the design of the port's bf16 fused conv and bn_leaky
+reductions, on one CUDA card (PERF.md Findings names what it printed).
+
+    python3 scripts/torch_kernel_study.py [conv] [plans] [reduce]
+
+conv: the bf16 fused conv (csrc/fused_conv_bf16.cu) at the four encoder
+shapes at batch 768, as built and with phases compiled out (bits of
+``ABLATIONS``: 1 the products, 2 the activation, 4 the x loads, 8 the y
+stores), device ms per launch from CUDA-graph replay, and ms per encoder
+forward (22 launches). Each variant is a patched copy of the source,
+built by nvcc into build/study/ (it computes a wrong y); the product's
+source and build carry no such switch.
+
+plans: the bf16 fused conv at the four encoder shapes under every launch
+plan that fits (slice width, chunk channels, stages), ms per launch.
+
+reduce: the bn_leaky statistics and backward reduce at every train-step
+site at batch 768, in f32 and bf16, ms per train step, with the program
+count of ``reduce_plan`` scaled by 1/2, 1 and 2, and with 2 and 8 warps
+a program; ms per launch at each site for the plan as built.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# bit -> (text of csrc/fused_conv_bf16.cu, its replacement), each text
+# found exactly once: the phase a variant compiles out
+ABLATIONS = {
+    1: [("wgmma_bn<BN>(acc[u], da, db, (k | tap | j) != 0);",
+         "(void)da, (void)db;")],
+    2: [("*reinterpret_cast<uint4*>(opnd + p * 16) = packed;",
+         "(void)packed;")],
+    4: [("mbar_expect_tx(raw_full + 8 * s, n_sub * L.raw_sub);",
+         "mbar_arrive(raw_full + 8 * s);"),
+        ("tma_load_4d(raw_s + s * L.raw_bytes",
+         "if (false) tma_load_4d(raw_s + s * L.raw_bytes")],
+    8: [('asm volatile("st.shared.b32 [%0], %1;\\n"',
+         'if (false) asm volatile("st.shared.b32 [%0], %1;\\n"'),
+        ("tma_store_4d(&y_map,", "if (false) tma_store_4d(&y_map,")],
+}
+VARIANTS = (0, 1, 2, 4, 8, 3, 15, 0)  # in the order timed
+
+
+def ablated_source(src: str, bits: int) -> str:
+    """The bf16 conv's source with the phases of ``bits`` compiled out;
+    raises where a patched text is not found exactly once."""
+    for bit, patches in ABLATIONS.items():
+        for old, new in patches if bits & bit else ():
+            if src.count(old) != 1:
+                raise ValueError(f"ablation {bit}: {old!r} is in "
+                                 f"csrc/fused_conv_bf16.cu {src.count(old)} "
+                                 f"times, not once")
+            src = src.replace(old, new)
+    return src
+
+
+def _build_variant(bits: int):
+    """nvcc of the ablated source into build/study/; the loaded library."""
+    import ctypes
+
+    from shotvae_torch.ops.kernels import _build
+
+    out = os.path.join(ROOT, "build", "study")
+    os.makedirs(out, exist_ok=True)
+    src = os.path.join(out, f"fused_conv_bf16_ablate{bits}.cu")
+    with open(os.path.join(_build.CSRC, "fused_conv_bf16.cu")) as f:
+        text = ablated_source(f.read(), bits)
+    with open(src, "w") as f:
+        f.write(text)
+    lib = src[:-3] + ".so"
+    subprocess.run([_build.cuda_tool("nvcc"), *_build.NVCC_FLAGS, "-o", lib,
+                    src], check=True, capture_output=True)
+    return ctypes.CDLL(lib)
+
+
+def conv_study(cs) -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from shotvae_torch.ops.kernels import fused_conv as fc
+
+    cases = [(768, 16, 32, 32, 32, 1), (768, 32, 32, 32, 32, 7),
+             (768, 64, 16, 16, 64, 7), (768, 128, 8, 8, 128, 7)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cl = dict(memory_format=torch.channels_last)
+    inputs = []
+    for b, cin, h, w, cout, n in cases:
+        x = torch.randn((b, cin, h, w), generator=gen, device="cuda").to(
+            torch.bfloat16).contiguous(**cl)
+        wt = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda").to(
+            torch.bfloat16).contiguous(**cl)
+        scale = torch.rand((cin,), generator=gen, device="cuda") + 0.5
+        shift = torch.randn((cin,), generator=gen, device="cuda")
+        inputs.append((x, scale, shift, wt, n))
+    lib = fc._lib
+    built = lib(torch.bfloat16)
+    with ThreadPoolExecutor(len(ABLATIONS) + 3) as pool:
+        libs = dict(zip(set(VARIANTS) - {0}, pool.map(
+            _build_variant, set(VARIANTS) - {0})))
+    for variant in VARIANTS:
+        fn = built
+        if variant:
+            fn = libs[variant].fused_bn_act_conv3x3_bf16
+            fn.argtypes, fn.restype = built.argtypes, built.restype
+        fc._lib = lambda dtype, fn=fn: fn
+        try:
+            ms = [cs.time_ms(lambda a=a: fc.fused_bn_act_conv(*a[:4]))
+                  for a in inputs]
+        finally:
+            fc._lib = lib
+        print("conv_bf16_ablate " + json.dumps(dict(
+            ablate=variant, ms=ms,
+            per_encoder_forward_ms=sum(m * a[4] for m, a in zip(ms, inputs)))))
+
+
+def swept_plans(b: int, cin: int, h: int, w: int, cout: int,
+                num_sms: int = 132):
+    """Every launch plan of the bf16 conv that fits at one shape (slice
+    width, chunk channels, stages; resident weights where the built plan
+    has them), each a ``conv_plan`` dict, and the built plan."""
+    from shotvae_torch.ops.kernels import fused_conv as fc
+
+    built = fc.conv_plan(b, h, w, cin, cout, num_sms)
+    plans = []
+    for bn in (32, 64):
+        for cc in (16, 32, 64):
+            for stages in (2, 4, 6, 8):
+                p = dict(built, bn=bn, cc=cc, stages=stages,
+                         n_slices=-(-cout // bn))
+                p["grid"] = p["n_slices"] * min(
+                    p["tiles"], max(1, num_sms // p["n_slices"]))
+                p["smem_bytes"] = fc.conv_smem_bytes(
+                    p["cin_pad"], bn, cc, stages, p["streamed"])
+                if (p["cin_pad"] % cc or p["smem_bytes"] > fc.SMEM_LIMIT
+                        or (bn == 64 and cout <= 32)):
+                    continue
+                plans.append(p)
+    return plans, built
+
+
+def plans_study(cs) -> None:
+    import torch
+
+    from shotvae_torch.ops.kernels import fused_conv as fc
+
+    plan = fc.conv_plan
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cl = dict(memory_format=torch.channels_last)
+    for b, cin, h, w, cout in [(768, 16, 32, 32, 32), (768, 32, 32, 32, 32),
+                               (768, 64, 16, 16, 64), (768, 128, 8, 8, 128)]:
+        x = torch.randn((b, cin, h, w), generator=gen, device="cuda").to(
+            torch.bfloat16).contiguous(**cl)
+        wt = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda").to(
+            torch.bfloat16).contiguous(**cl)
+        scale = torch.rand((cin,), generator=gen, device="cuda") + 0.5
+        shift = torch.randn((cin,), generator=gen, device="cuda")
+        plans, built = swept_plans(b, cin, h, w, cout)
+        for p in plans:
+            fc.conv_plan = lambda *a, p=p: p
+            try:
+                ms = cs.time_ms(
+                    lambda: fc.fused_bn_act_conv(x, scale, shift, wt))
+            finally:
+                fc.conv_plan = plan
+            print("conv_bf16_plan " + json.dumps(dict(
+                shape=[b, cin, h, w, cout], bn=p["bn"], cc=p["cc"],
+                stages=p["stages"], built=p == built, ms=ms)))
+
+
+def scaled_reduce_plan(factor: float):
+    """``bn_leaky.reduce_plan`` with its program count scaled by
+    ``factor`` (at least 1, at most one program per row block)."""
+    from shotvae_torch.ops.kernels import bn_leaky as bl
+
+    plan = bl.reduce_plan
+
+    def scaled(m, c, e, num_sms=132):
+        p = plan(m, c, e, num_sms)
+        programs = max(1, min(p["row_blocks"], int(p["programs"] * factor)))
+        iters = -(-p["row_blocks"] // programs)
+        return dict(p, iters=iters, programs=-(-p["row_blocks"] // iters))
+    return scaled
+
+
+def reduce_study(cs) -> None:
+    import torch
+
+    from shotvae_torch.ops.kernels import bn_leaky as bl
+
+    plan = bl.reduce_plan
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        sites = []
+        for m, c, slope, n_fwd, n_bwd in cs.BN_TRAIN_SITES(768):
+            x = torch.randn((m, c), generator=gen, device="cuda").to(dtype)
+            xhat = torch.randn((m, c), generator=gen, device="cuda")
+            gamma = torch.rand((c,), generator=gen, device="cuda") + 0.5
+            sites.append((x, xhat, gamma, gamma - 1, slope, 4 * n_fwd, n_bwd))
+        for factor in (0.5, 1.0, 2.0):
+            bl.reduce_plan = scaled_reduce_plan(factor)
+            stats = sum(cs.time_ms(lambda s=s: bl.bn_stats(s[0])) * s[5]
+                        for s in sites)
+            bwd = sum(cs.time_ms(lambda s=s: bl.bn_bwd_reduce(
+                s[0], s[1], s[2], s[3], s[4])) * s[6] for s in sites)
+            bl.reduce_plan = plan
+            print("bn_reduce_programs " + json.dumps(dict(
+                dtype=str(dtype), factor=factor,
+                stats_ms_per_step=stats, bwd_reduce_ms_per_step=bwd)))
+        warps = bl._REDUCE_WARPS
+        for n in (2, 8):
+            bl._REDUCE_WARPS = n
+            stats = sum(cs.time_ms(lambda s=s: bl.bn_stats(s[0])) * s[5]
+                        for s in sites)
+            bwd = sum(cs.time_ms(lambda s=s: bl.bn_bwd_reduce(
+                s[0], s[1], s[2], s[3], s[4])) * s[6] for s in sites)
+            print("bn_reduce_warps " + json.dumps(dict(
+                dtype=str(dtype), warps=n, stats_ms_per_step=stats,
+                bwd_reduce_ms_per_step=bwd)))
+        bl._REDUCE_WARPS = warps
+        for s in sites:
+            print("bn_reduce_site " + json.dumps(dict(
+                dtype=str(dtype), shape=list(s[0].shape),
+                stats_ms=cs.time_ms(lambda s=s: bl.bn_stats(s[0])),
+                bwd_reduce_ms=cs.time_ms(lambda s=s: bl.bn_bwd_reduce(
+                    s[0], s[1], s[2], s[3], s[4])),
+                stats_launches=s[5], bwd_launches=s[6])))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_study.py: torch sees no CUDA card",
+              file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    cs = _chip_smoke()
+    what = sys.argv[1:] or ["conv", "plans", "reduce"]
+    if "conv" in what:
+        conv_study(cs)
+    if "plans" in what:
+        plans_study(cs)
+    if "reduce" in what:
+        reduce_study(cs)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

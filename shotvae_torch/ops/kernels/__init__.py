@@ -2,7 +2,16 @@
 launch counter per data type (``<wrapper>.launches`` for float32,
 ``<wrapper>.launches_bf16`` for bfloat16)."""
 
+import functools
+
 import torch
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The number of SMs of CUDA card ``index``, which sizes persistent
+    grids."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def count_launch(wrapper, dtype: torch.dtype) -> None:

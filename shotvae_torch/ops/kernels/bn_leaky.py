@@ -29,14 +29,24 @@ element over 3.35 TB/s in f32, and 2, 8, 6 and 8 with bf16 x/y/g/dx.
 Design. A program owns a block of rows by a power-of-two block of channels
 (masked where C is not a multiple of it), the pattern of ``bn_act.py``. The
 TPU kernels carried their sums across sequential grid steps
-(``out_ref +=``); Hopper runs blocks in no order, so each reduction program
-walks a contiguous run of row blocks, keeps its sums in registers and
-writes one partial row; a finishing launch, one program per 16 channels,
-adds the partials in a fixed order, so one input gives one bitstream (no
-atomics), and, for the
-statistics, forms mean, var and invstd on the card so that the host runs no
-small ops. The TPU-only lane fold (``_fold_factor``), row tiling
-(``_tile_rows``) and padding (``_pad_rows``) are not carried over.
+(``out_ref +=``); Hopper runs blocks in no order, so each reduction
+(statistics, backward reduce) is one launch in two parts. Each program
+walks a contiguous run of row blocks of 16 KiB of x or g each, whatever
+the dtype (``reduce_plan``), keeps its sums in registers and writes one
+partial row; it then draws a ticket from an int32 counter of its channel
+block (``atomic_add``, acquire-release). The program that draws the last
+ticket adds all partials of its channel block in program order, writes
+the result (for the statistics mean, var and invstd, so the host runs no
+small ops) and resets the counter to 0. The order of every sum is fixed,
+only which program performs the last one varies, so one input gives one
+bitstream. The counters are one buffer per card and stream (two streams'
+reductions never share one), allocated on the stream's first reduction
+and zero at rest, so a CUDA graph can capture the launch; a graph's
+replays must not run beside eager reductions on its capture stream. The
+program count is sized from the card so that the last program's tail
+(its partial rows) stays short beside each program's share of the rows. The TPU-only lane
+fold (``_fold_factor``), row tiling (``_tile_rows``) and padding
+(``_pad_rows``) are not carried over.
 
 Each kernel's plain version sits beside it (torch ops of the same formula);
 on the CPU a wrapper runs it, on a CUDA tensor it launches the kernel or
@@ -48,16 +58,21 @@ raises. ``bn_leaky_train`` joins the four under one
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
-from shotvae_torch.ops.kernels import count_launch, init_counts
+from shotvae_torch.ops.kernels import count_launch, init_counts, sm_count
 
 LEAKY_SLOPE = 0.01
-_BLOCK_ELEMS = 4096      # elements per program and row block: 16 KiB of f32
+_BLOCK_ELEMS = 4096      # elements per apply program: 16 KiB of f32
 _MAX_BLOCK_C = 256
-_REDUCE_PROGRAMS = 1056  # 8 per SM of the H100's 132: enough to fill the card
-_FINISH_BLOCK_C = 16     # channels per finishing program: C / 16 of them
+_REDUCE_BLOCK_BYTES = 16384  # bytes of x or g per reduction iteration
+_REDUCE_ROW_BYTES = 256      # most bytes of a row a reduction block covers
+_PROGRAMS_PER_SM = 4         # at most this many reduction programs per SM
+_TAIL_ELEMS = 4096           # partial sums per iteration of the last program
+_MAX_COL_BLOCKS = 1024       # channel-block counters per card
+_REDUCE_WARPS = 4            # warps of a reduction program (measured)
 tl = None  # triton.language, bound by _compiled() on the first launch
 
 
@@ -103,9 +118,11 @@ def bn_bwd_apply_plain(g, xhat, gamma, beta, stats, sums,
 # ------------------------------------------------------------------ kernels
 
 
-def _stats_kernel(x_ptr, part_ptr, M, C, ITERS, BLOCK_M: tl.constexpr,
-                  BLOCK_C: tl.constexpr):
-    """Partial sum and sum of squares of ITERS row blocks -> part[pid_m]."""
+def _stats_kernel(x_ptr, part_ptr, count_ptr, out_ptr, M, C, ITERS, eps,
+                  BLOCK_M: tl.constexpr, BLOCK_C: tl.constexpr,
+                  BLOCK_P: tl.constexpr):
+    """Sum and sum of squares of ITERS row blocks; the last program of the
+    channel block writes [mean; var; invstd] (fused_bn_act.py:171-173)."""
     cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
     col_ok = cols < C
     acc = tl.zeros((BLOCK_M, BLOCK_C), dtype=tl.float32)
@@ -118,15 +135,16 @@ def _stats_kernel(x_ptr, part_ptr, M, C, ITERS, BLOCK_M: tl.constexpr,
                     mask=mask, other=0.0).to(tl.float32)
         acc += x
         acc2 += x * x
-    out = part_ptr + tl.program_id(0) * 2 * C + cols
-    tl.store(out, tl.sum(acc, axis=0), mask=col_ok)
-    tl.store(out + C, tl.sum(acc2, axis=0), mask=col_ok)
+    _finish(part_ptr, count_ptr, out_ptr, tl.sum(acc, axis=0),
+            tl.sum(acc2, axis=0), M, C, eps, True, BLOCK_P, BLOCK_C)
 
 
-def _bwd_reduce_kernel(g_ptr, xhat_ptr, gamma_ptr, beta_ptr, part_ptr, M, C,
-                       ITERS, slope, BLOCK_M: tl.constexpr,
-                       BLOCK_C: tl.constexpr):
-    """Partial sums of g' and g' * xhat of ITERS row blocks -> part[pid_m]."""
+def _bwd_reduce_kernel(g_ptr, xhat_ptr, gamma_ptr, beta_ptr, part_ptr,
+                       count_ptr, out_ptr, M, C, ITERS, slope,
+                       BLOCK_M: tl.constexpr, BLOCK_C: tl.constexpr,
+                       BLOCK_P: tl.constexpr):
+    """Sums of g' and g' * xhat of ITERS row blocks; the last program of the
+    channel block writes the two totals."""
     cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
     col_ok = cols < C
     gamma = tl.load(gamma_ptr + cols, mask=col_ok, other=0.0)
@@ -144,36 +162,50 @@ def _bwd_reduce_kernel(g_ptr, xhat_ptr, gamma_ptr, beta_ptr, part_ptr, M, C,
         gp = g * tl.where(pre >= 0, 1.0, slope)
         acc += gp
         acc2 += gp * xhat
-    out = part_ptr + tl.program_id(0) * 2 * C + cols
-    tl.store(out, tl.sum(acc, axis=0), mask=col_ok)
-    tl.store(out + C, tl.sum(acc2, axis=0), mask=col_ok)
+    _finish(part_ptr, count_ptr, out_ptr, tl.sum(acc, axis=0),
+            tl.sum(acc2, axis=0), M, C, 0.0, False, BLOCK_P, BLOCK_C)
 
 
-def _finish_kernel(part_ptr, out_ptr, P, M, C, eps, STATS: tl.constexpr,
-                   BLOCK_P: tl.constexpr, BLOCK_C: tl.constexpr):
-    """Add the (P, 2, C) partials in order. STATS: write [mean; var; invstd]
-    (fused_bn_act.py:171-173), else the two sums."""
-    cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-    col_ok = cols < C
-    s = tl.zeros((BLOCK_P, BLOCK_C), dtype=tl.float32)
-    s2 = tl.zeros((BLOCK_P, BLOCK_C), dtype=tl.float32)
-    for p0 in range(0, P, BLOCK_P):
-        ps = p0 + tl.arange(0, BLOCK_P)
-        mask = (ps[:, None] < P) & col_ok[None, :]
-        src = part_ptr + ps[:, None] * 2 * C + cols[None, :]
-        s += tl.load(src, mask=mask, other=0.0)
-        s2 += tl.load(src + C, mask=mask, other=0.0)
-    a = tl.sum(s, axis=0)
-    b = tl.sum(s2, axis=0)
-    if STATS:
-        mean = a / M
-        var = tl.maximum(b / M - mean * mean, 0.0)
-        tl.store(out_ptr + cols, mean, mask=col_ok)
-        tl.store(out_ptr + C + cols, var, mask=col_ok)
-        tl.store(out_ptr + 2 * C + cols, tl.rsqrt(var + eps), mask=col_ok)
-    else:
-        tl.store(out_ptr + cols, a, mask=col_ok)
-        tl.store(out_ptr + C + cols, b, mask=col_ok)
+def _finish(part_ptr, count_ptr, out_ptr, a, b, M, C, eps,
+            STATS: tl.constexpr, BLOCK_P: tl.constexpr,
+            BLOCK_C: tl.constexpr):
+    """Store this program's sums ``a`` and ``b`` as its row of the
+    (channel blocks, P, 2, BLOCK_C) partials and draw a ticket; the program
+    that draws the last one adds the P rows of its channel block in program
+    order, writes [mean; var; invstd] (STATS) or the two sums, and resets
+    the counter."""
+    pid, blk = tl.program_id(0), tl.program_id(1)
+    n_prog = tl.num_programs(0)
+    lanes = tl.arange(0, BLOCK_C)
+    base = part_ptr + blk * n_prog * 2 * BLOCK_C
+    tl.store(base + pid * 2 * BLOCK_C + lanes, a)
+    tl.store(base + pid * 2 * BLOCK_C + BLOCK_C + lanes, b)
+    tl.debug_barrier()  # every thread's partials before the release
+    ticket = tl.atomic_add(count_ptr + blk, 1, sem="acq_rel")
+    if ticket == n_prog - 1:
+        s = tl.zeros((BLOCK_P, BLOCK_C), dtype=tl.float32)
+        s2 = tl.zeros((BLOCK_P, BLOCK_C), dtype=tl.float32)
+        for p0 in range(0, n_prog, BLOCK_P):
+            ps = p0 + tl.arange(0, BLOCK_P)
+            mask = (ps[:, None] < n_prog) & (lanes[None, :] < BLOCK_C)
+            src = base + ps[:, None] * 2 * BLOCK_C + lanes[None, :]
+            s += tl.load(src, mask=mask, other=0.0, cache_modifier=".cg")
+            s2 += tl.load(src + BLOCK_C, mask=mask, other=0.0,
+                          cache_modifier=".cg")
+        tot = tl.sum(s, axis=0)
+        tot2 = tl.sum(s2, axis=0)
+        cols = blk * BLOCK_C + lanes
+        col_ok = cols < C
+        if STATS:
+            mean = tot / M
+            var = tl.maximum(tot2 / M - mean * mean, 0.0)
+            tl.store(out_ptr + cols, mean, mask=col_ok)
+            tl.store(out_ptr + C + cols, var, mask=col_ok)
+            tl.store(out_ptr + 2 * C + cols, tl.rsqrt(var + eps), mask=col_ok)
+        else:
+            tl.store(out_ptr + cols, tot, mask=col_ok)
+            tl.store(out_ptr + C + cols, tot2, mask=col_ok)
+        tl.atomic_xchg(count_ptr + blk, 0)
 
 
 def _apply_kernel(x_ptr, stats_ptr, gamma_ptr, beta_ptr, y_ptr, xhat_ptr, M,
@@ -221,14 +253,14 @@ def _bwd_apply_kernel(g_ptr, xhat_ptr, gamma_ptr, beta_ptr, stats_ptr,
 def _compiled():
     """Import Triton and wrap the kernels on first use: importing this
     module must work where Triton is not installed."""
-    global tl
     import triton
     import triton.language
 
+    global tl, _finish
     tl = triton.language
+    _finish = triton.jit(_finish)  # called from the two reduction kernels
     return {f.__name__: triton.jit(f) for f in (
-        _stats_kernel, _bwd_reduce_kernel, _finish_kernel, _apply_kernel,
-        _bwd_apply_kernel)}
+        _stats_kernel, _bwd_reduce_kernel, _apply_kernel, _bwd_apply_kernel)}
 
 
 # ----------------------------------------------------------------- wrappers
@@ -257,26 +289,65 @@ def _check(data, *f32, c: int):
                 f"{t.is_contiguous()}")
 
 
-def _reduce(kernel: str, inputs, extra, m: int, c: int, eps: float,
-            stats: bool):
-    """Launch a partial-sum kernel over (m, c) rows, then the finishing
-    kernel; returns its (3, C) statistics or (2, C) sums."""
-    dev = inputs[0].device
-    block_m, block_c, row_blocks, col_blocks = _blocks(m, c)
-    programs = min(row_blocks, max(1, _REDUCE_PROGRAMS // col_blocks))
+def reduce_plan(m: int, c: int, elem_bytes: int, num_sms: int = 132) -> dict:
+    """A reduction's launch over (m, c) rows of ``elem_bytes`` elements on
+    a card with ``num_sms`` SMs: a (programs, col_blocks) grid whose
+    program p takes the row blocks [p * iters, (p + 1) * iters) of
+    BLOCK_M x BLOCK_C = 16 KiB of data each, whatever the dtype. Every
+    program reads m * elem_bytes / programs bytes per channel and the last
+    one 8 * programs more (its partial rows), so about
+    sqrt(m * elem_bytes / 8) programs per channel block balance the two;
+    at most _PROGRAMS_PER_SM per SM."""
+    block_c = min(_REDUCE_ROW_BYTES // elem_bytes,
+                  max(16, 1 << (c - 1).bit_length()))
+    block_m = _REDUCE_BLOCK_BYTES // (block_c * elem_bytes)
+    row_blocks, col_blocks = -(-m // block_m), -(-c // block_c)
+    programs = min(row_blocks,
+                   max(1, _PROGRAMS_PER_SM * num_sms // col_blocks),
+                   max(1, math.isqrt(m * elem_bytes // 8)))
     iters = -(-row_blocks // programs)
-    programs = -(-row_blocks // iters)
-    part = torch.empty((programs, 2, c), device=dev, dtype=torch.float32)
+    return dict(block_m=block_m, block_c=block_c, row_blocks=row_blocks,
+                col_blocks=col_blocks, programs=-(-row_blocks // iters),
+                iters=iters, block_p=_TAIL_ELEMS // block_c)
+
+
+_COUNTERS: dict = {}
+
+
+def _counters(dev):
+    """The channel-block counters of ``dev``'s current stream, zero at
+    rest. Each stream has its own, so reductions running at once on two
+    streams never draw tickets from one counter; a CUDA graph uses those of
+    the stream it was captured on. They are allocated on the stream's first
+    reduction, which must not be inside a capture: warm up on the capture
+    stream first, as CUDA graphs ask of every kernel anyway."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _COUNTERS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "bn_leaky reductions: no ticket counters for this stream "
+                "yet; run one reduction on it before capturing a CUDA graph")
+        _COUNTERS[key] = torch.zeros(_MAX_COL_BLOCKS, dtype=torch.int32,
+                                     device=dev)
+    return _COUNTERS[key]
+
+
+def _reduce(kernel: str, inputs, extra, m: int, c: int, stats: bool):
+    """One launch of a reduction kernel over (m, c) rows; returns its
+    (3, C) statistics or (2, C) sums."""
+    dev = inputs[0].device
+    plan = reduce_plan(m, c, inputs[0].element_size(), sm_count(dev.index))
+    if plan["col_blocks"] > _MAX_COL_BLOCKS:
+        raise ValueError(f"bn_leaky reductions take at most "
+                         f"{_MAX_COL_BLOCKS} channel blocks; C={c}")
+    part = torch.empty((plan["col_blocks"], plan["programs"], 2,
+                        plan["block_c"]), device=dev, dtype=torch.float32)
     out = torch.empty((3 if stats else 2, c), device=dev, dtype=torch.float32)
-    k = _compiled()
     with torch.cuda.device(dev):
-        k[kernel][(programs, col_blocks)](*inputs, part, m, c, iters, *extra,
-                                          BLOCK_M=block_m, BLOCK_C=block_c,
-                                          num_warps=8)
-        k["_finish_kernel"][(-(-c // _FINISH_BLOCK_C),)](
-            part, out, programs, m, c, float(eps), STATS=stats,
-            BLOCK_P=_BLOCK_ELEMS // _FINISH_BLOCK_C,
-            BLOCK_C=_FINISH_BLOCK_C, num_warps=8)
+        _compiled()[kernel][(plan["programs"], plan["col_blocks"])](
+            *inputs, part, _counters(dev), out, m, c, plan["iters"],
+            *extra, BLOCK_M=plan["block_m"], BLOCK_C=plan["block_c"],
+            BLOCK_P=plan["block_p"], num_warps=_REDUCE_WARPS)
     return out
 
 
@@ -286,7 +357,7 @@ def bn_stats(x, eps: float = 1e-5):
         return bn_stats_plain(x, eps)
     m, c = x.shape
     _check(x, c=c)
-    out = _reduce("_stats_kernel", (x,), (), m, c, eps, stats=True)
+    out = _reduce("_stats_kernel", (x,), (float(eps),), m, c, stats=True)
     count_launch(bn_stats, x.dtype)
     return out
 
@@ -316,7 +387,7 @@ def bn_bwd_reduce(g, xhat, gamma, beta, slope: float = LEAKY_SLOPE):
     m, c = g.shape
     _check(g, xhat, gamma, beta, c=c)
     out = _reduce("_bwd_reduce_kernel", (g, xhat, gamma, beta),
-                  (float(slope),), m, c, 0.0, stats=False)
+                  (float(slope),), m, c, stats=False)
     count_launch(bn_bwd_reduce, g.dtype)
     return out
 

@@ -19,8 +19,16 @@ answers that. The TPU kernel's batch-tile sizing (``_pick_tile``) and
 flat-row shift-and-mask layout are not carried over.
 
 Tensors are NCHW in ``channels_last`` memory format, so the kernel sees the
-NHWC rows the TPU kernel saw; the (Cout, Cin, 3, 3) weight is reordered once
-per call into the (9*Cin, Cout) matrix the kernel reads.
+NHWC rows the TPU kernel saw. The f32 kernel reads the weight reordered once
+per call into a (9*Cin, Cout) matrix. The bf16 kernel reads it as it lies:
+a ``channels_last`` (Cout, Cin, 3, 3) weight is the K-major (Cout, 9*Cin)
+matrix ``wgmma`` takes, so the wrapper copies it only where it is not
+``channels_last`` or Cin is not a multiple of 16 (then its input channels
+are padded with zeros). The bf16 kernel's launch plan (``conv_plan``: N
+slices, chunk channels, ring stages, shared-memory bytes, grid) is computed
+here and checked again by its launcher. Any Cin that is a multiple of 8
+is taken: where the weight slice does not fit in shared memory beside
+the rings, the plan streams it through the stages.
 
 Two differentiable sites launch the kernel:
 
@@ -47,11 +55,13 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
-from shotvae_torch.ops.kernels import _build, count_launch, init_counts
+from shotvae_torch.ops.kernels import (_build, count_launch, init_counts,
+                                      sm_count)
 from shotvae_torch.ops.kernels.bn_leaky import (bn_apply, bn_bwd_apply,
                                                 bn_bwd_reduce, bn_stats)
 
@@ -86,20 +96,97 @@ def fused_bn_act_conv_plain(x, scale, shift, weight, *,
     return F.conv2d(act, weight.to(x.dtype), padding=1)
 
 
-# x's dtype -> (CUDA source, C entry point, channel multiple it needs)
-_KERNELS = {torch.float32: ("fused_conv", "fused_bn_act_conv3x3_f32", 4),
+# x's dtype -> (CUDA source, C entry point, channel multiple it needs, int
+# arguments after the 5 pointers: B, H, W, Cin, Cout and, in bf16, the plan)
+_KERNELS = {torch.float32: ("fused_conv", "fused_bn_act_conv3x3_f32", 4, 5),
             torch.bfloat16: ("fused_conv_bf16", "fused_bn_act_conv3x3_bf16",
-                             8)}
+                             8, 12)}
+# the plan's entries the bf16 launcher takes, in its order
+_PLAN_ARGS = ("cin_pad", "bn", "cc", "stages", "streamed", "smem_bytes",
+              "grid")
+_PLAN_ERRORS = {-1: "the launcher refused the launch plan",
+                -2: "the driver has no cuTensorMapEncodeTiled",
+                -3: "a TMA tensor map was refused"}
+
+SMEM_LIMIT = 232_448  # shared memory a block can use on the H100
+_HALO_POS = 100       # (8 + 2) x (8 + 2) halo positions of an 8x8 tile
+TILES_PER_ITEM = 2    # 8x8 output tiles of a work item
+# one k8 plane of an operand stage: the item's halos and a spare position
+_PLANE_BYTES = (TILES_PER_ITEM * _HALO_POS + 1) * 16
+
+
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def conv_smem_bytes(cin_pad: int, bn: int, cc: int, stages: int,
+                    streamed: bool = False) -> int:
+    """The bf16 kernel's shared memory (csrc/fused_conv_bf16.cu:layout):
+    y staging (a tile pair per consumer), the weight slice (resident) or
+    none, ``stages`` raw and activated x buffers with, streamed, a chunk's
+    weights each, and the barriers."""
+    stage = (TILES_PER_ITEM * cc * _HALO_POS * 2
+             + _align128(cc // 8 * _PLANE_BYTES)
+             + (9 * cc * bn * 2 if streamed else 0))
+    resident = 0 if streamed else _align128(9 * cin_pad * bn * 2)
+    return (2 * TILES_PER_ITEM * 64 * bn * 2 + resident + stages * stage
+            + 8 * (1 + 4 * stages))
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(b: int, h: int, w: int, cin: int, cout: int,
+              num_sms: int = 132) -> dict:
+    """The bf16 kernel's launch plan for x (b, cin, h, w) and cout output
+    channels on a card with ``num_sms`` SMs. Work items are pairs of 8x8
+    output tiles by a slice of ``bn`` output channels; each block keeps
+    its slice of the (9 * cin_pad) x bn weight in shared memory and walks
+    every (grid / n_slices)-th tile, two at a time, so the grid covers each
+    (tile, slice) once. Each of the two consumer warpgroups stages its y
+    tiles for the TMA store. x is staged in chunks of ``cc`` input channels
+    through two rings (one per consumer warpgroup) of stages / 2 raw and
+    as many activated buffers: the widest slice, then the widest chunk,
+    then as many stages as fit, up to 8 (measured: a wider chunk beats
+    deeper rings, scripts/torch_kernel_study.py plans). Where no resident
+    slice fits (Cin above 320), the weights are ``streamed``: each stage
+    also carries its chunk's 9 * cc x bn weights, chosen by the same
+    order. ``smem_bytes`` is the kernel's layout
+    (csrc/fused_conv_bf16.cu:layout). Cached per shape, as the wrapper
+    asks on every call: read the plan, do not change it."""
+    cin_pad = -(-cin // 16) * 16
+    fits = [(streamed, bn, cc, s) for streamed in (False, True)
+            for bn in ((32,) if cout <= 32 else (64, 32))
+            for cc in (64, 32, 16) if cin_pad % cc == 0
+            for s in (8, 6, 4, 2)
+            if conv_smem_bytes(cin_pad, bn, cc, s, streamed) <= SMEM_LIMIT]
+    streamed, bn, cc, stages = fits[0]  # streamed, cc 16 and 2 stages fit
+    n_slices = -(-cout // bn)
+    tiles = b * -(-h // 8) * -(-w // 8)
+    grid = n_slices * min(tiles, max(1, num_sms // n_slices))
+    return dict(cin_pad=cin_pad, bn=bn, cc=cc, stages=stages,
+                streamed=streamed,
+                smem_bytes=conv_smem_bytes(cin_pad, bn, cc, stages, streamed),
+                grid=grid, n_slices=n_slices, tiles=tiles)
 
 
 def _lib(dtype):
-    source, entry, _ = _KERNELS[dtype]
+    source, entry, _, n_int = _KERNELS[dtype]
     fn = getattr(_build.load(source), entry)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * n_int
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _kmajor_weight(weight, cin_pad: int):
+    """The (Cout, 9 * cin_pad) K-major matrix of a (Cout, Cin, 3, 3) weight,
+    rows [ky][kx][ci]: the weight itself where it is channels_last and Cin
+    is cin_pad, else a copy with the input channels padded with zeros."""
+    cin = weight.shape[1]
+    if cin == cin_pad and weight.is_contiguous(
+            memory_format=torch.channels_last):
+        return weight
+    return F.pad(weight.permute(0, 2, 3, 1), (0, cin_pad - cin)).contiguous()
 
 
 def _fused_conv_forward(x, scale, shift, weight, slope: float):
@@ -130,7 +217,13 @@ def _fused_conv_forward(x, scale, shift, weight, slope: float):
                          f"multiples of {mult} and (Cin,) scale/shift; got "
                          f"Cin={cin}, Cout={cout}, {tuple(scale.shape)}/"
                          f"{tuple(shift.shape)}")
-    w2 = weight.permute(2, 3, 1, 0).reshape(9 * cin, cout).contiguous()
+    if x.dtype == torch.bfloat16:
+        plan = conv_plan(b, h, w, cin, cout, sm_count(x.device.index))
+        w2 = _kmajor_weight(weight, plan["cin_pad"])
+        args = [int(plan[k]) for k in _PLAN_ARGS]
+    else:
+        w2 = weight.permute(2, 3, 1, 0).reshape(9 * cin, cout).contiguous()
+        args = []
     scale, shift = scale.contiguous(), shift.contiguous()
     y = torch.empty((b, cout, h, w), device=x.device, dtype=x.dtype,
                     memory_format=torch.channels_last)
@@ -138,9 +231,11 @@ def _fused_conv_forward(x, scale, shift, weight, slope: float):
         raise ValueError("fused_conv kernel needs 16-byte aligned tensors")
     err = _lib(x.dtype)(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
                         w2.data_ptr(), y.data_ptr(), b, h, w, cin, cout,
-                        slope, torch.cuda.current_stream(x.device).cuda_stream)
+                        *args, slope,
+                        torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError(f"fused_conv kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"fused_conv kernel launch failed: "
+                           f"{_PLAN_ERRORS.get(err, f'CUDA error {err}')}")
     count_launch(fused_bn_act_conv, x.dtype)
     return y
 

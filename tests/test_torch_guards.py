@@ -413,6 +413,54 @@ def test_chip_smoke_bf16_conv_check_fails_a_wrong_kernel(monkeypatch):
         chip_smoke.conv_phase(torch.device("cpu"), 2, torch.bfloat16)
 
 
+def _drop_ragged_edge(forward):
+    """A conv that leaves the output pixels past the last whole 8x8 tile
+    at 0: right wherever H and W are multiples of 8."""
+    def conv(x, s, h, w, slope):
+        y = forward(x, s, h, w, slope).clone()
+        y[:, :, 8 * (y.shape[2] // 8):] = 0
+        y[:, :, :, 8 * (y.shape[3] // 8):] = 0
+        return y
+    return conv
+
+
+def _drop_odd_channels(forward):
+    """A conv that reads only the input channels of whole k16 steps: right
+    wherever Cin is a multiple of 16."""
+    def conv(x, s, h, w, slope):
+        whole = 16 * (x.shape[1] // 16)
+        x = x.clone()
+        x[:, whole:] = 0
+        return forward(x, s, h * (torch.arange(len(h)) < whole), w, slope)
+    return conv
+
+
+@pytest.mark.parametrize("wrong", ["ragged edge dropped",
+                                   "channels past the last k16 dropped"])
+def test_chip_smoke_bf16_conv_check_fails_at_ragged_shapes(wrong,
+                                                           monkeypatch):
+    """The bf16 fused conv phase holds the kernel at ragged shapes too: it
+    fails a kernel that is right at every main-path and JAX test shape but
+    drops the edge of a ragged tile, or the input channels of a Cin that is
+    not a multiple of 16."""
+    from shotvae_torch.ops.kernels import fused_conv
+
+    chip_smoke = _chip_smoke(monkeypatch)
+    wrap = {"ragged edge dropped": _drop_ragged_edge,
+            "channels past the last k16 dropped": _drop_odd_channels}[wrong]
+    forward = fused_conv._fused_conv_forward
+    monkeypatch.setattr(fused_conv, "_fused_conv_forward", wrap(forward))
+    monkeypatch.setattr(chip_smoke, "CONV_CHECK_SHAPES",
+                        [s for s in chip_smoke.CONV_CHECK_SHAPES
+                         if s[0] > 1 and s[1] % 16 == 0])
+    chip_smoke.conv_phase(torch.device("cpu"), 2, torch.bfloat16)  # passes
+    monkeypatch.undo()
+    chip_smoke = _chip_smoke(monkeypatch)
+    monkeypatch.setattr(fused_conv, "_fused_conv_forward", wrap(forward))
+    with pytest.raises(RuntimeError, match="disagrees"):
+        chip_smoke.conv_phase(torch.device("cpu"), 2, torch.bfloat16)
+
+
 @pytest.mark.parametrize("wrong", list(_WRONG_BN_GRADS))
 def test_chip_smoke_bf16_step_check_fails_a_wrong_gradient(wrong,
                                                            monkeypatch):
