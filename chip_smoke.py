@@ -12,10 +12,14 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
 2. Each kernel against its plain PyTorch version on the card, at every
    distinct shape the serving forward gives it at batch 768, with its
    tolerance; each timed with CUDA events (kernel, plain version, and a
-   one-call library yardstick where there is one). The sampler is held to
-   its plain version exactly where the draw cannot matter (a vanishing
-   sigma, a decisive logit) and by moments, in standard errors, where it
-   does.
+   one-call library yardstick where there is one). The sampler
+   (``csrc/fused_sample.cu``) is held to its plain version exactly where
+   the draw cannot matter (a vanishing sigma, a decisive logit), by
+   moments, in standard errors, against an independent draw, and draw for
+   draw against its plain version on the host fed the same Philox
+   uniforms (``TOL_DRAW``) at the serving shape, Dd = 100 and ragged
+   shapes; the floor of one launch (an empty kernel) and the wrapper's
+   host us per call are printed beside its time.
 3. End to end: a full-width WRN-28-2 SHOT-VAE (32x32x3, Dc 128, K 10) with
    seeded random weights and running statistics behind ``ShotVaeInference``
    on ``cuda``: ``classify``, ``encode``, ``reconstruct`` and ``generate`` on
@@ -83,6 +87,18 @@ TOL_CONV = 2e-4    # abs + rel: f32 sums of 9*Cin terms in other orders
 TOL_SAMPLE = 1e-6  # abs + rel: sampler outputs that no draw can change
 MOMENT_SE = 6.0    # sampler moments may differ by at most 6 standard errors
 SAMPLE_SEEDS = 32  # draws per sampler for the moments
+# abs + rel: the sampler's draw against its plain version on the host, fed
+# the same Philox uniforms: the same f32 arithmetic, with the card's logf,
+# cosf and expf (within 2 ulp) in place of the CPU's and the softmax summed
+# in another order, leaves a few ulp of |mean| + |sigma * eps| (up to about
+# 20); a word from another counter moves an element by order 1
+TOL_DRAW = 1e-5
+# (B, Dc, Dd) of the exact-draw check: the serving shape, CIFAR-100's Dd,
+# then ragged ones: odd Dc (an unpaired last column), an odd row width with
+# an even Dc (no float2 access), one element, and a Dd above 128 (lanes
+# take several Gumbel groups)
+DRAW_SHAPES = lambda b: [(b, 128, 10), (b, 128, 100), (5, 127, 3),  # noqa: E731
+                         (7, 64, 9), (1, 1, 1), (3, 5, 257)]
 TOL_E2E = 1e-3     # abs + rel: 28 f32 layers, other summation orders, TF32 off
 TOL_GRAD = 1e-3    # norm-wise: conv and BN gradients, sums of B*H*W terms
 TOL_STEP = 1e-3    # abs + rel: one train step, card against CPU, TF32 off
@@ -375,18 +391,35 @@ def moments_gap(a, b) -> float:
     return float(((a.mean(0) - b.mean(0)).abs() / se.clamp_min(1e-12)).max())
 
 
+def independent_draw(mean, log_sigma, log_alpha, generator):
+    """[z ; y] from ``torch.rand`` uniforms of ``generator``: the sampler's
+    law from another generator, for the moment checks, which need samples
+    independent of the kernel's."""
+    import torch
+
+    from shotvae_torch.ops.kernels.fused_sample import (
+        joint_sample_from_uniforms)
+
+    u = [torch.rand(t.shape, generator=generator, device=t.device)
+         for t in (mean, mean, log_alpha)]
+    return joint_sample_from_uniforms(mean, log_sigma, log_alpha, *u)
+
+
 def sample_phase(dev, batch: int):
     """fused_joint_sample at the serving shape (batch, 128, 10): exactly
-    against the plain version where no draw can change the output, then by
-    moments against the plain version and the target law, and one seed one
-    bitstream."""
+    against the plain version where no draw can change the output, one
+    seed one bitstream, by moments against an independent draw and the
+    target law, then the draw itself against the plain version on the host
+    fed the same Philox uniforms at DRAW_SHAPES. On the card also the floor
+    of one launch (an empty kernel) and the wrapper's host us per call."""
     import torch
     import torch.nn.functional as F
 
     from shotvae_torch.ops.kernels.fused_sample import (
-        fused_joint_sample, fused_joint_sample_plain)
+        empty_launch, fused_joint_sample, fused_joint_sample_plain)
+    from shotvae_torch.ops.sampling import draw_seed
 
-    b, dc, dd, groups = batch, 128, 10, 4
+    b, dc, dd, groups = batch, 128, 10, min(4, batch)
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     mean = torch.randn((b, dc), generator=g, device=dev)
     host = lambda s: torch.Generator().manual_seed(s)  # noqa: E731
@@ -400,18 +433,22 @@ def sample_phase(dev, batch: int):
     vanish = torch.full((b, dc), -80.0, device=dev)
     sharp = torch.log_softmax(100.0 * onehot, 1)
     out = fused_joint_sample(mean, vanish, sharp, generator=host(7))
-    ref = fused_joint_sample_plain(mean, vanish, sharp, generator=on_dev(7))
+    ref = fused_joint_sample_plain(mean, vanish, sharp,
+                                   seed=draw_seed(host(7)))
     err = max(max_err(out, ref, TOL_SAMPLE),
               max_err(out, torch.cat([mean, onehot], 1), TOL_SAMPLE))
 
     # the random part: per-element sigmas and, cycling over the rows, a few
     # distinct logit vectors; SAMPLE_SEEDS draws from each sampler
-    log_sigma = torch.empty((b, dc), device=dev).uniform_(
-        math.log(0.5), math.log(2.0), generator=g)
-    vecs = torch.log_softmax(1.5 * torch.randn((groups, dd), generator=g,
-                                               device=dev), 1)
-    grp = torch.arange(b, device=dev) % groups
-    log_alpha = vecs[grp].contiguous()
+    def latent_inputs(b, dc, dd, groups):
+        log_sigma = torch.empty((b, dc), device=dev).uniform_(
+            math.log(0.5), math.log(2.0), generator=g)
+        vecs = torch.log_softmax(1.5 * torch.randn((groups, dd), generator=g,
+                                                   device=dev), 1)
+        grp = torch.arange(b, device=dev) % groups
+        return log_sigma, vecs[grp].contiguous(), grp
+
+    log_sigma, log_alpha, grp = latent_inputs(b, dc, dd, groups)
     out = fused_joint_sample(mean, log_sigma, log_alpha, generator=host(7))
     check(torch.equal(out, fused_joint_sample(mean, log_sigma, log_alpha,
                                               generator=host(7))),
@@ -437,8 +474,8 @@ def sample_phase(dev, batch: int):
 
     kernel_s = samples(lambda s: fused_joint_sample(
         mean, log_sigma, log_alpha, generator=host(s)))
-    plain_s = samples(lambda s: fused_joint_sample_plain(
-        mean, log_sigma, log_alpha, generator=on_dev(s)))
+    plain_s = samples(lambda s: independent_draw(
+        mean, log_sigma, log_alpha, on_dev(s)))
     gap = max(moments_gap(k, p) for k, p in zip(kernel_s, plain_s))
     check(gap < MOMENT_SE, f"kernel and plain sampler moments differ by "
           f"{gap:.2f} standard errors")
@@ -450,16 +487,53 @@ def sample_phase(dev, batch: int):
     check(drift < MOMENT_SE, f"standardised z moments {drift:.2f} standard "
           f"errors off N(0, 1)")
 
-    kernel = lambda: fused_joint_sample(mean, log_sigma, log_alpha,  # noqa: E731
-                                        generator=host(SEED))
-    plain = lambda: fused_joint_sample_plain(mean, log_sigma,  # noqa: E731
-                                             log_alpha)
-    nbytes = 4 * (2 * b * dc + b * dd + b * (dc + dd))
-    row = dict(shape=[b, dc, dd], launches=1, max_abs_err=err,
-               moments_vs_plain_se=gap, moments_vs_target_se=drift,
-               ms=time_ms(kernel), plain_ms=time_ms(plain),
-               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, library_ms=None)
-    return [row], err
+    # the draw itself: the kernel against the plain version on the host, fed
+    # the uniforms of the same seed's Philox counters
+    draw_err, same, total = 0.0, 0, 0
+    inputs = {}
+    for i, (bb, c, d) in enumerate(DRAW_SHAPES(b)):
+        m = torch.randn((bb, c), generator=g, device=dev)
+        ls, la, _ = latent_inputs(bb, c, d, min(4, bb))
+        inputs[(bb, c, d)] = (m, ls, la)
+        got = fused_joint_sample(m, ls, la, generator=host(SEED + 20 + i))
+        want = fused_joint_sample_plain(
+            m.cpu(), ls.cpu(), la.cpu(), seed=draw_seed(host(SEED + 20 + i)))
+        check(got.shape == (bb, c + d), f"sampler gave {tuple(got.shape)} "
+              f"at {(bb, c, d)}")
+        draw_err = max(draw_err, max_err(
+            got.cpu(), want, TOL_DRAW, what=f"at {(bb, c, d)}, fed the same "
+            f"Philox uniforms"))
+        same += int((got.cpu() == want).sum())
+        total += want.numel()
+    err = max(err, draw_err)
+
+    cuda = dev.type == "cuda"
+    rows = []
+    for bb, c, d in DRAW_SHAPES(b)[:2]:
+        m, ls, la = inputs[(bb, c, d)]
+        seeds = host(SEED)
+        kernel = lambda: fused_joint_sample(m, ls, la,  # noqa: E731
+                                            generator=seeds)
+        plain = lambda: fused_joint_sample_plain(m, ls, la,  # noqa: E731
+                                                 seed=SEED)
+        nbytes = 4 * (2 * bb * c + bb * d + bb * (c + d))
+        rows.append(dict(
+            shape=[bb, c, d], launches=int(d == dd), max_abs_err=err,
+            ms=time_ms(kernel), plain_ms=time_ms(plain),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, library_ms=None,
+            # 1000 eager calls: the host sets the pace of so short a kernel
+            host_us_per_call=host_ms(dev, kernel, 1000) * 1e3 if cuda
+            else None))
+    # the floor of one launch: an empty kernel of one block and of the
+    # sampler's grid (8 Gumbel rows, or 256 Gaussian pairs, a block)
+    grid = -(-b // 8) + -(-b * -(-dc // 2) // 256)
+    rows[0].update(
+        moments_vs_plain_se=gap, moments_vs_target_se=drift,
+        draw_max_abs_err=draw_err, draw_bit_identical_share=same / total,
+        floor_ms=time_ms(lambda: empty_launch(dev)) if cuda else None,
+        floor_grid_ms=(time_ms(lambda: empty_launch(dev, grid)) if cuda
+                       else None), grid=grid)
+    return rows, err
 
 
 # ----------------------------------------------------------------- phase 3
@@ -1359,8 +1433,8 @@ def main() -> int:
         summarize("fused_bn_act_conv", "cuda", "shotvae_torch/csrc/fused_conv.cu",
                   "shotvae_tpu/ops/pallas/fused_conv.py:170", None,
                   *phases["fused_bn_act_conv"], serve["fused_bn_act_conv"]),
-        summarize("fused_joint_sample", "triton",
-                  "shotvae_torch/ops/kernels/fused_sample.py",
+        summarize("fused_joint_sample", "cuda",
+                  "shotvae_torch/csrc/fused_sample.cu",
                   "shotvae_tpu/ops/pallas/fused_sample.py:62", "bytes",
                   *phases["fused_joint_sample"], serve["fused_joint_sample"]),
     ] + [

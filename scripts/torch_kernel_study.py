@@ -2,7 +2,7 @@
 """Measurements behind the design of the port's bf16 fused conv and bn_leaky
 reductions, on one CUDA card (PERF.md Findings names what it printed).
 
-    python3 scripts/torch_kernel_study.py [conv] [plans] [reduce]
+    python3 scripts/torch_kernel_study.py [conv] [plans] [reduce] [sample]
 
 conv: the bf16 fused conv (csrc/fused_conv_bf16.cu) at the four encoder
 shapes at batch 768, as built and with phases compiled out (bits of
@@ -19,6 +19,12 @@ reduce: the bn_leaky statistics and backward reduce at every train-step
 site at batch 768, in f32 and bf16, ms per train step, with the program
 count of ``reduce_plan`` scaled by 1/2, 1 and 2, and with 2 and 8 warps
 a program; ms per launch at each site for the plan as built.
+
+sample: the sampler (csrc/fused_sample.cu) at (768, 128, 10) and (768, 128,
+100), as built and with parts compiled out the same way (bits of
+``SAMPLE_ABLATIONS``: 1 the Gumbel rows, 2 the Gaussian pairs, 4 the Philox
+rounds, 8 the transcendentals), device ms per launch beside an empty
+kernel of one block and of the sampler's grid.
 """
 
 from __future__ import annotations
@@ -57,22 +63,44 @@ ABLATIONS = {
         ("tma_store_4d(&y_map,", "if (false) tma_store_4d(&y_map,")],
 }
 VARIANTS = (0, 1, 2, 4, 8, 3, 15, 0)  # in the order timed
+# the same for csrc/fused_sample.cu: the part a variant compiles out
+SAMPLE_ABLATIONS = {
+    1: [("gumbel_row(log_alpha, out, Dc, Dd, row, seed, temperature);",
+         "(void)row;")],
+    2: [("gaussian_pair(mean, log_sigma, out, Dc, Dd, pairs, p, seed, vec);",
+         "(void)p;")],
+    4: [("for (int round = 0; round < 10; ++round) {",
+         "for (int round = 0; round < 0; ++round) {")],
+    8: [("sqrtf(-2.f * logf(uniform(w1) + kEps))",
+         "/* no log */ (uniform(w1) + kEps)"),
+        ("cosf(kTwoPi * uniform(w2))", "/* no cos */ (kTwoPi * uniform(w2))"),
+        ("__fmul_rn(expf(log_sigma), eps)",
+         "__fmul_rn(/* no exp */ log_sigma, eps)"),
+        ("-logf(-logf(uniform(words[k]) + kEps) + kEps)",
+         "/* no log */ uniform(words[k])"),
+        ("s += expf(g.v[k] - m);", "s += /* no exp */ g.v[k] - m;"),
+        ("expf(g.v[k] - m) / s", "/* no exp */ (g.v[k] - m) / s")],
+}
+SAMPLE_VARIANTS = (0, 1, 2, 4, 8, 12, 3, 0)  # in the order timed
 
 
-def ablated_source(src: str, bits: int) -> str:
-    """The bf16 conv's source with the phases of ``bits`` compiled out;
-    raises where a patched text is not found exactly once."""
-    for bit, patches in ABLATIONS.items():
+def ablated_source(src: str, bits: int, ablations=ABLATIONS,
+                   name: str = "fused_conv_bf16") -> str:
+    """A kernel's source (by default the bf16 conv's) with the phases of
+    ``bits`` compiled out; raises where a patched text is not found exactly
+    once."""
+    for bit, patches in ablations.items():
         for old, new in patches if bits & bit else ():
             if src.count(old) != 1:
                 raise ValueError(f"ablation {bit}: {old!r} is in "
-                                 f"csrc/fused_conv_bf16.cu {src.count(old)} "
+                                 f"csrc/{name}.cu {src.count(old)} "
                                  f"times, not once")
             src = src.replace(old, new)
     return src
 
 
-def _build_variant(bits: int):
+def _build_variant(bits: int, name: str = "fused_conv_bf16",
+                   ablations=ABLATIONS):
     """nvcc of the ablated source into build/study/; the loaded library."""
     import ctypes
 
@@ -80,9 +108,9 @@ def _build_variant(bits: int):
 
     out = os.path.join(ROOT, "build", "study")
     os.makedirs(out, exist_ok=True)
-    src = os.path.join(out, f"fused_conv_bf16_ablate{bits}.cu")
-    with open(os.path.join(_build.CSRC, "fused_conv_bf16.cu")) as f:
-        text = ablated_source(f.read(), bits)
+    src = os.path.join(out, f"{name}_ablate{bits}.cu")
+    with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
+        text = ablated_source(f.read(), bits, ablations, name)
     with open(src, "w") as f:
         f.write(text)
     lib = src[:-3] + ".so"
@@ -245,6 +273,52 @@ def reduce_study(cs) -> None:
                 stats_launches=s[5], bwd_launches=s[6])))
 
 
+def sample_study(cs) -> None:
+    import functools
+    import math
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from shotvae_torch.ops.kernels import fused_sample as fs
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    seeds = torch.Generator().manual_seed(0)
+    inputs = []
+    for dd in (10, 100):
+        mean = torch.randn((768, 128), generator=gen, device="cuda")
+        log_sigma = torch.empty((768, 128), device="cuda").uniform_(
+            math.log(0.5), math.log(2.0), generator=gen)
+        log_alpha = torch.log_softmax(torch.randn(
+            (768, dd), generator=gen, device="cuda"), 1)
+        inputs.append((mean, log_sigma, log_alpha))
+    built = fs._lib()
+    variants = set(SAMPLE_VARIANTS) - {0}
+    build = functools.partial(_build_variant, name="fused_sample",
+                              ablations=SAMPLE_ABLATIONS)
+    with ThreadPoolExecutor(len(variants)) as pool:
+        libs = dict(zip(variants, pool.map(build, variants)))
+    for variant_lib in libs.values():
+        for fn in ("fused_joint_sample_f32", "fused_sample_empty"):
+            getattr(variant_lib, fn).argtypes = getattr(built, fn).argtypes
+            getattr(variant_lib, fn).restype = getattr(built, fn).restype
+    grid = 768 // 8 + 768 * 64 // 256
+    print("sample_floor " + json.dumps(dict(
+        empty_one_block_ms=cs.time_ms(lambda: fs.empty_launch("cuda")),
+        empty_grid_ms=cs.time_ms(lambda: fs.empty_launch("cuda", grid)),
+        grid=grid)))
+    lib = fs._lib
+    for variant in SAMPLE_VARIANTS:
+        if variant:
+            fs._lib = lambda v=variant: libs[v]
+        try:
+            ms = [cs.time_ms(lambda a=a: fs.fused_joint_sample(
+                *a, generator=seeds)) for a in inputs]
+        finally:
+            fs._lib = lib
+        print("sample_ablate " + json.dumps(dict(ablate=variant, ms=ms)))
+
+
 def main() -> int:
     import torch
 
@@ -256,13 +330,15 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     cs = _chip_smoke()
-    what = sys.argv[1:] or ["conv", "plans", "reduce"]
+    what = sys.argv[1:] or ["conv", "plans", "reduce", "sample"]
     if "conv" in what:
         conv_study(cs)
     if "plans" in what:
         plans_study(cs)
     if "reduce" in what:
         reduce_study(cs)
+    if "sample" in what:
+        sample_study(cs)
     return 0
 
 

@@ -1,26 +1,23 @@
-"""Fused joint latent draw (Gaussian + Gumbel-softmax), as a Triton kernel.
+"""Fused joint latent draw (Gaussian + Gumbel-softmax), as a CUDA C++ kernel.
 
 Replaces ``fused_joint_sample`` (shotvae_tpu/ops/pallas/fused_sample.py:57,
-kernel ``_sample_kernel`` :38): one kernel draws the Box-Muller Gaussian
+kernel ``_sample_kernel`` :38): one kernel, ``shotvae_torch/csrc/
+fused_sample.cu``, draws the Box-Muller Gaussian
 ``z = mu + exp(log_sigma) * eps`` and the Gumbel-softmax
 ``y = softmax((log_alpha + g) / T)`` and writes ``[z ; y]``, shape
-(B, Dc + Dd), f32.
+(B, Dc + Dd), f32. The source's header says what bounds it on the H100 and
+how its design answers that.
 
-What bounds it on the H100: memory, though at serving sizes (768 x 138
-floats) launch latency is larger still. Its work is a few transcendentals
-per element and a row softmax over Dd = 10; the least time is the bytes of
-mu, log_sigma, log_alpha and the output over 3.35 TB/s. The design keeps
-the random numbers and the Gumbel logits in registers: one program owns a
-block of rows, draws its uniforms from Philox (``tl.rand``, a counter-based
-generator keyed by (seed, offset), the Hopper counterpart of
-``pltpu.prng_seed`` / ``prng_random_bits``), and does the softmax over the
-row in registers.
-
-The reference constructions are kept exactly: ``u1 + 1e-12`` inside the
-Box-Muller log, and ``g = -log(-log(u + EPS) + EPS)``. Philox gives other
-bits than the TPU's generator, so the two are compared by their moments;
-the plain version below takes the same uniforms through the same arithmetic.
-The seed is one draw from the caller's ``torch.Generator``.
+The random numbers are Philox-4x32-10 words, keyed by one 31-bit seed drawn
+from the caller's ``torch.Generator`` (the Hopper counterpart of
+``pltpu.prng_seed`` / ``prng_random_bits``), each taken to a uniform on the
+TPU kernel's grid: ``(w >> 8) * 2^-24``. ``sample_counters`` is the one
+place that says which counter feeds which element; ``philox_uniforms``
+draws them in plain PyTorch, and ``joint_sample_from_uniforms`` applied to
+them is the kernel's plain version. So one seed gives one draw on the CPU
+and on the card, up to the rounding of the transcendentals. The reference
+constructions are kept exactly: ``u1 + 1e-12`` inside the Box-Muller log,
+and ``g = -log(-log(u + EPS) + EPS)``.
 
 On the CPU the wrapper runs the plain version; on a CUDA tensor it launches
 the kernel or raises. Like the JAX kernel it has no gradient: under grad
@@ -30,18 +27,75 @@ mode, an input that requires grad raises (training draws through
 
 from __future__ import annotations
 
-import functools
+import ctypes
 import math
 from typing import Optional
 
 import torch
 
-from shotvae_torch.ops.kernels import count_launch, init_counts, refuse_grad
+from shotvae_torch.ops.kernels import (_build, count_launch, init_counts,
+                                      refuse_grad)
 from shotvae_torch.ops.sampling import draw_seed, gumbel_softmax_from_uniform
 
 _TWO_PI = 2.0 * math.pi
-_BLOCK_B = 32
-tl = None  # triton.language, bound by _compiled() on the first launch
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # round multipliers
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)  # key increments
+GAUSS_STREAM, GUMBEL_STREAM = 0, 1    # counter word c1 of each stream
+
+
+def _mulhilo(m: int, x):
+    """(high, low) 32-bit words of m * x, for 32-bit m and x (ints or int64
+    tensors), with no intermediate above 2^49."""
+    low = m * (x & 0xFFFF)
+    high = m * (x >> 16)
+    mid = low + ((high & 0xFFFF) << 16)
+    return (high >> 16) + (mid >> 32), mid & _MASK32
+
+
+def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox-4x32-10 (Random123) of the counter (c0, c1, c2, c3) under the
+    key (k0, k1): its four 32-bit output words. Counters are ints or int64
+    tensors of 32-bit values, which broadcast."""
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _MASK32, (k1 + _PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def sample_counters(b: int, dc: int, dd: int, device=None):
+    """The Philox counters of one (b, dc, dd) draw, each a tuple (c0, c1, c2,
+    c3) of (b, n) int64 tensors: Gaussian pair j of row r, columns 2j and
+    2j + 1, is (j, 0, r, 0); Gumbel group q of row r, columns 4q to 4q + 3,
+    is (q, 1, r, 0). The key is (seed, 0)."""
+    def counters(n: int, stream: int):
+        rows = torch.arange(b, device=device)[:, None].expand(b, n)
+        cols = torch.arange(n, device=device)[None, :].expand(b, n)
+        return (cols, torch.full_like(cols, stream), rows,
+                torch.zeros_like(cols))
+    return counters(-(-dc // 2), GAUSS_STREAM), counters(-(-dd // 4),
+                                                         GUMBEL_STREAM)
+
+
+def uniform_from_word(w):
+    """U[0, 1) from a 32-bit word: its high 24 bits times 2^-24, exact in f32
+    (shotvae_tpu/ops/pallas/fused_sample.py:29 ``_uniform``)."""
+    return (w >> 8).to(torch.float32) * 2.0 ** -24
+
+
+def philox_uniforms(seed: int, b: int, dc: int, dd: int, device=None):
+    """The kernel's uniforms for ``seed``: (u1, u2) of shape (b, dc) and u of
+    shape (b, dd), f32. One Philox call gives u1, u2 of columns 2j (words 0,
+    1) and 2j + 1 (words 2, 3), or u of columns 4q to 4q + 3."""
+    gauss, gumbel = sample_counters(b, dc, dd, device)
+    w = [uniform_from_word(x) for x in philox4x32(*gauss, seed, 0)]
+    u1 = torch.stack((w[0], w[2]), 2).reshape(b, -1)[:, :dc]
+    u2 = torch.stack((w[1], w[3]), 2).reshape(b, -1)[:, :dc]
+    u = torch.stack([uniform_from_word(x) for x in philox4x32(*gumbel, seed,
+                                                              0)], 2)
+    return u1, u2, u.reshape(b, -1)[:, :dd]
 
 
 def box_muller(u1, u2):
@@ -58,62 +112,35 @@ def joint_sample_from_uniforms(mean, log_sigma, log_alpha, u1, u2, u,
 
 
 def fused_joint_sample_plain(mean, log_sigma, log_alpha,
-                             temperature: float = 0.67, *,
-                             generator: Optional[torch.Generator] = None):
-    """The plain version: uniforms drawn by ``torch.rand`` from
-    ``generator``, on the tensors' device (other bits than the kernel's
-    Philox stream, the same law)."""
-    draw = lambda like: torch.rand(like.shape,  # noqa: E731
-                                   generator=generator, device=like.device,
-                                   dtype=torch.float32)
-    u1, u2, u = draw(mean), draw(mean), draw(log_alpha)
-    return joint_sample_from_uniforms(mean, log_sigma, log_alpha, u1, u2, u,
-                                      temperature)
+                             temperature: float = 0.67, *, seed: int):
+    """The plain version: the kernel's draw for ``seed``, on the tensors'
+    device, from ``philox_uniforms``."""
+    b, dc = mean.shape
+    return joint_sample_from_uniforms(
+        mean, log_sigma, log_alpha,
+        *philox_uniforms(seed, b, dc, log_alpha.shape[1], mean.device),
+        temperature)
 
 
-def _sample_kernel(mean_ptr, log_sigma_ptr, log_alpha_ptr, out_ptr, B, DC,
-                   DD, seed, temperature, BLOCK_B: tl.constexpr,
-                   BLOCK_DC: tl.constexpr, BLOCK_DD: tl.constexpr):
-    rows = tl.program_id(0) * BLOCK_B + tl.arange(0, BLOCK_B)
-    row_ok = rows[:, None] < B
-    width = DC + DD
-    # Gaussian half: u1, u2 from one Philox call per element, counters
-    # 0 .. B*DC-1
-    cc = tl.arange(0, BLOCK_DC)[None, :]
-    cmask = row_ok & (cc < DC)
-    cidx = rows[:, None] * DC + cc
-    u1, u2, _, _ = tl.rand4x(seed, cidx)
-    mean = tl.load(mean_ptr + cidx, mask=cmask, other=0.0)
-    log_sigma = tl.load(log_sigma_ptr + cidx, mask=cmask, other=0.0)
-    eps = tl.sqrt(-2.0 * tl.log(u1 + 1e-12)) * tl.cos(6.283185307179586 * u2)
-    z = mean + tl.exp(log_sigma) * eps
-    tl.store(out_ptr + rows[:, None] * width + cc, z, mask=cmask)
-    # Gumbel-softmax half: counters B*DC .. B*DC + B*DD - 1; 1e-12 is
-    # sampling.GUMBEL_EPS (a jitted kernel reads no plain Python globals)
-    dcol = tl.arange(0, BLOCK_DD)[None, :]
-    dmask = row_ok & (dcol < DD)
-    didx = rows[:, None] * DD + dcol
-    u = tl.rand(seed, B * DC + didx)
-    log_alpha = tl.load(log_alpha_ptr + didx, mask=dmask, other=0.0)
-    gumbel = -tl.log(-tl.log(u + 1e-12) + 1e-12)
-    logit = tl.where(dmask, (log_alpha + gumbel) / temperature, float("-inf"))
-    logit = logit - tl.max(logit, axis=1)[:, None]
-    e = tl.where(dmask, tl.exp(logit), 0.0)
-    y = e / tl.sum(e, axis=1)[:, None]
-    tl.store(out_ptr + rows[:, None] * width + DC + dcol, y, mask=dmask)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("fused_sample")
+    if lib.fused_joint_sample_f32.argtypes is None:
+        lib.fused_joint_sample_f32.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+            + [ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p])
+        lib.fused_joint_sample_f32.restype = ctypes.c_int
+        lib.fused_sample_empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.fused_sample_empty.restype = ctypes.c_int
+    return lib
 
 
-@functools.cache
-def _compiled():
-    """Import Triton and wrap the kernel on first use: importing this module
-    must work where Triton is not installed."""
-    global tl
-    import triton
-    import triton.language
-
-    tl = triton.language
-    # a new seed per call must not select a new specialisation
-    return triton.jit(_sample_kernel, do_not_specialize=["seed"])
+def empty_launch(device, blocks: int = 1) -> None:
+    """Launch the source's empty kernel (``blocks`` blocks of 256 threads)
+    on ``device``'s current stream, uncounted: the floor of one launch."""
+    err = _lib().fused_sample_empty(
+        blocks, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
 
 
 def fused_joint_sample(mean, log_sigma, log_alpha, temperature: float = 0.67,
@@ -127,25 +154,28 @@ def fused_joint_sample(mean, log_sigma, log_alpha, temperature: float = 0.67,
                 mean, log_sigma, log_alpha)
     seed = draw_seed(generator)
     if mean.device.type == "cpu":
-        return fused_joint_sample_plain(
-            mean, log_sigma, log_alpha, temperature,
-            generator=torch.Generator().manual_seed(seed))
+        return fused_joint_sample_plain(mean, log_sigma, log_alpha,
+                                        temperature, seed=seed)
+    tensors = (mean, log_sigma, log_alpha)
+    if (any(t.dim() != 2 or t.dtype != torch.float32
+            or t.device != mean.device or not t.is_contiguous()
+            for t in tensors)
+            or log_sigma.shape != mean.shape
+            or log_alpha.shape[0] != mean.shape[0] or 0 in mean.shape
+            or log_alpha.shape[1] == 0):
+        raise ValueError("fused_sample kernel takes contiguous float32 "
+                         "(B, Dc), (B, Dc), (B, Dd), B, Dc and Dd at least "
+                         "1, on one card")
     b, dc = mean.shape
     dd = log_alpha.shape[1]
-    tensors = (mean, log_sigma, log_alpha)
-    if (any(t.dtype != torch.float32 or t.device != mean.device
-            or not t.is_contiguous() for t in tensors)
-            or log_sigma.shape != mean.shape or log_alpha.shape[0] != b):
-        raise ValueError("fused_sample kernel takes contiguous float32 "
-                         "(B, Dc), (B, Dc), (B, Dd) on one card")
     out = torch.empty((b, dc + dd), device=mean.device, dtype=torch.float32)
-    grid = ((b + _BLOCK_B - 1) // _BLOCK_B,)
-    with torch.cuda.device(mean.device):
-        _compiled()[grid](mean, log_sigma, log_alpha, out, b, dc, dd, seed,
-                          float(temperature), BLOCK_B=_BLOCK_B,
-                          BLOCK_DC=max(16, 1 << (dc - 1).bit_length()),
-                          BLOCK_DD=max(16, 1 << (dd - 1).bit_length()),
-                          num_warps=4)
+    err = _lib().fused_joint_sample_f32(
+        mean.data_ptr(), log_sigma.data_ptr(), log_alpha.data_ptr(),
+        out.data_ptr(), b, dc, dd, seed, float(temperature),
+        torch.cuda.current_stream(mean.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"fused_sample kernel launch failed: CUDA error "
+                           f"{err}")
     count_launch(fused_joint_sample, out.dtype)
     return out
 

@@ -193,6 +193,26 @@ def test_chip_smoke_refuses_without_card_or_repo(alone, tmp_path):
     assert '"ok"' not in out.stdout
 
 
+def _gumbel_words_from_gaussian_counters(f):
+    """A sampler that draws its Gumbel words from the Gaussian counters
+    (c1 = 0 in place of 1): every uniform still lies on the 2^-24 grid and
+    every column keeps its law, so the moments pass, but the bits are not
+    the kernel's."""
+    from shotvae_torch.ops.kernels import fused_sample as fs
+    from shotvae_torch.ops.sampling import draw_seed
+
+    def sample(m, s, a, t=0.67, *, generator=None):
+        seed = draw_seed(generator)
+        b, dc, dd = *m.shape, a.shape[1]
+        u1, u2, _ = fs.philox_uniforms(seed, b, dc, dd)
+        c0, _, c2, c3 = fs.sample_counters(b, dc, dd)[1]
+        words = fs.philox4x32(c0, torch.zeros_like(c0), c2, c3, seed, 0)
+        u = torch.stack([fs.uniform_from_word(w) for w in words], 2)
+        return fs.joint_sample_from_uniforms(m, s, a, u1, u2,
+                                             u.reshape(b, -1)[:, :dd], t)
+    return sample
+
+
 _WRONG_SAMPLERS = {
     "temperature 1.0": lambda f: lambda m, s, a, t=0.67, **kw: f(
         m, s, a, 1.0, **kw),
@@ -200,30 +220,37 @@ _WRONG_SAMPLERS = {
         m, s, torch.zeros_like(a), t, **kw),
     "log_sigma read a row off": lambda f: lambda m, s, a, t=0.67, **kw: f(
         m, s.roll(1, 0), a, t, **kw),
+    "Gumbel words from the Gaussian counters":
+        _gumbel_words_from_gaussian_counters,
 }
+# (batch, message) of the check that must fail a wrong sampler whose law
+# is right: the exact draw, at batch 2 (its moments pass); the others fail
+# at the serving batch, in the moment or vanishing-sigma checks
+_CAUGHT_BY_THE_DRAW = {"Gumbel words from the Gaussian counters":
+                       (2, "same Philox uniforms")}
 
 
 @pytest.mark.parametrize("wrong", [None, *_WRONG_SAMPLERS])
 def test_chip_smoke_sampler_check_fails_a_wrong_sampler(wrong, monkeypatch):
     """chip_smoke.py's sampler phase on the CPU, where the wrapper runs the
-    plain sampler: it passes that, and fails a sampler with the wrong
-    temperature, without log_alpha, or reading log_sigma a row off."""
+    plain sampler: it passes that at batch 768 and 2, and fails a sampler
+    with the wrong temperature, without log_alpha, reading log_sigma a row
+    off, or drawing its Gumbel words from the Gaussian counters."""
     from shotvae_torch.ops.kernels import fused_sample
 
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    monkeypatch.setattr(chip_smoke, "time_ms", lambda fn: 0.0)
+    chip_smoke = _chip_smoke(monkeypatch)
     if wrong is None:
-        rows, err = chip_smoke.sample_phase(torch.device("cpu"), 768)
-        assert err == 0.0
-        assert rows[0]["moments_vs_plain_se"] < chip_smoke.MOMENT_SE
+        for batch in (768, 2):
+            rows, err = chip_smoke.sample_phase(torch.device("cpu"), batch)
+            assert err == 0.0 and rows[0]["draw_bit_identical_share"] == 1.0
+            assert rows[0]["moments_vs_plain_se"] < chip_smoke.MOMENT_SE
+            assert [r["launches"] for r in rows] == [1, 0]
         return
+    batch, match = _CAUGHT_BY_THE_DRAW.get(wrong, (768, None))
     monkeypatch.setattr(fused_sample, "fused_joint_sample",
                         _WRONG_SAMPLERS[wrong](fused_sample.fused_joint_sample))
-    with pytest.raises(RuntimeError):
-        chip_smoke.sample_phase(torch.device("cpu"), 768)
+    with pytest.raises(RuntimeError, match=match):
+        chip_smoke.sample_phase(torch.device("cpu"), batch)
 
 
 def _chip_smoke(monkeypatch):
@@ -365,18 +392,39 @@ _BAD_KERNEL_CALLS = {
 }
 
 
+def _sample(*shapes_dtypes):
+    from shotvae_torch.ops.kernels.fused_sample import fused_joint_sample
+
+    return fused_joint_sample(*(_meta(s, d) for s, d in shapes_dtypes))
+
+
+_BAD_KERNEL_CALLS.update({
+    "fused_joint_sample bf16 mean": lambda bl, ba, fc: _sample(
+        ((4, 8), torch.bfloat16), ((4, 8), torch.float32),
+        ((4, 10), torch.float32)),
+    "fused_joint_sample rows of log_alpha": lambda bl, ba, fc: _sample(
+        ((4, 8), torch.float32), ((4, 8), torch.float32),
+        ((3, 10), torch.float32)),
+    "fused_joint_sample no classes": lambda bl, ba, fc: _sample(
+        ((4, 8), torch.float32), ((4, 8), torch.float32),
+        ((4, 0), torch.float32)),
+})
+
+
 @pytest.mark.parametrize("call", list(_BAD_KERNEL_CALLS))
 def test_kernel_wrappers_refuse_other_dtypes(call):
     """Off the CPU a wrapper launches its kernel or raises: float16, and a
     bf16 tensor beside one that must be f32 (or the reverse), raise before
-    any launch, and no launch is counted."""
+    any launch, and no launch is counted; so do sampler inputs of the wrong
+    dtype or shape."""
     from shotvae_torch.ops.kernels import bn_act, bn_leaky, fused_conv
+    from shotvae_torch.ops.kernels.fused_sample import fused_joint_sample
 
     with pytest.raises(ValueError):
         _BAD_KERNEL_CALLS[call](bn_leaky, bn_act, fused_conv)
     for k in (bn_leaky.bn_stats, bn_leaky.bn_apply, bn_leaky.bn_bwd_reduce,
               bn_leaky.bn_bwd_apply, bn_act.bn_act_inference,
-              fused_conv.fused_bn_act_conv):
+              fused_conv.fused_bn_act_conv, fused_joint_sample):
         assert k.launches == k.launches_bf16 == 0
 
 

@@ -177,6 +177,23 @@ def test_kernel_study_ablation_patches_the_current_source(bits):
     assert study.ablated_source(src, 0) == src
 
 
+@pytest.mark.parametrize("bits", [1, 2, 4, 8, 15])
+def test_kernel_study_sample_ablation_patches_the_current_source(bits):
+    """The study's sampler ablations (scripts/torch_kernel_study.py sample)
+    patch texts of csrc/fused_sample.cu that must each be found once."""
+    study = _study()
+    with open(os.path.join(ROOT, "shotvae_torch", "csrc",
+                           "fused_sample.cu")) as f:
+        src = f.read()
+    patched = study.ablated_source(src, bits, study.SAMPLE_ABLATIONS,
+                                   "fused_sample")
+    for bit, patches in study.SAMPLE_ABLATIONS.items():
+        for old, new in patches:
+            assert (new in patched) == bool(bits & bit)
+            assert src.count(old) == 1
+    assert set(study.SAMPLE_VARIANTS) <= set(range(16))
+
+
 @pytest.mark.parametrize("shape", CONV_SHAPES[:4])
 def test_kernel_study_sweeps_use_the_current_plans(shape):
     """The study's plan sweep holds the built plan among plans that fit,
