@@ -57,7 +57,24 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    the card against the same bf16 step on the CPU at 16 + 16, each metric,
    gradient, update and running statistic within max(a floor, 3x the CPU's
    own distance between its bf16 and f32 steps on the same inputs).
-7. Print the ``kernels`` JSON line, then the result line
+7. The training loop (``shotvae_torch.train.loop.run_shot_vae``), the
+   path a user of ``python -m shotvae_torch.cli.main_shot_vae`` takes: one
+   bf16 epoch of the headline configuration at 768 + 768 on 50,000
+   synthetic CIFAR-10 images resident on the card (58 train steps, then 25
+   eval forwards: 7 valid batches, 17 test batches and the reconstruction
+   grid), with every kernel's launches over the epoch checked, a finite
+   loss, accuracies in [0, 1] and the checkpoint pointer leading to a
+   file; the epoch's seconds, its train part's unlabeled images/s beside
+   phase 6's bf16 step median, and its eval seconds. The checkpoint
+   restored into a fresh bf16 model and optimizer equals the loop's final
+   state bit for bit, and ``ShotVaeInference.from_checkpoint`` serves it
+   (``classify`` on 16 images equal to an f32 model loaded from the final
+   state). Resume at the JAX tests' tiny size (WRN-10-1, batch 64, 512
+   images, bf16) with cuDNN deterministic: one epoch, a resume, one more
+   equals two straight epochs bit for bit (parameters, buffers, momentum,
+   step, history), the ``ewm`` bump before the resume point; the straight
+   run writes its second epoch's profile trace (``--profile-dir``).
+8. Print the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits with an error, printing no result, where torch sees no card or where
@@ -68,12 +85,15 @@ from __future__ import annotations
 
 import copy
 import functools
+import glob
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -164,6 +184,24 @@ EXPECTED_EVAL_LAUNCHES = {"fused_bn_act_conv": 22, "bn_act_inference": 11,
                           "fused_joint_sample": 1, "bn_stats": 0,
                           "bn_apply": 0, "bn_bwd_reduce": 0,
                           "bn_bwd_apply": 0}
+# the loop's epoch at the headline configuration on 50,000 synthetic
+# CIFAR-10 images: 500 valid and 400 labeled images per class, 45,000
+# unlabeled, so 45,000 // 768 = 58 train steps; then eval forwards over
+# ceil(5,000 / 768) = 7 valid and ceil(12,500 / 768) = 17 test batches and
+# the 4-image reconstruction grid
+LOOP_CONFIG = dict(dataset="Cifar10", net_name="wideresnet-28-2",
+                   batch_size=BATCH, br=True, om=True, synthetic_data=True,
+                   synthetic_size=50_000, reconstruct_freq=1, ckpt_every=1,
+                   yes=True)
+LOOP_STEPS = 58
+LOOP_EVAL_FORWARDS = 25
+# the resume check's size: the JAX tests' _tiny_cfg
+# (tests/test_loops_e2e.py:25-33) in bf16, the ewm bump at epoch 0
+RESUME_CONFIG = dict(dataset="Cifar10", batch_size=64,
+                     net_name="wideresnet-10-1", ldc=8, synthetic_data=True,
+                     synthetic_size=512, valid_per_class=10,
+                     annotated_per_class=10, yes=True, reconstruct_freq=1,
+                     print_freq=100, adjust_lr=[0, 1, 2])
 # kernel launches per endpoint at WRN-28-2: (fused conv, bn_act, sample)
 EXPECTED_LAUNCHES = {"classify": (22, 6, 0), "encode": (22, 6, 0),
                      "reconstruct": (22, 11, 1), "generate": (0, 5, 0)}
@@ -1217,6 +1255,147 @@ def compare_train_step_bf16(dev, batch: int) -> dict:
                 cpu_bf16_vs_f32_rel_median=statistics.median(own))
 
 
+# ----------------------------------------------------------------- phase 7
+
+
+def _momentum(state) -> dict:
+    return {i: s["momentum_buffer"]
+            for i, s in state.optimizer.state_dict()["state"].items()}
+
+
+def state_mismatches(a, b) -> list:
+    """The tensors (parameters, buffers, momentum) and the step in which
+    two train states differ by any bit, each with its largest difference."""
+    import torch
+
+    out = [] if a.step == b.step else [("step", a.step, b.step)]
+    for what, da, db in (("state", a.model.state_dict(),
+                          b.model.state_dict()),
+                         ("momentum", _momentum(a), _momentum(b))):
+        check(list(da) == list(db), f"{what} keys differ")
+        out += [(f"{what} {k}", _dist(da[k], db[k]))
+                for k in da if not torch.equal(da[k], db[k])]
+    return out
+
+
+def _no_seconds(history) -> list:
+    return [{k: v for k, v in h.items() if k != "seconds"} for h in history]
+
+
+def loop_phase(dev, base: str, config: dict, steps: int, eval_forwards: int,
+               resume_config: dict) -> dict:
+    """The training loop on ``dev`` under ``base``: one epoch of ``config``
+    (``steps`` train steps and ``eval_forwards`` eval forwards, whose
+    launches are checked), the checkpoint round trip and serving, then
+    resume against a straight run at ``resume_config``."""
+    import torch
+
+    from shotvae_torch.api import ShotVaeInference
+    from shotvae_torch.config import ShotVaeConfig
+    from shotvae_torch.io.checkpoint import CheckpointManager
+    from shotvae_torch.io.tb import TBWriter
+    from shotvae_torch.models.vae import VariationalAutoEncoder
+    from shotvae_torch.train.loop import build_model, build_state, run_shot_vae
+
+    log = lambda *a: print("  loop:", *a)  # noqa: E731
+    counters = kernel_counters()
+    cuda = dev.type == "cuda"
+    cfg = ShotVaeConfig(base_path=os.path.join(base, "epoch"), **config)
+    dtype = cfg.compute_dtype()
+    zero_counts(counters)
+    out = run_shot_vae(cfg, max_epochs=1, log_fn=log, device=dev)
+    _sync(dev)
+    launches = check_counts(
+        counters, dtype,
+        {name: (steps * n + eval_forwards * EXPECTED_EVAL_LAUNCHES[name]
+                if cuda else 0)
+         for name, n in EXPECTED_TRAIN_LAUNCHES.items()},
+        f"the loop's epoch ({steps} steps, {eval_forwards} eval forwards)")
+    if dtype == torch.bfloat16:  # the f32 sampler under the bf16 trunk
+        launches["fused_joint_sample"] = read_counts(
+            counters, torch.float32)["fused_joint_sample"]
+    (h,) = out["history"]
+    check(math.isfinite(h["train_loss"])
+          and 0.0 <= h["valid_top1"] <= 1.0 and 0.0 <= h["test_top1"] <= 1.0,
+          f"the loop's epoch gave {h}")
+    spec = cfg.apply_dataset_overrides()
+    ckpt = CheckpointManager(cfg.base_path, spec.name, cfg.train_time)
+    check(os.path.isfile(ckpt.latest_path()),
+          "the checkpoint pointer leads to no file")
+    probe = TBWriter(os.path.join(base, "tb_probe"))
+    live = probe.live
+    probe.close()
+    events = glob.glob(os.path.join(cfg.base_path, f"{spec.name}-SHOT-VAE",
+                                    "runs", "*", "events.out.tfevents.*"))
+    check(bool(events) == live, f"TensorBoard live {live}, event files "
+          f"{events}")
+    times = out["epoch_times"][0]
+    epoch = dict(launches=launches, epoch_s=h["seconds"],
+                 train_s=times["train_s"], eval_s=times["eval_s"],
+                 train_steps=steps, eval_forwards=eval_forwards,
+                 unlabeled_images_per_s=steps * cfg.batch_size
+                 / times["train_s"],
+                 train_loss=h["train_loss"], valid_top1=h["valid_top1"],
+                 test_top1=h["test_top1"], tensorboard_live=live)
+
+    # the checkpoint into a fresh model and optimizer, then served
+    final = out["state"]
+    fresh = build_state(build_model(cfg, spec, dev), cfg, steps)
+    _, saved_epoch, _ = ckpt.restore(fresh)
+    diff = state_mismatches(fresh, final)
+    check(saved_epoch == 1 and not diff, f"the restored checkpoint (epoch "
+          f"{saved_epoch}) differs from the loop's final state: {diff[:5]}")
+    serving = ShotVaeInference.from_checkpoint(ckpt.folder, device=dev)
+    ref = VariationalAutoEncoder(
+        cfg.net_name, continuous_latent_dim=cfg.ldc,
+        disc_latent_dim=spec.num_classes, device=dev)
+    ref.load_state_dict(final.model.state_dict(), strict=True)
+    g = torch.Generator().manual_seed(SEED + 20)
+    images = torch.randint(0, 256, (16, 32, 32, 3), generator=g,
+                           dtype=torch.uint8)
+    got = serving.classify(images)
+    want = ShotVaeInference(ref, device=dev).classify(images)
+    check(torch.equal(got, want), "from_checkpoint's classify differs from "
+          f"the final state's by {_dist(got, want):.3e}")
+    round_trip = dict(tensors=len(final.model.state_dict())
+                      + len(_momentum(final)), bit_identical=True,
+                      served_classify_equal=True)
+
+    # resume, with cuDNN deterministic for this check only
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        straight_base = os.path.join(base, "straight")
+        resumed_base = os.path.join(base, "resumed")
+        profile_dir = os.path.join(base, "profile")  # --profile-dir
+        a = run_shot_vae(ShotVaeConfig(base_path=straight_base,
+                                       profile_dir=profile_dir,
+                                       **resume_config),
+                         max_epochs=2, log_fn=log, device=dev)
+        run_shot_vae(ShotVaeConfig(base_path=resumed_base, **resume_config),
+                     max_epochs=1, log_fn=log, device=dev)
+        resumed_cfg = ShotVaeConfig(base_path=resumed_base, resume=os.path.join(
+            CheckpointManager(resumed_base, "Cifar10", 1).folder,
+            "checkpoint"), **resume_config)
+        b = run_shot_vae(resumed_cfg, max_epochs=2, log_fn=log, device=dev)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    diff = state_mismatches(a["state"], b["state"])
+    check(not diff, f"resume differs from the straight run in {len(diff)} "
+          f"tensors: {diff[:5]}")
+    check(_no_seconds(a["history"][1:]) == _no_seconds(b["history"]),
+          f"resume's history {b['history']} differs from the straight "
+          f"run's {a['history'][1:]}")
+    check(resumed_cfg.ewm == 5 * ShotVaeConfig().ewm,
+          f"the resumed run's ewm is {resumed_cfg.ewm}")
+    check(os.listdir(profile_dir) == ["epoch1.pt.trace.json"],
+          f"--profile-dir wrote {os.listdir(profile_dir)}")
+    resume = dict(epochs=2, resumed_at=1, tensors=len(
+        a["state"].model.state_dict()) + len(_momentum(a["state"])),
+        bit_identical=True, ewm=resumed_cfg.ewm)
+    return dict(epoch=epoch, round_trip=round_trip, resume=resume)
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -1285,11 +1464,12 @@ def summarize(name, route, source, replaces, bound_by, rows, err, launches,
                 launches_per_unit=sum(r["launches"] for r in rows))
 
 
-def bf16_entries(bf16: dict) -> list:
+def bf16_entries(bf16: dict, loop_launches: dict) -> list:
     """The bf16 kernels' entries: the bn_leaky kernels per train step, the
     eval kernel and the fused conv per eval step (one encoder forward),
-    each with its launches on the bf16 train and eval paths, and its
-    weights checked against them."""
+    each with its launches on the bf16 train and eval paths and in the
+    loop's epoch (``loop_launches``), and its weights checked against the
+    train and eval paths."""
     train = bf16["train"]
     bn_rows, bn_err = bf16["bn_leaky_train"]
     step = f"train step at {BATCH} + {BATCH}"
@@ -1317,7 +1497,8 @@ def bf16_entries(bf16: dict) -> list:
                                  ("backward apply", "bn_bwd_apply", 217))]
     for entry, name, unit_path in entries:
         by_path = {"train_bf16": train["launches"][name],
-                   "eval_bf16": train["eval_launches"][name]}
+                   "eval_bf16": train["eval_launches"][name],
+                   "loop_bf16": loop_launches[name]}
         check(sum(by_path.values()) > 0, f"{name} bf16 never launched on "
               f"the main path")
         entry.update(launches=sum(by_path.values()),
@@ -1419,6 +1600,20 @@ def main() -> int:
               + json.dumps(bf16["train"][key]))
     print(f"train_bf16_step_vs_cpu_at_{COMPARE_BATCH}+{COMPARE_BATCH} "
           + json.dumps(bf16["train"]["vs_cpu"]))
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    base = tempfile.mkdtemp(prefix="loop_", dir=os.path.join(ROOT, "build"))
+    try:
+        loop = loop_phase(dev, base, LOOP_CONFIG, LOOP_STEPS,
+                          LOOP_EVAL_FORWARDS, RESUME_CONFIG)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    step_ms = bf16["train"]["timing"]["step_ms"]
+    loop["epoch"]["bf16_step_median_images_per_s"] = BATCH / step_ms * 1e3
+    print(f"loop_epoch_at_batch_{BATCH}+{BATCH} " + json.dumps(loop["epoch"]))
+    print("loop_checkpoint_round_trip " + json.dumps(loop["round_trip"]))
+    print("loop_resume_vs_straight " + json.dumps(loop["resume"]))
+    print(f"loop phase {time.perf_counter() - t0:.1f} s")
     conv_train = sum(r["launches"] for r in conv_bwd_rows)
     check(conv_train * TRAIN_STEPS == train["launches"]["fused_bn_act_conv"],
           f"the fused conv backward rows weigh {conv_train} launches per "
@@ -1471,8 +1666,11 @@ def main() -> int:
     sampler = entries[2]
     sampler["launches_by_path"]["eval_bf16_trunk"] = \
         bf16["train"]["eval_launches"]["fused_joint_sample"]
+    # and 25 times in the loop's bf16 epoch
+    sampler["launches_by_path"]["loop_bf16_trunk"] = \
+        loop["epoch"]["launches"]["fused_joint_sample"]
     sampler["launches"] = sum(sampler["launches_by_path"].values())
-    entries += bf16_entries(bf16)
+    entries += bf16_entries(bf16, loop["epoch"]["launches"])
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

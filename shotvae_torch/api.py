@@ -15,12 +15,15 @@ the JAX endpoints' default ``jax.random.key(0)`` does. The endpoints run on
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import Optional, Union
 
 import torch
 
 from shotvae_torch.data.pipeline import to_float
 from shotvae_torch.device import DeviceLike, resolve_device
+from shotvae_torch.io.checkpoint import (CheckpointManager,
+                                         resolve_checkpoint_path)
 from shotvae_torch.models.vae import VariationalAutoEncoder
 from shotvae_torch.ops import sampling
 
@@ -36,13 +39,23 @@ class ShotVaeInference:
         self.model = model.to(self.device).eval()
 
     @classmethod
-    def from_checkpoint(cls, path: str, *, device: DeviceLike = None,
+    def from_checkpoint(cls, source: Union[str, os.PathLike,
+                                           CheckpointManager], *,
+                        best: bool = False, device: DeviceLike = None,
                         encoder_name: Optional[str] = None):
-        """Load the ``{"state_dict": ..., "args": {...}}`` file that
-        scripts/export_torch_checkpoint.py writes. The latent sizes are
-        read from the weights; the encoder name and temperature from the
-        stored config, unless ``encoder_name`` is given."""
+        """Load a ``{"state_dict": ..., "args": {...}}`` checkpoint: one the
+        trainer wrote (``shotvae_torch.train.loop``) or one
+        scripts/export_torch_checkpoint.py wrote. ``source`` is a
+        ``CheckpointManager`` (its latest ``checkpoint``, or ``best``), a
+        run folder or pointer-managed name (``best`` picks the ``best``
+        pointer) or a file. The latent sizes are read from the weights; the
+        encoder name and temperature from the stored config, unless
+        ``encoder_name`` is given. The model serves in float32."""
         device = resolve_device(device)
+        name = "best" if best else "checkpoint"
+        path = (source.latest_path(best)
+                if isinstance(source, CheckpointManager)
+                else resolve_checkpoint_path(os.fspath(source), (name,)))
         payload = torch.load(path, map_location="cpu", weights_only=True)
         sd, args = payload["state_dict"], payload.get("args") or {}
         encoder_name = encoder_name or args.get("net_name")

@@ -1,21 +1,21 @@
-"""Configuration of the SHOT-VAE train step.
+"""Configuration of the SHOT-VAE trainer.
 
-The port's own copy of the parts of shotvae_tpu/config.py:17-124
-(``ShotVaeConfig``, ``DatasetSpec``, ``apply_dataset_overrides``) that the
-port reads: the dataset, the loss schedules, the optimizer and the mixup.
-Field names and defaults follow the reference flag names
-(main_shot_vae.py:30-106), and ``apply_dataset_overrides`` reproduces the
-per-dataset values the reference sets inside ``main()``. Fields of the
-reference surface that drive a part the port does not have yet (the loop,
-checkpoints, data parallelism) come with the slice that adds it.
-``compute_dtype`` is the model's trunk dtype, as shotvae_tpu/train/loop.py:223
-picks it from ``bf16``.
+The port's own copy of shotvae_tpu/config.py:17-124 (``ShotVaeConfig``,
+``DatasetSpec``, ``apply_dataset_overrides``): every field, with the JAX
+package's names and defaults, which follow the reference's flag names
+(main_shot_vae.py:30-106), and ``apply_dataset_overrides``, the per-dataset
+values the reference sets inside ``main()``. ``compute_dtype`` is the
+model's trunk dtype, as shotvae_tpu/train/loop.py:223 picks it from
+``bf16``. Fields that drive a part the port does not have yet (data
+parallelism, multi-step dispatch, the DenseNet) are refused by the loop
+(``shotvae_torch.train.loop``), never ignored.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -23,18 +23,31 @@ import torch
 @dataclass
 class ShotVaeConfig:
     # Dataset parameters
+    base_path: str = "."
     dataset: str = "Cifar10"
+    image_size: Tuple[int, int] = (32, 32)
+    workers: int = 4              # accepted for CLI parity; data is resident
     batch_size: int = 768
+    # Train preprocess
+    train_time: int = 1
     epochs: int = 600
+    start_epoch: int = 0
+    dp: bool = True               # reference quirk: --dp *disables* DataParallel
+    print_freq: int = 3
+    reconstruct_freq: int = 20
+    resume: str = ""
     annotated_ratio: float = 0.1
-    valid_per_class: int = 0      # >0 overrides the dataset's valid split size
-    annotated_per_class: int = 0  # >0 overrides the labeled split size
-    # Reconstruction
+    # Model
+    net_name: str = "wideresnet-28-2"
+    temperature: float = 0.67
+    drop_rate: float = 0.0
     br: bool = False              # BCE reconstruction
     x_sigma: float = 1.0
-    # Loss schedule
+    ldc: int = 128                # continuous latent dim
     cmi: float = 0.0
     dmi: float = 0.0
+    # Loss schedule
+    ei: bool = False              # parsed, never used (reference parity)
     kbmc: float = 1e-3
     kbmd: float = 1e-3
     akb: int = 200
@@ -46,13 +59,28 @@ class ShotVaeConfig:
     apw: float = 200.0
     # Optimizer
     lr: float = 0.1
+    beta1: float = 0.9
     adjust_lr: List[int] = field(default_factory=lambda: [400, 500, 550])
     wd: float = 5e-4
     # Optimal transport estimation
     epsilon: float = 0.1
     om: bool = False
-    # bfloat16 trunk compute (shotvae_tpu/config.py:65; ``--no-bf16`` opts out)
-    bf16: bool = True
+    gpu: str = ""                 # accepted for CLI parity; one card
+    # --- extensions of the JAX package (not in the reference surface) ---
+    seed: int = 1
+    bf16: bool = True             # bfloat16 trunk compute
+    num_devices: Optional[int] = None
+    synthetic_data: bool = False  # tests / data-less environments
+    yes: bool = False             # skip the interactive run-dir removal prompt
+    efficient: bool = False       # densenet remat
+    synthetic_size: int = 2048    # synthetic train-set size
+    ckpt_every: int = 1           # checkpoint cadence in epochs (1 = parity)
+    profile_dir: str = ""         # profiler trace of epoch start+1
+    valid_per_class: int = 0      # >0 overrides the dataset's valid split size
+    annotated_per_class: int = 0  # >0 overrides the labeled split size
+    bn_per_replica: bool = False  # per-replica BN statistics
+    steps_per_call: int = 1       # train steps per host dispatch
+    global_mixup: bool = False    # with bn_per_replica: global mixup partners
 
     def compute_dtype(self) -> Optional[torch.dtype]:
         """The model's ``dtype``: bfloat16 with ``bf16``, else None (f32)."""
@@ -88,6 +116,9 @@ class ShotVaeConfig:
                 self.cmi = 200
             return DatasetSpec("SVHN", 10, 3, 100, 100)
         raise NotImplementedError(f"Dataset {self.dataset} not implemented")
+
+    def asdict(self) -> dict:
+        return dataclasses.asdict(self)
 
 
 @dataclass

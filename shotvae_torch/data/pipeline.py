@@ -1,16 +1,47 @@
-"""Input conversion and train-time augmentation. Port of
-shotvae_tpu/data/pipeline.py:47-94.
+"""The resident dataset, input conversion, train-time augmentation and
+the host's index streams. Port of shotvae_tpu/data/pipeline.py:23-148.
 
-Images are NHWC batches, as in the JAX package; the augmentation runs on
-the images' device. The resident dataset comes with the loop slice.
+The whole dataset lives on the card as uint8 NHWC (CIFAR-10's train set is
+153.6 MB), and each step gathers its batch there from one host index array:
+only the indices cross PCIe. Conversion to float and the augmentation run
+on the images' device. The index streams (``epoch_batches``,
+``infinite_batches``) are numpy, drawn as the JAX package draws them, so
+one seed gives both packages the same batches.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from shotvae_torch.data.datasets import ArrayDataset
+from shotvae_torch.device import DeviceLike, resolve_device
+
+
+class DeviceDataset:
+    """uint8 NHWC images and int64 labels resident on one device."""
+
+    def __init__(self, dataset: ArrayDataset, *, device: DeviceLike = None):
+        device = resolve_device(device)
+        self.images = torch.from_numpy(np.ascontiguousarray(
+            dataset.images)).to(device)
+        self.labels = torch.from_numpy(np.asarray(dataset.labels,
+                                                  np.int64)).to(device)
+
+    def __len__(self):
+        return self.images.shape[0]
+
+    def gather(self, indices) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(uint8 images, int64 labels) of ``indices`` (host or device
+        integers), gathered on the dataset's device: the host sends only
+        the indices."""
+        idx = torch.as_tensor(indices).to(self.images.device, torch.int64,
+                                          non_blocking=True)
+        return (self.images.index_select(0, idx),
+                self.labels.index_select(0, idx))
 
 
 def to_float(images: torch.Tensor, *, normalize: bool = False) -> torch.Tensor:
@@ -54,3 +85,44 @@ def augment_batch(images: torch.Tensor, *, pad: int = 4, crop: int = 32,
     cols = off_x.long()[:, None] + cols
     batch = torch.arange(b, device=images.device)[:, None, None]
     return padded[batch, rows[:, :, None], cols[:, None, :]]
+
+
+def epoch_batches(rng: np.random.Generator, indices: np.ndarray,
+                  batch_size: int, *, drop_last: bool = True,
+                  shuffle: bool = True) -> Iterator[np.ndarray]:
+    """One shuffled epoch of index batches; ``drop_last`` drops the ragged
+    tail (the unlabeled stream keeps static shapes)."""
+    order = rng.permutation(indices) if shuffle else np.asarray(indices)
+    limit = (len(order) // batch_size) * batch_size if drop_last \
+        else len(order)
+    for start in range(0, limit, batch_size):
+        yield order[start:start + batch_size]
+
+
+def infinite_batches(rng: np.random.Generator, indices: np.ndarray,
+                     batch_size: int) -> Iterator[np.ndarray]:
+    """An endless reshuffled stream of full batches, the reference's
+    ``cycle(labeled_loader)``: at the end of the pool it wraps around into a
+    reshuffle, looping where the pool is smaller than the batch."""
+    if len(indices) == 0:
+        raise ValueError("infinite_batches needs a non-empty index set")
+    pool = rng.permutation(indices)
+    pos = 0
+    while True:
+        if pos + batch_size <= len(pool):
+            yield pool[pos:pos + batch_size]
+            pos += batch_size
+        else:
+            parts = [pool[pos:]]
+            need = batch_size - len(parts[0])
+            while need > 0:
+                pool = rng.permutation(indices)
+                take = min(need, len(pool))
+                parts.append(pool[:take])
+                need -= take
+            pos = 0 if len(parts[-1]) == len(pool) else len(parts[-1])
+            yield np.concatenate(parts)
+
+
+def num_batches(n: int, batch_size: int, *, drop_last: bool = True) -> int:
+    return n // batch_size if drop_last else -(-n // batch_size)

@@ -73,6 +73,21 @@ def conv(module: nn.Module, x: torch.Tensor,
                     module.groups)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's train-mode ``Dropout``: each element is kept where a uniform
+    draw on x's device lies below ``1 - rate`` and is then divided by
+    ``1 - rate``, in x's dtype; the rest are 0. ``generator`` lives on x's
+    device."""
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """AdaptiveAvgPool2d((1,1)) + flatten: (B, C, H, W) -> (B, C)."""
     return x.mean(dim=(2, 3))

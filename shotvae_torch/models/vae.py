@@ -14,6 +14,9 @@ through the eval kernels and the ``fused_sample`` kernel, which has no
 gradient. Methods take and return NCHW tensors; the serving API
 (``shotvae_torch.api``) keeps the JAX package's NHWC layout.
 
+``drop_rate`` is the encoder's train-mode dropout (``WideResNet``), seeded
+from the same host generator as the latent draw.
+
 ``dtype`` (None: float32, as in JAX) is the trunk's compute dtype, as
 ``VariationalAutoEncoder(dtype=jnp.bfloat16)``: the encoder and decoder
 compute in it; the pooled features are pooled in it and then cast to f32
@@ -41,12 +44,13 @@ from shotvae_torch.ops.kernels.fused_sample import fused_joint_sample
 
 
 def build_encoder(encoder_name: str, *, num_input_channels: int = 3,
-                  dtype: Optional[torch.dtype] = None) -> nn.Module:
+                  dtype: Optional[torch.dtype] = None,
+                  drop_rate: float = 0.0) -> nn.Module:
     """Resolve an encoder by name; the port has the WideResNet so far."""
     if "wideresnet" in encoder_name:
         depth, width = parse_wideresnet_name(encoder_name)
         return WideResNet(depth, width, num_input_channels=num_input_channels,
-                          dtype=dtype)
+                          dtype=dtype, drop_rate=drop_rate)
     raise NotImplementedError(
         f"{encoder_name} is not ported yet (ROADMAP.md queue 1 item 9: "
         "PreActResNet and DenseNet encoders)")
@@ -63,14 +67,15 @@ class VariationalAutoEncoder(nn.Module):
                  continuous_latent_dim: int = 128, disc_latent_dim: int = 10,
                  sample_temperature: float = 0.67,
                  device: DeviceLike = None,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, drop_rate: float = 0.0):
         super().__init__()
         self.dtype = dtype
         self.continuous_latent_dim = continuous_latent_dim
         self.disc_latent_dim = disc_latent_dim
         self.sample_temperature = sample_temperature
         self.feature_extractor = build_encoder(
-            encoder_name, num_input_channels=num_input_channels, dtype=dtype)
+            encoder_name, num_input_channels=num_input_channels, dtype=dtype,
+            drop_rate=drop_rate)
         feat = self.feature_extractor.num_feature_channel
         self.continuous_inference = nn.ModuleDict(OrderedDict(
             mean=_linear_head(feat, continuous_latent_dim),
@@ -84,9 +89,11 @@ class VariationalAutoEncoder(nn.Module):
         self.to(device=resolve_device(device),
                 memory_format=torch.channels_last)
 
-    def encode(self, x: torch.Tensor):
-        """(B, C, H, W) f32 -> (mean, log_sigma, log_alpha), all f32."""
-        features = self.feature_extractor(channels_last(x))
+    def encode(self, x: torch.Tensor,
+               generator: Optional[torch.Generator] = None):
+        """(B, C, H, W) f32 -> (mean, log_sigma, log_alpha), all f32.
+        ``generator`` seeds the encoder's dropout in train mode."""
+        features = self.feature_extractor(channels_last(x), generator)
         avg = global_avg_pool(features).to(torch.float32)  # pooled in dtype
         ci = self.continuous_inference
         norm_mean = ci.mean.fc(avg)
@@ -116,7 +123,7 @@ class VariationalAutoEncoder(nn.Module):
         Either draw is seeded by one draw from ``generator``, which does
         not synchronise the card where ``generator`` is a host generator.
         """
-        norm_mean, norm_log_sigma, disc_log_alpha = self.encode(x)
+        norm_mean, norm_log_sigma, disc_log_alpha = self.encode(x, generator)
         if self.training or labels is not None or noise is not None:
             latent = sampling.joint_latent(
                 norm_mean, norm_log_sigma, disc_log_alpha,

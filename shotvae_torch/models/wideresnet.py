@@ -16,6 +16,12 @@ standalone sites per forward.
 ``dtype`` (None: float32) is the trunk's compute dtype, as the JAX
 package's ``dtype``: every conv, BN output and residual add is in it; the
 image is cast by the stem conv.
+
+``drop_rate`` (the CLI's ``-dr``) drops conv1's output of every unit in
+train mode, before norm2, as flax's ``Dropout`` does there; the masks come
+from one device generator per forward, seeded by one draw from the
+caller's host generator. At the default 0 the forward draws nothing and
+adds no op.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from shotvae_torch.models.layers import BatchNorm, conv
+from shotvae_torch.models.layers import BatchNorm, conv, dropout
+from shotvae_torch.ops.sampling import device_generator
 
 NUM_INIT_FEATURES = 16  # conv0's width
 
@@ -45,15 +52,16 @@ class PreProcess(nn.Module):
 
 
 class WideResUnit(nn.Module):
-    """BN->LeakyReLU->conv3x3->BN->LeakyReLU->conv3x3 (+ BN->LeakyReLU->1x1
-    shortcut from the pre-activation input when channels or stride
-    change)."""
+    """BN->LeakyReLU->conv3x3->dropout->BN->LeakyReLU->conv3x3 (+
+    BN->LeakyReLU->1x1 shortcut from the pre-activation input when channels
+    or stride change)."""
 
     def __init__(self, in_features: int, features: int, stride: int = 1,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, drop_rate: float = 0.0):
         super().__init__()
         self.stride = stride
         self.dtype = dtype
+        self.drop_rate = drop_rate
         self.f_block = nn.ModuleDict(OrderedDict(
             norm1=BatchNorm(in_features, dtype=dtype),
             conv1=nn.Conv2d(in_features, features, 3, stride=stride,
@@ -67,12 +75,16 @@ class WideResUnit(nn.Module):
                 conv=nn.Conv2d(in_features, features, 1, stride=stride,
                                bias=False)))
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """``generator`` (on x's device) draws the dropout mask in train
+        mode."""
         f = self.f_block
         if self.stride == 1:
             h = f.norm1.act_conv(x, f.conv1)
         else:
             h = conv(f.conv1, f.norm1(x), self.dtype)
+        if self.training and self.drop_rate > 0:
+            h = dropout(h, self.drop_rate, generator)
         h = f.norm2.act_conv(h, f.conv2)
         if self.i_block is not None:
             x = conv(self.i_block.conv, self.i_block.norm(x), self.dtype)
@@ -85,8 +97,9 @@ class WideResNet(nn.Module):
 
     def __init__(self, depth: int = 28, width: int = 2,
                  num_input_channels: int = 3,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, drop_rate: float = 0.0):
         super().__init__()
+        self.drop_rate = drop_rate
         if (depth - 4) % 6:
             raise ValueError(f"depth should be 6n+4, got {depth}")
         block_depth = (depth - 4) // 6
@@ -99,7 +112,7 @@ class WideResNet(nn.Module):
             for i in range(1, block_depth + 1):
                 stride = 2 if (group > 1 and i == 1) else 1
                 units[f"wideunit{i}"] = WideResUnit(cin, features, stride,
-                                                    dtype)
+                                                    dtype, drop_rate)
                 cin = features
             blocks[f"wideblock{group}"] = nn.ModuleDict(
                 {"wide_block": nn.Sequential(units)})
@@ -107,11 +120,17 @@ class WideResNet(nn.Module):
                                                                 dtype=dtype)})
         self.encoder = nn.ModuleDict(blocks)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` (a host generator; None: torch's default) seeds
+        the dropout masks where dropout acts."""
+        gen = (device_generator(generator, x.device)
+               if self.training and self.drop_rate > 0 else None)
         e = self.encoder
         x = e.pre_process(x)
         for group in (1, 2, 3):
-            x = e[f"wideblock{group}"].wide_block(x)
+            for unit in e[f"wideblock{group}"].wide_block:
+                x = unit(x, gen)
         return e.transition.norm(x)
 
 

@@ -43,13 +43,16 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 37  # every module was imported
 
 
 def test_entry_points_need_an_explicit_cpu(monkeypatch, tmp_path):
     from shotvae_torch.api import ShotVaeInference
+    from shotvae_torch.cli.main_shot_vae import main
+    from shotvae_torch.config import ShotVaeConfig
     from shotvae_torch.device import resolve_device
     from shotvae_torch.models.vae import VariationalAutoEncoder
+    from shotvae_torch.train.loop import run_shot_vae
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     kw = dict(continuous_latent_dim=8, disc_latent_dim=10)
@@ -57,12 +60,17 @@ def test_entry_points_need_an_explicit_cpu(monkeypatch, tmp_path):
     path = tmp_path / "m.pth.tar"
     torch.save({"args": {"net_name": "wideresnet-10-1"},
                 "state_dict": model.state_dict()}, path)
+    base = str(tmp_path / "runs")
     for call in (resolve_device,
                  lambda: VariationalAutoEncoder("wideresnet-10-1", **kw),
                  lambda: ShotVaeInference(model),
-                 lambda: ShotVaeInference.from_checkpoint(str(path))):
+                 lambda: ShotVaeInference.from_checkpoint(str(path)),
+                 lambda: run_shot_vae(ShotVaeConfig(base_path=base,
+                                                    synthetic_data=True)),
+                 lambda: main(["-bp", base, "--synthetic-data", "--yes"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    assert not os.path.exists(base)  # refused before anything was written
     assert resolve_device("cpu") == torch.device("cpu")
     ShotVaeInference.from_checkpoint(str(path), device="cpu")
 
@@ -191,6 +199,16 @@ def test_chip_smoke_refuses_without_card_or_repo(alone, tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_loop_ab_script_refuses_without_card():
+    """scripts/torch_loop_ab.py exits non-zero here, where torch sees no
+    card, and prints no measurement."""
+    out = subprocess.run([sys.executable, "scripts/torch_loop_ab.py", "1"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0 and "no CUDA card" in out.stderr
+    assert out.stdout == ""
 
 
 def _gumbel_words_from_gaussian_counters(f):
@@ -543,3 +561,48 @@ def test_chip_smoke_bf16_step_check_fails_a_wrong_gradient(wrong,
     with pytest.raises(RuntimeError, match="bf16 card and CPU disagree"):
         chip_smoke.compare_train_step_bf16(torch.device("cpu"), 2)
     assert len(made) == 3
+
+
+# the loop phase at a tiny size: 2 train steps of 16 + 16 on 192 synthetic
+# images, 10 valid and 16 test batches
+_LOOP_CPU = dict(dataset="Cifar10", batch_size=16, net_name="wideresnet-10-1",
+                 ldc=8, synthetic_data=True, synthetic_size=192,
+                 valid_per_class=15, annotated_per_class=10, yes=True,
+                 reconstruct_freq=1, print_freq=100)
+
+
+def _loop_phase(chip_smoke, base):
+    return chip_smoke.loop_phase(
+        torch.device("cpu"), base, dict(_LOOP_CPU, br=True, om=True), 2, 27,
+        dict(_LOOP_CPU, adjust_lr=[0, 1, 2]))
+
+
+def test_chip_smoke_loop_phase_runs_on_cpu(monkeypatch, tmp_path):
+    """chip_smoke.py's loop phase at a tiny size on the CPU, bf16 as on the
+    card: no launch is counted, the epoch's metrics are in range, the
+    checkpoint round trip and the resume are bit-exact."""
+    chip_smoke = _chip_smoke(monkeypatch)
+    out = _loop_phase(chip_smoke, str(tmp_path))
+    epoch = out["epoch"]
+    assert set(epoch["launches"].values()) == {0}
+    assert math.isfinite(epoch["train_loss"]) and epoch["train_s"] > 0
+    assert epoch["tensorboard_live"]
+    assert out["round_trip"]["bit_identical"]
+    assert out["resume"]["bit_identical"] and out["resume"]["ewm"] == 5e-3
+
+
+def test_chip_smoke_loop_phase_fails_a_wrong_launch_count(monkeypatch,
+                                                          tmp_path):
+    """The loop phase fails an epoch whose eval forwards launch the sampler
+    where none is expected (on the CPU, none is)."""
+    from shotvae_torch.models import vae
+    from shotvae_torch.ops.kernels.fused_sample import fused_joint_sample
+
+    def counted(*args, **kwargs):
+        fused_joint_sample.launches += 1
+        return fused_joint_sample(*args, **kwargs)
+
+    chip_smoke = _chip_smoke(monkeypatch)
+    monkeypatch.setattr(vae, "fused_joint_sample", counted)
+    with pytest.raises(RuntimeError, match="the loop's epoch"):
+        _loop_phase(chip_smoke, str(tmp_path))
