@@ -74,7 +74,27 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    equals two straight epochs bit for bit (parameters, buffers, momentum,
    step, history), the ``ewm`` bump before the resume point; the straight
    run writes its second epoch's profile trace (``--profile-dir``).
-8. Print the ``kernels`` JSON line, then the result line
+8. The M2 baseline (``make_m2_train_step``, the path of ``python -m
+   shotvae_torch.cli.main_m2_vae``) with the bf16 trunk at full width: a
+   few train steps at 768 + 768 with every kernel's launches checked
+   (``EXPECTED_M2_TRAIN_LAUNCHES``) and the loss finite; the median and
+   range of 10 steps, unlabeled images/s, one profiled step and the eval
+   step at 768; one step on the card against the same step on the CPU at
+   16 + 16 with every draw injected and the crops and flips replayed, in
+   f32 (the tolerances of phase 5) and in bf16 (those of phase 6); then one
+   bf16 epoch of ``run_shot_vae(m2=True)`` on the 50,000 synthetic images
+   (58 steps, 25 eval forwards) with its launches exactly the step's and
+   the eval step's multiples, and nothing written outside
+   ``Cifar10-M2-VAE``.
+9. The supervised classifier (``make_classifier_train_step``, the path of
+   ``python -m shotvae_torch.cli.main_classifier``), the same at 768
+   labeled: step times and labeled images/s, the eval step, the card
+   against the CPU at 16 in f32 and bf16, and one epoch of
+   ``run_classifier`` (4,000 labeled images: 6 steps, then 7 valid and 17
+   test forwards) with its launches checked, nothing written outside
+   ``Cifar10-SSL-Classifier``.
+10. Print the ``kernels`` JSON line (each kernel's launches on every path,
+   the M2 and classifier paths included), then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits with an error, printing no result, where torch sees no card or where
@@ -140,6 +160,11 @@ ULP_BF16 = 2.0 ** -7  # one bf16 ulp, relative, at most: a bf16 output of the
 # distance between its bf16 and its f32 step on the same inputs)
 BF16_FACTOR = 3.0
 BF16_FLOOR = 1e-3
+# ... the CPU's distance taken as its largest over the step's inputs and
+# two more, for the M2 and classifier steps (the SHOT-VAE check takes
+# one): a scalar's bf16 rounding lands far under its usual size on some
+# inputs
+BF16_CALIBRATION_DRAWS = 3
 TRAIN_STEPS = 3    # counted train steps at full batch
 COMPARE_BATCH = 16  # per stream, for the card-against-CPU step
 # (M, C, slope, BN sites per forward, backward launches per train step) of
@@ -184,6 +209,25 @@ EXPECTED_EVAL_LAUNCHES = {"fused_bn_act_conv": 22, "bn_act_inference": 11,
                           "fused_joint_sample": 1, "bn_stats": 0,
                           "bn_apply": 0, "bn_bwd_reduce": 0,
                           "bn_bwd_apply": 0}
+# kernel launches per M2 train step at WRN-28-2: two forwards (the labeled
+# one with its labels' one-hots, the unlabeled one with the draw), both
+# reconstructions in the loss, so all 33 BN sites of each get a gradient
+EXPECTED_M2_TRAIN_LAUNCHES = {"fused_bn_act_conv": 44, "bn_act_inference": 0,
+                              "fused_joint_sample": 0, "bn_stats": 66,
+                              "bn_apply": 66, "bn_bwd_reduce": 66,
+                              "bn_bwd_apply": 66}
+# per classifier train step: one encoder forward and backward (22 fused
+# sites, 28 BN sites, each with a gradient); per eval step: the encoder in
+# eval mode, as ``classify``
+EXPECTED_CLS_TRAIN_LAUNCHES = {"fused_bn_act_conv": 22,
+                               "bn_act_inference": 0,
+                               "fused_joint_sample": 0, "bn_stats": 28,
+                               "bn_apply": 28, "bn_bwd_reduce": 28,
+                               "bn_bwd_apply": 28}
+EXPECTED_CLS_EVAL_LAUNCHES = {"fused_bn_act_conv": 22, "bn_act_inference": 6,
+                              "fused_joint_sample": 0, "bn_stats": 0,
+                              "bn_apply": 0, "bn_bwd_reduce": 0,
+                              "bn_bwd_apply": 0}
 # the loop's epoch at the headline configuration on 50,000 synthetic
 # CIFAR-10 images: 500 valid and 400 labeled images per class, 45,000
 # unlabeled, so 45,000 // 768 = 58 train steps; then eval forwards over
@@ -195,6 +239,15 @@ LOOP_CONFIG = dict(dataset="Cifar10", net_name="wideresnet-28-2",
                    yes=True)
 LOOP_STEPS = 58
 LOOP_EVAL_FORWARDS = 25
+# the classifier's epoch on the same data: its 4,000 labeled images at
+# batch 768, ceil(4,000 / 768) = 6 steps, then 7 valid and 17 test batches
+CLS_LOOP_STEPS = 6
+CLS_LOOP_EVAL_FORWARDS = 24
+# per path: the launches of one train step and of one eval forward
+PATHS = {"shot": (EXPECTED_TRAIN_LAUNCHES, EXPECTED_EVAL_LAUNCHES),
+         "m2": (EXPECTED_M2_TRAIN_LAUNCHES, EXPECTED_EVAL_LAUNCHES),
+         "classifier": (EXPECTED_CLS_TRAIN_LAUNCHES,
+                        EXPECTED_CLS_EVAL_LAUNCHES)}
 # the resume check's size: the JAX tests' _tiny_cfg
 # (tests/test_loops_e2e.py:25-33) in bf16, the ewm bump at epoch 0
 RESUME_CONFIG = dict(dataset="Cifar10", batch_size=64,
@@ -577,18 +630,12 @@ def sample_phase(dev, batch: int):
 # ----------------------------------------------------------------- phase 3
 
 
-def random_model(device: str, dtype=None):
-    """A full-width WRN-28-2 SHOT-VAE with seeded random weights and BN
-    statistics (the same for every ``dtype``, the trunk's compute dtype)."""
+def _randomize_bn(model):
+    """Seeded random BN affines and running statistics, in place."""
     import torch
 
     from shotvae_torch.models.layers import BatchNorm
-    from shotvae_torch.models.vae import VariationalAutoEncoder
 
-    torch.manual_seed(SEED)
-    model = VariationalAutoEncoder("wideresnet-28-2", continuous_latent_dim=128,
-                                   disc_latent_dim=10, device=device,
-                                   dtype=dtype)
     g = torch.Generator().manual_seed(SEED + 3)
     with torch.no_grad():
         for m in model.modules():
@@ -599,6 +646,34 @@ def random_model(device: str, dtype=None):
                 m.running_mean.copy_(torch.randn(c, generator=g) * 0.1)
                 m.running_var.copy_(torch.rand(c, generator=g) + 0.5)
     return model
+
+
+def random_model(device: str, dtype=None):
+    """A full-width WRN-28-2 SHOT-VAE with seeded random weights and BN
+    statistics (the same for every ``dtype``, the trunk's compute dtype)."""
+    import torch
+
+    from shotvae_torch.models.vae import VariationalAutoEncoder
+
+    torch.manual_seed(SEED)
+    return _randomize_bn(VariationalAutoEncoder(
+        "wideresnet-28-2", continuous_latent_dim=128, disc_latent_dim=10,
+        device=device, dtype=dtype))
+
+
+def random_classifier(device: str, dtype=None):
+    """A full-width WRN-28-2 classifier (K 10) with the trainer's explicit
+    init from seeds and seeded random BN statistics (the same for every
+    ``dtype``)."""
+    import torch
+
+    from shotvae_torch.models.classifier import (WideResNetClassifier,
+                                                 apply_classifier_init)
+
+    torch.manual_seed(SEED)
+    model = WideResNetClassifier(28, 2, 10, device=device, dtype=dtype)
+    apply_classifier_init(model, torch.Generator().manual_seed(SEED + 7))
+    return _randomize_bn(model)
 
 
 def end_to_end(batch: int, kernels):
@@ -924,27 +999,63 @@ def kernel_counters() -> dict:
             "bn_bwd_apply": bl.bn_bwd_apply}
 
 
-def trainer(model):
+def _sgd_state(model, cfg, steps_per_epoch: int):
+    """SGD over ``model`` with ``cfg``'s LR, weight decay and milestones."""
+    from shotvae_torch.ops.schedules import multistep_lr
+    from shotvae_torch.train.state import TrainState, sgd_torch
+
+    opt = sgd_torch(model, lr=cfg.lr, weight_decay=cfg.wd)
+    return TrainState(model, opt, multistep_lr(cfg.lr, cfg.adjust_lr,
+                                               steps_per_epoch))
+
+
+def trainer(model, m2: bool = False):
     """The headline configuration's train step over ``model`` (CIFAR-10,
     ``--br --om``, SGD with the multistep LR at CIFAR-10's 45,000 train
-    images per epoch, the epoch-0 loss weights)."""
+    images per epoch, the epoch-0 loss weights); with ``m2`` the M2
+    baseline's step (no mixup, M2's cmi)."""
     from shotvae_torch.config import ShotVaeConfig
-    from shotvae_torch.ops.schedules import (multistep_lr,
-                                             shot_vae_epoch_schedules)
-    from shotvae_torch.train.state import TrainState, sgd_torch
-    from shotvae_torch.train.steps import make_shot_vae_train_step
+    from shotvae_torch.ops.schedules import shot_vae_epoch_schedules
+    from shotvae_torch.train.steps import (make_m2_train_step,
+                                           make_shot_vae_train_step)
 
-    cfg = ShotVaeConfig(br=True, om=True)
-    spec = cfg.apply_dataset_overrides()
-    opt = sgd_torch(model, lr=cfg.lr, weight_decay=cfg.wd)
-    steps_per_epoch = (50000 - spec.valid_per_class * spec.num_classes) \
-        // cfg.batch_size
-    state = TrainState(model, opt, multistep_lr(cfg.lr, cfg.adjust_lr,
-                                                steps_per_epoch))
-    step = make_shot_vae_train_step(
-        model, opt, num_classes=spec.num_classes, bce=cfg.br,
-        x_sigma=cfg.x_sigma, epsilon=cfg.epsilon, optimal_match=cfg.om)
+    cfg = ShotVaeConfig(br=True, om=not m2)
+    spec = cfg.apply_dataset_overrides(m2=m2)
+    state = _sgd_state(model, cfg, (50000 - spec.valid_per_class
+                                    * spec.num_classes) // cfg.batch_size)
+    kw = dict(num_classes=spec.num_classes, bce=cfg.br, x_sigma=cfg.x_sigma)
+    step = (make_m2_train_step(model, state.optimizer, **kw) if m2 else
+            make_shot_vae_train_step(model, state.optimizer,
+                                     epsilon=cfg.epsilon,
+                                     optimal_match=cfg.om, **kw))
     return state, step, shot_vae_epoch_schedules(0, cfg)
+
+
+def m2_trainer(model):
+    """The M2 baseline's train step over ``model`` (``trainer``'s)."""
+    return trainer(model, m2=True)
+
+
+def classifier_trainer(model):
+    """The classifier's train step over ``model`` (SGD with its multistep
+    LR at CIFAR-10's 4,000 labeled images, 6 steps an epoch); no loss
+    schedule (None)."""
+    from shotvae_torch.config import ClassifierConfig
+    from shotvae_torch.train.steps import make_classifier_train_step
+
+    state = _sgd_state(model, ClassifierConfig(), CLS_LOOP_STEPS)
+    return state, make_classifier_train_step(model, state.optimizer), None
+
+
+def _trainer(kind: str):
+    """The step factory of a path, looked up when called."""
+    return {"shot": trainer, "m2": m2_trainer,
+            "classifier": classifier_trainer}[kind]
+
+
+def _model(kind: str):
+    """The seeded full-width model of a path."""
+    return random_classifier if kind == "classifier" else random_model
 
 
 def _state_errors(got, want, tol: float) -> float:
@@ -976,41 +1087,51 @@ def one_ulp_apart(model):
     return other
 
 
-def step_inputs(batch: int):
-    """Seeded uint8 images and labels of both streams, and every draw of
-    one train step at ``batch`` + ``batch`` (the ``inject`` dict)."""
+def step_inputs(batch: int, kind: str = "shot", draw: int = 0):
+    """Seeded uint8 images and labels of both streams (the classifier: the
+    labeled one), and every draw of one train step of the path ``kind`` at
+    ``batch`` (+ ``batch``) (the ``inject`` dict); ``draw`` above 0 seeds
+    other ones."""
     import numpy as np
     import torch
 
-    rng = np.random.default_rng(SEED + 10)
+    rng = np.random.default_rng([SEED + 10, draw] if draw else SEED + 10)
     t = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
-    inject = {f"eps_{i}": t(rng.standard_normal((batch, 128), np.float32))
-              for i in range(1, 5)}
-    inject.update({f"unif_{i}": t(rng.random((batch, 10), np.float32))
-                   for i in (3, 4)})
-    inject.update(lam_sm=float(rng.beta(0.1, 0.1)),
-                  perm_sm=t(rng.permutation(batch)),
-                  lam_mx=float(rng.beta(2.0, 2.0)),
-                  perm_mx=t(rng.permutation(batch)))
-    for s in ("l", "u"):
-        inject[f"aug_{s}"] = (t(rng.integers(0, 9, batch)),
-                              t(rng.integers(0, 9, batch)),
-                              t(rng.random(batch) < 0.5))
+    if kind == "shot":
+        inject = {f"eps_{i}": t(rng.standard_normal((batch, 128), np.float32))
+                  for i in range(1, 5)}
+        inject.update({f"unif_{i}": t(rng.random((batch, 10), np.float32))
+                       for i in (3, 4)})
+        inject.update(lam_sm=float(rng.beta(0.1, 0.1)),
+                      perm_sm=t(rng.permutation(batch)),
+                      lam_mx=float(rng.beta(2.0, 2.0)),
+                      perm_mx=t(rng.permutation(batch)))
+    elif kind == "m2":
+        inject = {f"eps_{i}": t(rng.standard_normal((batch, 128), np.float32))
+                  for i in (1, 2)}
+        inject["unif_2"] = t(rng.random((batch, 10), np.float32))
+    else:
+        inject = {}
+    streams = ("",) if kind == "classifier" else ("_l", "_u")
+    for s in streams:
+        inject[f"aug{s}"] = (t(rng.integers(0, 9, batch)),
+                             t(rng.integers(0, 9, batch)),
+                             t(rng.random(batch) < 0.5))
     images = [t(rng.integers(0, 256, (batch, 32, 32, 3), dtype=np.uint8))
-              for _ in range(2)]
-    labels = [t(rng.integers(0, 10, batch)) for _ in range(2)]
-    return images[0], labels[0], images[1], labels[1], inject
+              for _ in streams]
+    labels = [t(rng.integers(0, 10, batch)) for _ in streams]
+    return (*[x for pair in zip(images, labels) for x in pair], inject)
 
 
-def train_once(model, inputs):
+def train_once(model, inputs, kind: str = "shot"):
     """One train step of ``model`` on ``step_inputs``: its metrics, each
     parameter's gradient on the CPU, and the state after it."""
     import torch
 
-    state, step, sched = trainer(model)
+    state, step, sched = _trainer(kind)(model)
     *data, inject = inputs
-    metrics = step(state, *data, sched, torch.Generator().manual_seed(SEED),
-                   inject)
+    args = data if sched is None else [*data, sched]
+    metrics = step(state, *args, torch.Generator().manual_seed(SEED), inject)
     params = dict(model.named_parameters())
     check(all(p.grad is not None for p in params.values()),
           "a parameter got no gradient")
@@ -1018,9 +1139,10 @@ def train_once(model, inputs):
             model.state_dict())
 
 
-def compare_train_step(dev, batch: int):
-    """One train step of the same model on ``dev`` and on the CPU at
-    ``batch`` + ``batch``, every draw injected and the crops and flips
+def compare_train_step(dev, batch: int, kind: str = "shot"):
+    """One train step of the path ``kind`` (``"shot"``, ``"m2"`` or
+    ``"classifier"``) of the same model on ``dev`` and on the CPU at
+    ``batch`` (+ ``batch``), every draw injected and the crops and flips
     replayed. Holds the metrics, each parameter's gradient (the step moves
     a parameter by a few hundredths of its size, so the parameters after it
     would hide a wrong gradient), then the parameters and running
@@ -1032,12 +1154,12 @@ def compare_train_step(dev, batch: int):
     tolerance that a gradient used and the largest one-ulp spread."""
     import torch
 
-    cpu_model = random_model("cpu")
+    cpu_model = _model(kind)("cpu")
     dev_model = copy.deepcopy(cpu_model).to(dev)
     ulp_model = one_ulp_apart(cpu_model)
-    inputs = step_inputs(batch)
+    inputs = step_inputs(batch, kind)
     (m_dev, g_dev, sd_dev), (m_cpu, g_cpu, sd_cpu), (_, g_ulp, _) = [
-        train_once(model, inputs)
+        train_once(model, inputs, kind)
         for model in (dev_model, cpu_model, ulp_model)]
     metric_err = max(max_err(m_dev[k].cpu(), m_cpu[k], TOL_STEP,
                              what=f"train step metric {k}") for k in m_cpu)
@@ -1064,10 +1186,11 @@ VS_CPU_KEYS = ("metrics_max_abs_err", "grad_max_rel_err",
                "state_max_abs_err")
 
 
-def step_times(dev, run, batch: int, suffix: str) -> dict:
+def step_times(dev, run, batch: int, suffix: str,
+               images: str = "unlabeled") -> dict:
     """Wall time of 10 single steps after 2 more, each ending in a device
-    synchronise: the median and the range, and unlabeled images/s at the
-    median."""
+    synchronise: the median and the range, and ``images`` (``unlabeled``
+    or, for the classifier, ``labeled``) images/s at the median."""
     reps = 10
     for _ in range(2):
         run()
@@ -1082,7 +1205,7 @@ def step_times(dev, run, batch: int, suffix: str) -> dict:
     median = (times[(reps - 1) // 2] + times[reps // 2]) / 2
     return {f"step_ms{suffix}": median,
             f"step_ms_range{suffix}": [times[0], times[-1]],
-            f"unlabeled_images_per_s{suffix}": batch / median * 1e3}
+            f"{images}_images_per_s{suffix}": batch / median * 1e3}
 
 
 def zero_counts(counters) -> None:
@@ -1117,29 +1240,46 @@ def check_counts(counters, dtype, expected: dict, what: str) -> dict:
     return got
 
 
-def train_phase(dev, batch: int, steps: int = TRAIN_STEPS, dtype=None):
-    """The training main path on ``dev`` with the trunk in ``dtype`` (None:
-    float32): ``steps`` SHOT-VAE train steps at ``batch`` + ``batch`` with
-    every kernel's launches counted, then step times, one profiled step,
-    the eval step, and one step held against the CPU. On the CPU no wrapper
-    launches a kernel: every count must be 0."""
+def train_phase(dev, batch: int, steps: int = TRAIN_STEPS, dtype=None,
+                kind: str = "shot"):
+    """A training main path on ``dev`` with the trunk in ``dtype`` (None:
+    float32): ``kind`` ``"shot"`` (the SHOT-VAE), ``"m2"`` or
+    ``"classifier"``. ``steps`` train steps at ``batch`` (+ ``batch``
+    unlabeled, but for the classifier) with every kernel's launches
+    counted, then step times, one profiled step, the eval step, and one
+    step held against the CPU: the SHOT-VAE's in the trunk's dtype, the
+    baselines' in f32 (``vs_cpu``) and in bf16 (``vs_cpu_bf16``). On the
+    CPU no wrapper launches a kernel: every count must be 0."""
     import torch
 
-    from shotvae_torch.train.steps import make_vae_eval_step
+    from shotvae_torch.train.steps import (make_classifier_eval_step,
+                                           make_vae_eval_step)
 
+    expected_train, expected_eval = PATHS[kind]
     counters = kernel_counters()
     cuda = dev.type == "cuda"
     bf16 = dtype == torch.bfloat16
-    model = random_model(dev.type, dtype)
-    state, step, sched = trainer(model)
+    model = _model(kind)(dev.type, dtype)
+    state, step, sched = _trainer(kind)(model)
     g = torch.Generator().manual_seed(SEED + 9)
+    weight = torch.ones(batch, device=dev)
     data = [torch.randint(0, 256, (batch, 32, 32, 3), generator=g,
                           dtype=torch.uint8).to(dev),
-            (torch.arange(batch) % 10).to(dev),
-            torch.randint(0, 256, (batch, 32, 32, 3), generator=g,
-                          dtype=torch.uint8).to(dev),
-            torch.randint(0, 10, (batch,), generator=g).to(dev)]
-    run = lambda: step(state, *data, sched, g)  # noqa: E731
+            (torch.arange(batch) % 10).to(dev)]
+    if kind == "classifier":
+        run = lambda: step(state, *data, g)  # noqa: E731
+        evaluate = make_classifier_eval_step(model, num_classes=10)
+        eval_run = lambda: (evaluate(data[0], data[1], weight),  # noqa: E731
+                            None)
+    else:
+        data += [torch.randint(0, 256, (batch, 32, 32, 3), generator=g,
+                               dtype=torch.uint8).to(dev),
+                 torch.randint(0, 10, (batch,), generator=g).to(dev)]
+        run = lambda: step(state, *data, sched, g)  # noqa: E731
+        evaluate = make_vae_eval_step(model, num_classes=10, bce=True,
+                                      x_sigma=1.0)
+        eval_run = lambda: evaluate(data[2], data[3], weight,  # noqa: E731
+                                    generator=g)
     run()  # compiles every kernel variant the step needs
     _sync(dev)
 
@@ -1148,14 +1288,15 @@ def train_phase(dev, batch: int, steps: int = TRAIN_STEPS, dtype=None):
     _sync(dev)
     launches = check_counts(
         counters, dtype, {name: n * steps if cuda else 0
-                          for name, n in EXPECTED_TRAIN_LAUNCHES.items()},
-        "train steps")
+                          for name, n in expected_train.items()},
+        f"{kind} train steps")
     for m in metrics:
         check(all(bool(torch.isfinite(v)) for v in m.values()),
-              f"non-finite train metrics {m}")
+              f"non-finite {kind} train metrics {m}")
     last = {k: float(v) for k, v in metrics[-1].items()}
 
-    timing = step_times(dev, run, batch, "")
+    timing = step_times(dev, run, batch, "", "labeled" if kind == "classifier"
+                        else "unlabeled")
     profile = device_breakdown(run, top=12) if cuda else None
     profile_tf32 = None
     if cuda and not bf16:
@@ -1167,33 +1308,36 @@ def train_phase(dev, batch: int, steps: int = TRAIN_STEPS, dtype=None):
         profile_tf32 = device_breakdown(run, top=12)
         torch.backends.cudnn.allow_tf32 = False
 
-    evaluate = make_vae_eval_step(model, num_classes=10, bce=True,
-                                  x_sigma=1.0)
-    weight = torch.ones(batch, device=dev)
-    eval_run = lambda: evaluate(data[2], data[3], weight,  # noqa: E731
-                                generator=g)
     zero_counts(counters)
     eval_metrics, recon = eval_run()
     _sync(dev)
     eval_launches = check_counts(
         counters, dtype, {name: n if cuda else 0
-                          for name, n in EXPECTED_EVAL_LAUNCHES.items()},
-        "eval step")
+                          for name, n in expected_eval.items()},
+        f"{kind} eval step")
     if bf16:  # the f32 sampler's launch under the bf16 trunk
         eval_launches["fused_joint_sample"] = read_counts(
             counters, torch.float32)["fused_joint_sample"]
-    check(recon.shape == (batch, 32, 32, 3)
+    check((recon is None or recon.shape == (batch, 32, 32, 3))
           and float(eval_metrics["count"]) == batch
           and all(bool(torch.isfinite(v)) for v in eval_metrics.values()),
-          "eval step gave a wrong shape, count or a non-finite metric")
+          f"{kind} eval step gave a wrong shape, count or a non-finite "
+          f"metric")
     timing["eval_step_ms"] = host_ms(dev, eval_run)
 
     n = min(COMPARE_BATCH, batch)
-    vs_cpu = (compare_train_step_bf16(dev, n) if bf16
-              else dict(zip(VS_CPU_KEYS, compare_train_step(dev, n))))
-    return dict(launches=launches, eval_launches=eval_launches,
-                last_metrics=last, timing=timing, profile=profile,
-                profile_cudnn_tf32=profile_tf32, vs_cpu=vs_cpu)
+    out = dict(launches=launches, eval_launches=eval_launches,
+               last_metrics=last, timing=timing, profile=profile,
+               profile_cudnn_tf32=profile_tf32)
+    if kind == "shot":
+        out["vs_cpu"] = (compare_train_step_bf16(dev, n) if bf16 else dict(
+            zip(VS_CPU_KEYS, compare_train_step(dev, n))))
+    else:
+        out["vs_cpu"] = dict(zip(VS_CPU_KEYS,
+                                 compare_train_step(dev, n, kind)))
+        out["vs_cpu_bf16"] = compare_train_step_bf16(
+            dev, n, kind, BF16_CALIBRATION_DRAWS)
+    return out
 
 
 def _dist(a, b) -> float:
@@ -1201,27 +1345,32 @@ def _dist(a, b) -> float:
                   - b.detach().cpu().double()).abs().max())
 
 
-def compare_train_step_bf16(dev, batch: int) -> dict:
-    """One bf16 train step of the same model on ``dev`` and on the CPU at
-    ``batch`` + ``batch``, every draw injected and the crops and flips
-    replayed, calibrated in the same run: the CPU also takes the f32 step
-    on the same inputs, and each metric, gradient, parameter update and
-    running statistic of the card's bf16 step must lie within
-    max(BF16_FLOOR x its largest value, BF16_FACTOR x the CPU's own
-    distance between its bf16 and its f32 step), max abs. The step at
+def compare_train_step_bf16(dev, batch: int, kind: str = "shot",
+                            draws: int = 1) -> dict:
+    """One bf16 train step of the path ``kind`` of the same model on
+    ``dev`` and on the CPU at ``batch`` (+ ``batch``), every draw injected
+    and the crops and flips replayed, calibrated in the same run: the CPU
+    also takes the f32 step on the same inputs, and each metric, gradient,
+    parameter update and running statistic of the card's bf16 step must
+    lie within max(BF16_FLOOR x its largest value, BF16_FACTOR x the CPU's
+    own distance between its bf16 and its f32 step), max abs. The step at
     random weights is chaotic: one bf16 rounding that flips between the
     card and the CPU moves it about as far as bf16 moves it from f32, hence
     the factor; a zeroed, swapped or cut gradient is off by the gradient
-    itself. Returns the worst share of its tolerance that a tensor used,
-    which tensor, and the two distances relative to each tensor's largest
-    value."""
+    itself. With ``draws`` above 1 the CPU's distance is its largest over
+    the step's inputs and ``draws - 1`` more (other seeded images, labels
+    and draws): the distance of a scalar such as a discrete KL near 0 is
+    one sample of its bf16 rounding, and lands far under its size on some
+    inputs by chance. Returns the worst share of its tolerance that a
+    tensor used, which tensor, and the two distances relative to each
+    tensor's largest value."""
     import torch
 
-    cpu16 = random_model("cpu", torch.bfloat16)
+    cpu16 = _model(kind)("cpu", torch.bfloat16)
     dev16 = copy.deepcopy(cpu16).to(dev)
-    cpu32 = random_model("cpu")
+    cpu32 = _model(kind)("cpu")
     before = {n: p.detach().clone() for n, p in cpu16.named_parameters()}
-    inputs = step_inputs(batch)
+    inputs = step_inputs(batch, kind)
 
     def flat(run):
         metrics, grads, sd = run
@@ -1234,11 +1383,17 @@ def compare_train_step_bf16(dev, batch: int) -> dict:
                     and not k.endswith("num_batches_tracked")})
         return out
 
-    got, want, f32 = [flat(train_once(m, inputs))
+    got, want, f32 = [flat(train_once(m, inputs, kind))
                       for m in (dev16, cpu16, cpu32)]
+    spread = {k: _dist(w, f32[k]) for k, w in want.items()}
+    for d in range(1, draws):
+        more = step_inputs(batch, kind, draw=d)
+        a, b = [flat(train_once(_model(kind)("cpu", dtype), more, kind))
+                for dtype in (torch.bfloat16, None)]
+        spread = {k: max(v, _dist(a[k], b[k])) for k, v in spread.items()}
     worst, worst_key, errs, own = 0.0, "", [], []
     for k, w in want.items():
-        e, d = _dist(got[k], w), _dist(w, f32[k])
+        e, d = _dist(got[k], w), spread[k]
         tol = max(BF16_FLOOR * float(w.detach().abs().max()), BF16_FACTOR * d)
         check(bool(torch.isfinite(got[k]).all()) and e <= tol,
               f"bf16 card and CPU disagree on {k}: {e:.3e} max abs, beyond "
@@ -1248,8 +1403,8 @@ def compare_train_step_bf16(dev, batch: int) -> dict:
             worst, worst_key = share, k
         errs.append(e / max(float(w.detach().abs().max()), 1e-30))
         own.append(d / max(float(w.detach().abs().max()), 1e-30))
-    return dict(tensors=len(want), worst_share_of_tol=worst,
-                worst_tensor=worst_key,
+    return dict(tensors=len(want), calibration_draws=draws,
+                worst_share_of_tol=worst, worst_tensor=worst_key,
                 rel_err_max=max(errs), rel_err_median=statistics.median(errs),
                 cpu_bf16_vs_f32_rel_max=max(own),
                 cpu_bf16_vs_f32_rel_median=statistics.median(own))
@@ -1396,6 +1551,68 @@ def loop_phase(dev, base: str, config: dict, steps: int, eval_forwards: int,
     return dict(epoch=epoch, round_trip=round_trip, resume=resume)
 
 
+# ------------------------------------------------------------ phases 8, 9
+
+
+def baseline_loop_phase(dev, base: str, kind: str, config: dict, steps: int,
+                        eval_forwards: int) -> dict:
+    """One epoch of ``run_shot_vae(m2=True)`` or ``run_classifier`` of
+    ``config`` on ``dev`` under ``base``: ``steps`` train steps and
+    ``eval_forwards`` eval forwards, whose launches are checked; its run
+    folder is the path's own and no other trainer's."""
+    import torch
+
+    from shotvae_torch.config import ClassifierConfig, ShotVaeConfig
+    from shotvae_torch.train.loop import run_classifier, run_shot_vae
+
+    log = lambda *a: print(f"  {kind} loop:", *a)  # noqa: E731
+    expected_train, expected_eval = PATHS[kind]
+    counters = kernel_counters()
+    cuda = dev.type == "cuda"
+    if kind == "classifier":
+        cfg = ClassifierConfig(base_path=base, **config)
+        train = lambda: run_classifier(cfg, max_epochs=1,  # noqa: E731
+                                       log_fn=log, device=dev)
+        folder = f"{cfg.dataset}-SSL-Classifier"
+    else:
+        cfg = ShotVaeConfig(base_path=base, **config)
+        train = lambda: run_shot_vae(cfg, m2=True, max_epochs=1,  # noqa: E731
+                                     log_fn=log, device=dev)
+        folder = f"{cfg.dataset}-M2-VAE"
+    dtype = cfg.compute_dtype()
+    zero_counts(counters)
+    out = train()
+    _sync(dev)
+    launches = check_counts(
+        counters, dtype,
+        {name: (steps * n + eval_forwards * expected_eval[name] if cuda
+                else 0) for name, n in expected_train.items()},
+        f"the {kind} loop's epoch ({steps} steps, {eval_forwards} eval "
+        f"forwards)")
+    if dtype == torch.bfloat16:  # the f32 sampler under the bf16 trunk
+        launches["fused_joint_sample"] = read_counts(
+            counters, torch.float32)["fused_joint_sample"]
+    (h,) = out["history"]
+    check(math.isfinite(h["train_loss"])
+          and 0.0 <= h["valid_top1"] <= 1.0 and 0.0 <= h["test_top1"] <= 1.0,
+          f"the {kind} loop's epoch gave {h}")
+    check(os.listdir(base) == [folder], f"the {kind} loop wrote "
+          f"{os.listdir(base)}, not only {folder}")
+    times = out["epoch_times"][0]
+    images, batch = "unlabeled", cfg.batch_size
+    if kind == "classifier":
+        spec = cfg.apply_dataset_overrides()
+        images, batch = "labeled", min(
+            batch, spec.annotated_per_class * spec.num_classes)
+    return {"launches": launches,
+            "epoch_s": times["train_s"] + times["eval_s"],
+            "train_s": times["train_s"], "eval_s": times["eval_s"],
+            "train_steps": steps, "eval_forwards": eval_forwards,
+            f"{images}_images_per_s": steps * batch / times["train_s"],
+            "train_loss": h["train_loss"], "valid_top1": h["valid_top1"],
+            "test_top1": h["test_top1"]}
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -1464,12 +1681,24 @@ def summarize(name, route, source, replaces, bound_by, rows, err, launches,
                 launches_per_unit=sum(r["launches"] for r in rows))
 
 
-def bf16_entries(bf16: dict, loop_launches: dict) -> list:
+def baseline_paths(baselines: dict) -> dict:
+    """{path: the bf16 launches of each kernel}: the M2 and classifier
+    train steps, eval steps and epochs."""
+    out = {}
+    for kind, res in baselines.items():
+        out[f"{kind}_train_bf16"] = res["launches"]
+        out[f"{kind}_eval_bf16"] = res["eval_launches"]
+        out[f"{kind}_loop_bf16"] = res["loop"]["launches"]
+    return out
+
+
+def bf16_entries(bf16: dict, loop_launches: dict, paths: dict) -> list:
     """The bf16 kernels' entries: the bn_leaky kernels per train step, the
     eval kernel and the fused conv per eval step (one encoder forward),
-    each with its launches on the bf16 train and eval paths and in the
-    loop's epoch (``loop_launches``), and its weights checked against the
-    train and eval paths."""
+    each with its launches on the bf16 train and eval paths, in the
+    loop's epoch (``loop_launches``) and on the M2 and classifier
+    ``paths``, and its weights checked against the train and eval
+    paths."""
     train = bf16["train"]
     bn_rows, bn_err = bf16["bn_leaky_train"]
     step = f"train step at {BATCH} + {BATCH}"
@@ -1499,6 +1728,7 @@ def bf16_entries(bf16: dict, loop_launches: dict) -> list:
         by_path = {"train_bf16": train["launches"][name],
                    "eval_bf16": train["eval_launches"][name],
                    "loop_bf16": loop_launches[name]}
+        by_path.update({path: c[name] for path, c in paths.items()})
         check(sum(by_path.values()) > 0, f"{name} bf16 never launched on "
               f"the main path")
         entry.update(launches=sum(by_path.values()),
@@ -1614,6 +1844,31 @@ def main() -> int:
     print("loop_checkpoint_round_trip " + json.dumps(loop["round_trip"]))
     print("loop_resume_vs_straight " + json.dumps(loop["resume"]))
     print(f"loop phase {time.perf_counter() - t0:.1f} s")
+    baselines = {}
+    for kind, steps, forwards in (("m2", LOOP_STEPS, LOOP_EVAL_FORWARDS),
+                                  ("classifier", CLS_LOOP_STEPS,
+                                   CLS_LOOP_EVAL_FORWARDS)):
+        t0 = time.perf_counter()
+        out = baselines[kind] = train_phase(dev, BATCH, dtype=torch.bfloat16,
+                                            kind=kind)
+        for key in ("launches", "eval_launches", "last_metrics", "timing",
+                    "profile"):
+            print(f"{kind}_train_bf16_{key}_at_batch_{BATCH} "
+                  + json.dumps(out[key]))
+        print(f"{kind}_train_step_vs_cpu_at_{COMPARE_BATCH} "
+              + json.dumps(out["vs_cpu"]))
+        print(f"{kind}_train_bf16_step_vs_cpu_at_{COMPARE_BATCH} "
+              + json.dumps(out["vs_cpu_bf16"]))
+        base = tempfile.mkdtemp(prefix=f"{kind}_",
+                                dir=os.path.join(ROOT, "build"))
+        try:
+            out["loop"] = baseline_loop_phase(dev, base, kind, LOOP_CONFIG,
+                                              steps, forwards)
+        finally:
+            shutil.rmtree(base, ignore_errors=True)
+        print(f"{kind}_loop_epoch_at_batch_{BATCH} "
+              + json.dumps(out["loop"]))
+        print(f"{kind} phase {time.perf_counter() - t0:.1f} s")
     conv_train = sum(r["launches"] for r in conv_bwd_rows)
     check(conv_train * TRAIN_STEPS == train["launches"]["fused_bn_act_conv"],
           f"the fused conv backward rows weigh {conv_train} launches per "
@@ -1666,11 +1921,16 @@ def main() -> int:
     sampler = entries[2]
     sampler["launches_by_path"]["eval_bf16_trunk"] = \
         bf16["train"]["eval_launches"]["fused_joint_sample"]
-    # and 25 times in the loop's bf16 epoch
+    # and 25 times in the loop's bf16 epoch; so in M2's eval step and
+    # epoch
     sampler["launches_by_path"]["loop_bf16_trunk"] = \
         loop["epoch"]["launches"]["fused_joint_sample"]
+    paths = baseline_paths(baselines)
+    for path, counts in paths.items():
+        if path.startswith("m2"):
+            sampler["launches_by_path"][path] = counts["fused_joint_sample"]
     sampler["launches"] = sum(sampler["launches_by_path"].values())
-    entries += bf16_entries(bf16, loop["epoch"]["launches"])
+    entries += bf16_entries(bf16, loop["epoch"]["launches"], paths)
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

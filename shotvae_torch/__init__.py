@@ -5,10 +5,12 @@ against; nothing here imports it, nor JAX. It covers eval-mode serving of
 the SHOT-VAE (``shotvae_torch.api.ShotVaeInference``), its training step
 and eval step (``shotvae_torch.train.steps``) and the training loop around
 them (``shotvae_torch.train.loop``, ``python -m
-shotvae_torch.cli.main_shot_vae``): the WRN encoder, the DCGAN decoder, the
-latent draw, losses, mixup, schedules, augmentation, the datasets resident
-on the card, checkpoints and TensorBoard logging, with hand-written Hopper
-kernels on the path (``shotvae_torch.ops.kernels``).
+shotvae_torch.cli.main_shot_vae``), the M2 and supervised-classifier
+baselines (``python -m shotvae_torch.cli.main_m2_vae``, ``python -m
+shotvae_torch.cli.main_classifier``): the WRN encoder and classifier, the
+DCGAN decoder, the latent draw, losses, mixup, schedules, augmentation, the
+datasets resident on the card, checkpoints and TensorBoard logging, with
+hand-written Hopper kernels on the path (``shotvae_torch.ops.kernels``).
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; on the CPU each kernel wrapper runs its plain PyTorch

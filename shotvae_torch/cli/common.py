@@ -8,7 +8,7 @@ parallelism), the parsed-but-unused ``-ei`` / ``--resume-arg`` and the
 extensions grouped at the end. Flags of parts the port does not have yet
 parse, then raise ``NotImplementedError`` naming their ROADMAP.md item
 (``shotvae_torch.train.loop.refuse_unported``; ``--multihost`` in
-``main_shot_vae.main``).
+``parse_args``).
 """
 
 from __future__ import annotations
@@ -178,6 +178,15 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                              "label-smoothing partners over the GLOBAL batch "
                              "(not ported yet: raises)")
     return parser
+
+
+def parse_args(parser: argparse.ArgumentParser, argv=None):
+    """``parser.parse_args(argv)``, refusing ``--multihost``."""
+    args = parser.parse_args(argv)
+    if args.multihost:
+        raise NotImplementedError(
+            "--multihost is not ported yet (ROADMAP.md queue 1 item 11)")
+    return args
 
 
 def config_from_args(args) -> ShotVaeConfig:

@@ -1,0 +1,28 @@
+"""The M2-VAE (Kingma) semi-supervised baseline command. Port of
+shotvae_tpu/cli/main_m2_vae.py; the SHOT-VAE command's flags
+(``shotvae_torch.cli.common``) and defaults. Runs on the CUDA card:
+
+  python -m shotvae_torch.cli.main_m2_vae --dataset Cifar10 --br -t 1
+"""
+
+from shotvae_torch.cli.common import (build_parser, config_from_args,
+                                      parse_args)
+from shotvae_torch.device import DeviceLike
+from shotvae_torch.train.loop import run_shot_vae
+
+
+def main(argv=None, *, device: DeviceLike = None):
+    """Parse ``argv`` and train M2 on ``device`` (None: ``cuda``); returns
+    ``run_shot_vae``'s summary."""
+    parser = build_parser(
+        "Training M2 Semi-Supervised VAE for Cifar10,Cifar100,SVHN")
+    args = parse_args(parser, argv)
+    cfg = config_from_args(args)
+    print(f"Begin the {cfg.train_time} Time's Training M2 VAE, "
+          f"Dataset {cfg.dataset}")
+    return run_shot_vae(cfg, m2=True, max_epochs=args.max_epochs,
+                        device=device)
+
+
+if __name__ == "__main__":
+    main()

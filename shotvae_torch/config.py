@@ -1,13 +1,14 @@
-"""Configuration of the SHOT-VAE trainer.
+"""Configuration of the SHOT-VAE, M2 and classifier trainers.
 
-The port's own copy of shotvae_tpu/config.py:17-124 (``ShotVaeConfig``,
-``DatasetSpec``, ``apply_dataset_overrides``): every field, with the JAX
-package's names and defaults, which follow the reference's flag names
-(main_shot_vae.py:30-106), and ``apply_dataset_overrides``, the per-dataset
-values the reference sets inside ``main()``. ``compute_dtype`` is the
-model's trunk dtype, as shotvae_tpu/train/loop.py:223 picks it from
-``bf16``. Fields that drive a part the port does not have yet (data
-parallelism, multi-step dispatch, the DenseNet) are refused by the loop
+The port's own copy of shotvae_tpu/config.py:17-132 (``ShotVaeConfig``,
+``DatasetSpec``, ``apply_dataset_overrides``, ``ClassifierConfig``): every
+field, with the JAX package's names and defaults, which follow the
+reference's flag names (main_shot_vae.py:30-106), and
+``apply_dataset_overrides``, the per-dataset values the reference sets
+inside ``main()``. ``compute_dtype`` is the model's trunk dtype, as
+shotvae_tpu/train/loop.py:223 picks it from ``bf16``. Fields that drive a
+part the port does not have yet (data parallelism, multi-step dispatch,
+the DenseNet) are refused by the loop
 (``shotvae_torch.train.loop``), never ignored.
 """
 
@@ -129,3 +130,12 @@ class DatasetSpec:
     valid_per_class: int
     annotated_per_class: int
     small_input: bool = True
+
+
+@dataclass
+class ClassifierConfig(ShotVaeConfig):
+    """The supervised classifier's surface: the SSL flags with its own
+    defaults (main_classifier.py:41, 63)."""
+
+    epochs: int = 500
+    adjust_lr: List[int] = field(default_factory=lambda: [300, 350, 400])

@@ -91,6 +91,45 @@ class WideResUnit(nn.Module):
         return h + x
 
 
+def wrn_units(depth: int, width: int, num_input_channels: int = 3,
+              dtype: Optional[torch.dtype] = None,
+              drop_rate: float = 0.0) -> "OrderedDict[str, nn.Module]":
+    """The trunk's stem and its three groups of units, under the reference's
+    names (``pre_process``, ``wideblock{k}.wide_block.wideunit{i}``), in
+    order; the caller adds the final BN+LeakyReLU where its layout puts
+    it."""
+    if (depth - 4) % 6:
+        raise ValueError(f"depth should be 6n+4, got {depth}")
+    block_depth = (depth - 4) // 6
+    blocks = OrderedDict(pre_process=PreProcess(num_input_channels, dtype))
+    cin = NUM_INIT_FEATURES
+    for group, features in enumerate((16 * width, 32 * width, 64 * width),
+                                     start=1):
+        units = OrderedDict()
+        for i in range(1, block_depth + 1):
+            stride = 2 if (group > 1 and i == 1) else 1
+            units[f"wideunit{i}"] = WideResUnit(cin, features, stride, dtype,
+                                                drop_rate)
+            cin = features
+        blocks[f"wideblock{group}"] = nn.ModuleDict(
+            {"wide_block": nn.Sequential(units)})
+    return blocks
+
+
+def run_units(blocks: nn.ModuleDict, x: torch.Tensor, generator=None,
+              drop: bool = False) -> torch.Tensor:
+    """The stem and every unit of ``blocks`` (``wrn_units``' modules) on
+    ``x``. With ``drop``, one device generator seeded by one draw from
+    ``generator`` (a host generator; None: torch's default) draws every
+    unit's dropout mask."""
+    gen = device_generator(generator, x.device) if drop else None
+    x = blocks.pre_process(x)
+    for group in (1, 2, 3):
+        for unit in blocks[f"wideblock{group}"].wide_block:
+            x = unit(x, gen)
+    return x
+
+
 class WideResNet(nn.Module):
     """The encoder trunk; emits (B, 64w, H/4, W/4) features for 32x32
     inputs."""
@@ -100,38 +139,19 @@ class WideResNet(nn.Module):
                  dtype: Optional[torch.dtype] = None, drop_rate: float = 0.0):
         super().__init__()
         self.drop_rate = drop_rate
-        if (depth - 4) % 6:
-            raise ValueError(f"depth should be 6n+4, got {depth}")
-        block_depth = (depth - 4) // 6
-        widths = [16 * width, 32 * width, 64 * width]
-        self.num_feature_channel = widths[-1]
-        blocks = OrderedDict(pre_process=PreProcess(num_input_channels, dtype))
-        cin = NUM_INIT_FEATURES
-        for group, features in enumerate(widths, start=1):
-            units = OrderedDict()
-            for i in range(1, block_depth + 1):
-                stride = 2 if (group > 1 and i == 1) else 1
-                units[f"wideunit{i}"] = WideResUnit(cin, features, stride,
-                                                    dtype, drop_rate)
-                cin = features
-            blocks[f"wideblock{group}"] = nn.ModuleDict(
-                {"wide_block": nn.Sequential(units)})
-        blocks["transition"] = nn.ModuleDict({"norm": BatchNorm(cin,
-                                                                dtype=dtype)})
+        self.num_feature_channel = 64 * width
+        blocks = wrn_units(depth, width, num_input_channels, dtype, drop_rate)
+        blocks["transition"] = nn.ModuleDict({"norm": BatchNorm(
+            self.num_feature_channel, dtype=dtype)})
         self.encoder = nn.ModuleDict(blocks)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``generator`` (a host generator; None: torch's default) seeds
         the dropout masks where dropout acts."""
-        gen = (device_generator(generator, x.device)
-               if self.training and self.drop_rate > 0 else None)
-        e = self.encoder
-        x = e.pre_process(x)
-        for group in (1, 2, 3):
-            for unit in e[f"wideblock{group}"].wide_block:
-                x = unit(x, gen)
-        return e.transition.norm(x)
+        x = run_units(self.encoder, x, generator,
+                      self.training and self.drop_rate > 0)
+        return self.encoder.transition.norm(x)
 
 
 def parse_wideresnet_name(name: str) -> tuple[int, int]:

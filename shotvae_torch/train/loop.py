@@ -1,6 +1,8 @@
-"""The SHOT-VAE epoch loop. Port of shotvae_tpu/train/loop.py:151-178,
-191-498 (``run_shot_vae``), the counterpart of the reference's
-``main()/train()/valid()/test()`` (main_shot_vae.py:120-510).
+"""The epoch loops. Port of shotvae_tpu/train/loop.py:151-178, 191-498
+(``run_shot_vae``, with ``m2=True`` the M2 baseline) and 501-635
+(``run_classifier``, the supervised baseline), the counterparts of the
+reference's ``main()/train()/valid()/test()`` (main_shot_vae.py:120-510,
+main_M2_vae.py:104-240, main_classifier.py:82-278).
 
 The datasets lie on the device as uint8 (``DeviceDataset``); per step the
 host sends one index array and the step gathers, augments, runs the four
@@ -20,8 +22,14 @@ uninterrupted run would have drawn:
 The JAX package's documented deviations hold here too (its README "Parity
 and documented deviations"): best is the MAXIMUM validation accuracy,
 saved from epoch ``adjust_lr[-1]`` on; the unlabeled stream drops its
-ragged tail; the Cifar10 ``ewm`` x5 bump comes before the epoch's save;
-validation runs on clean images.
+ragged tail; the Cifar10 ``ewm`` x5 bump (SHOT-VAE only) comes before the
+epoch's save; validation runs on clean images.
+
+The classifier trains on the labeled split alone, ``min(batch_size,
+|labeled|)`` images a step and ``ceil(|labeled| / batch)`` steps an epoch,
+drawn from one endless stream seeded by ``seed`` (as in JAX); its step i of
+an epoch draws its crops, flips and dropout from the same
+(seed + 1000, epoch, i) generators. It saves no checkpoint.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from shotvae_torch.config import DatasetSpec, ShotVaeConfig
+from shotvae_torch.config import ClassifierConfig, DatasetSpec, ShotVaeConfig
 from shotvae_torch.data.datasets import load_dataset
 from shotvae_torch.data.pipeline import (DeviceDataset, epoch_batches,
                                          infinite_batches, num_batches)
@@ -42,10 +50,16 @@ from shotvae_torch.data.splits import ssl_split
 from shotvae_torch.device import DeviceLike, resolve_device
 from shotvae_torch.io.checkpoint import CheckpointManager
 from shotvae_torch.io.tb import TBWriter
+from shotvae_torch.models.classifier import (WideResNetClassifier,
+                                             apply_classifier_init,
+                                             build_classifier)
 from shotvae_torch.models.vae import VariationalAutoEncoder
 from shotvae_torch.ops.schedules import multistep_lr, shot_vae_epoch_schedules
 from shotvae_torch.train.state import TrainState, sgd_torch
-from shotvae_torch.train.steps import (make_shot_vae_train_step,
+from shotvae_torch.train.steps import (make_classifier_eval_step,
+                                       make_classifier_train_step,
+                                       make_m2_train_step,
+                                       make_shot_vae_train_step,
                                        make_vae_eval_step)
 from shotvae_torch.utils.meters import AverageMeter, MetricAccumulator
 
@@ -118,6 +132,21 @@ def build_model(cfg: ShotVaeConfig, spec: DatasetSpec,
             dtype=cfg.compute_dtype(), drop_rate=cfg.drop_rate)
 
 
+def build_classifier_model(cfg: ShotVaeConfig, spec: DatasetSpec,
+                           device: DeviceLike = None) -> WideResNetClassifier:
+    """The classifier for ``cfg``, initialised from ``cfg.seed``, then its
+    convs re-drawn by ``apply_classifier_init`` from ``cfg.seed + 7`` (as
+    the JAX loop keys them)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        model = build_classifier(cfg.net_name, spec.num_classes,
+                                 num_input_channels=spec.input_channels,
+                                 drop_rate=cfg.drop_rate, device=device,
+                                 dtype=cfg.compute_dtype())
+    return apply_classifier_init(model,
+                                 torch.Generator().manual_seed(cfg.seed + 7))
+
+
 def build_state(model, cfg: ShotVaeConfig, steps_per_epoch: int) -> TrainState:
     """SGD with the reference's coupled weight decay and the multistep LR
     of the global step."""
@@ -139,21 +168,8 @@ def _host_images(t: torch.Tensor) -> np.ndarray:
     return t.float().cpu().numpy()
 
 
-def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
-                 max_epochs: Optional[int] = None, log_fn=print,
-                 device: DeviceLike = None) -> dict:
-    """Train the SHOT-VAE on ``device`` (None: ``cuda``; the CPU only where
-    the caller passes ``device="cpu"``). Returns ``{"best_valid_acc",
-    "history", "state", "epoch_times"}``: ``history`` has one entry per
-    epoch with the JAX loop's keys, ``epoch_times`` each epoch's
-    ``train_s`` (up to the train metrics' read) and ``eval_s`` (the grid,
-    valid and test)."""
-    if m2:
-        raise NotImplementedError(
-            "the M2 baseline is not ported yet (ROADMAP.md queue 1 item 6)")
-    dev = resolve_device(device)
-    refuse_unported(cfg)
-    spec = cfg.apply_dataset_overrides()
+def _datasets(cfg: ShotVaeConfig, spec: DatasetSpec):
+    """(train set, test set, SSL split) of ``cfg``, synthetic where asked."""
     train_data, _ = load_dataset(spec.name, cfg.base_path, train=True,
                                  synthetic_fallback=cfg.synthetic_data,
                                  synthetic_size=cfg.synthetic_size)
@@ -164,6 +180,24 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
     split = ssl_split(train_data.labels, spec.valid_per_class,
                       spec.annotated_per_class, spec.num_classes,
                       seed=cfg.seed)
+    return train_data, test_data, split
+
+
+def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
+                 max_epochs: Optional[int] = None, log_fn=print,
+                 device: DeviceLike = None) -> dict:
+    """Train the SHOT-VAE (with ``m2``, the M2 baseline: its step, its
+    ``cmi`` and no ``ewm`` bump, under ``<dataset>-M2-VAE``) on ``device``
+    (None: ``cuda``; the CPU only where the caller passes
+    ``device="cpu"``). Returns ``{"best_valid_acc", "history", "state",
+    "epoch_times"}``: ``history`` has one entry per epoch with the JAX
+    loop's keys, ``epoch_times`` each epoch's ``train_s`` (up to the train
+    metrics' read) and ``eval_s`` (the grid, valid and test)."""
+    dev = resolve_device(device)
+    refuse_unported(cfg)
+    tag = "M2-VAE" if m2 else "SHOT-VAE"
+    spec = cfg.apply_dataset_overrides(m2=m2)
+    train_data, test_data, split = _datasets(cfg, spec)
     if len(split.labeled) == 0 or len(split.unlabeled) < cfg.batch_size:
         raise ValueError(
             f"SSL split too small for training: labeled={len(split.labeled)}, "
@@ -177,7 +211,8 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
     steps_per_epoch = num_batches(len(split.unlabeled), cfg.batch_size)
     state = build_state(model, cfg, steps_per_epoch)
 
-    ckpt = CheckpointManager(cfg.base_path, spec.name, cfg.train_time)
+    ckpt = CheckpointManager(cfg.base_path, spec.name, cfg.train_time,
+                             tag=tag)
     start_epoch = cfg.start_epoch
     if cfg.resume:
         state, start_epoch, stored_cfg = ckpt.restore(state, path=cfg.resume)
@@ -187,15 +222,20 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
                 setattr(cfg, k, v)
         log_fn(f"=> loaded checkpoint '{cfg.resume}' (epoch {start_epoch})")
 
-    log_dir = os.path.join(cfg.base_path, f"{spec.name}-SHOT-VAE", "runs",
+    log_dir = os.path.join(cfg.base_path, f"{spec.name}-{tag}", "runs",
                            f"train_time:{cfg.train_time}")
     _prepare_writer_dir(log_dir, resume=bool(cfg.resume), assume_yes=cfg.yes,
                         train_time=cfg.train_time)
     writer = TBWriter(log_dir)
 
-    step = make_shot_vae_train_step(
-        model, state.optimizer, num_classes=spec.num_classes, bce=cfg.br,
-        x_sigma=cfg.x_sigma, epsilon=cfg.epsilon, optimal_match=cfg.om)
+    if m2:
+        step = make_m2_train_step(
+            model, state.optimizer, num_classes=spec.num_classes, bce=cfg.br,
+            x_sigma=cfg.x_sigma)
+    else:
+        step = make_shot_vae_train_step(
+            model, state.optimizer, num_classes=spec.num_classes, bce=cfg.br,
+            x_sigma=cfg.x_sigma, epsilon=cfg.epsilon, optimal_match=cfg.om)
     evaluate = make_vae_eval_step(model, num_classes=spec.num_classes,
                                   bce=cfg.br, x_sigma=cfg.x_sigma)
     batch = cfg.batch_size
@@ -304,9 +344,10 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
         epoch_times.append({"train_s": train_s,
                             "eval_s": history[-1]["seconds"] - train_s})
 
-        # the Cifar10 ewm x5 bump at the first milestone, BEFORE the save,
-        # so that a resume from the next epoch trains with the bumped value
-        if spec.name == "Cifar10" and cfg.annotated_ratio >= 0.05 \
+        # the SHOT-VAE's Cifar10 ewm x5 bump at the first milestone, BEFORE
+        # the save, so that a resume from the next epoch trains with the
+        # bumped value; M2 has none (main_M2_vae.py)
+        if not m2 and spec.name == "Cifar10" and cfg.annotated_ratio >= 0.05 \
                 and epoch == cfg.adjust_lr[0]:
             cfg.ewm = cfg.ewm * 5
         # ckpt_every <= 0 disables every save
@@ -323,6 +364,99 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
     writer.close()
     ckpt.wait_until_finished()  # the last write lands before the return
     return {"best_valid_acc": best_valid_acc, "history": history,
+            "state": state, "epoch_times": epoch_times}
+
+
+def _split_results(evaluate, ds, indices, batch: int, dev) -> dict:
+    """``evaluate(img, lab, weight)`` over ``indices`` of ``ds`` in padded
+    batches, read once: the accumulated averages."""
+    batch_metrics = []
+    for idx, weight in _padded_eval_batches(indices, batch):
+        img, lab = ds.gather(idx)
+        batch_metrics.append(evaluate(
+            img, lab, torch.from_numpy(weight).to(dev, non_blocking=True)))
+    acc = MetricAccumulator()
+    acc.update(_summed(batch_metrics))  # the split's one read
+    return acc.averages()
+
+
+def run_classifier(cfg: ClassifierConfig, *, max_epochs: Optional[int] = None,
+                   log_fn=print, device: DeviceLike = None) -> dict:
+    """Train the supervised classifier on the labeled split on ``device``
+    (None: ``cuda``; the CPU only where the caller passes
+    ``device="cpu"``), logging under ``<dataset>-SSL-Classifier``. Returns
+    ``{"history", "train_losses", "state", "epoch_times"}``: ``history``
+    and ``train_losses`` as the JAX loop's, ``epoch_times`` each epoch's
+    ``train_s`` (up to the train losses' read) and ``eval_s``."""
+    dev = resolve_device(device)
+    refuse_unported(cfg)
+    spec = cfg.apply_dataset_overrides()
+    train_data, test_data, split = _datasets(cfg, spec)
+    if len(split.labeled) == 0:
+        raise ValueError(
+            f"SSL split has no labeled samples (dataset "
+            f"{len(train_data.labels)}, valid_per_class="
+            f"{spec.valid_per_class})")
+    train_ds = DeviceDataset(train_data, device=dev)
+    test_ds = DeviceDataset(test_data, device=dev)
+
+    model = build_classifier_model(cfg, spec, dev)
+    batch = min(cfg.batch_size, len(split.labeled))
+    steps_per_epoch = max(1, num_batches(len(split.labeled), batch,
+                                         drop_last=False))
+    state = build_state(model, cfg, steps_per_epoch)
+
+    log_dir = os.path.join(cfg.base_path, f"{spec.name}-SSL-Classifier",
+                           "runs", f"train_time:{cfg.train_time}")
+    _prepare_writer_dir(log_dir, resume=False, assume_yes=cfg.yes,
+                        train_time=cfg.train_time)
+    writer = TBWriter(log_dir)
+
+    step = make_classifier_train_step(model, state.optimizer)
+    evaluate = make_classifier_eval_step(model, num_classes=spec.num_classes)
+    labeled_iter = infinite_batches(np.random.default_rng(cfg.seed),
+                                    split.labeled, batch)
+    history, train_losses, epoch_times = [], [], []
+    total_epochs = max_epochs if max_epochs is not None else cfg.epochs
+    for epoch in range(total_epochs):
+        epoch_t0 = time.time()
+        step_losses = []
+        for i in range(steps_per_epoch):
+            img, lab = train_ds.gather(next(labeled_iter))
+            step_losses.append(step(state, img, lab,
+                                    step_generator(cfg.seed, epoch, i))
+                               ["cls_loss"])
+        losses = AverageMeter()
+        # the epoch's one read
+        for v in torch.stack(step_losses).to(torch.float64).tolist():
+            losses.update(v, batch)
+        train_s = time.time() - epoch_t0
+        writer.scalar("Train/cls_loss", losses.avg, epoch + 1)
+        train_losses.append(losses.avg)
+
+        out = {}
+        for name, indices, ds in (("Valid", split.valid, train_ds),
+                                  ("Test", np.arange(len(test_data.labels)),
+                                   test_ds)):
+            avg = _split_results(evaluate, ds, indices, cfg.batch_size, dev)
+            out[name] = avg
+            writer.scalar(f"{name}/cls_loss", avg["cls_loss_avg"], epoch + 1)
+            writer.scalar(f"{name}/top 1 accuracy", avg["top1_rate"],
+                          epoch + 1)
+            if spec.name == "Cifar100":
+                writer.scalar(f"{name}/top 5 accuracy", avg["top5_rate"],
+                              epoch + 1)
+        log_fn(f"Epoch {epoch}: valid {out['Valid']['top1_rate']:.4f} "
+               f"test {out['Test']['top1_rate']:.4f}")
+        history.append({"epoch": epoch,
+                        "valid_top1": out["Valid"]["top1_rate"],
+                        "test_top1": out["Test"]["top1_rate"],
+                        "train_loss": losses.avg})
+        epoch_times.append({"train_s": train_s,
+                            "eval_s": time.time() - epoch_t0 - train_s})
+        writer.flush()
+    writer.close()
+    return {"history": history, "train_losses": train_losses,
             "state": state, "epoch_times": epoch_times}
 
 

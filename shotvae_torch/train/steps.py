@@ -1,8 +1,9 @@
-"""The SHOT-VAE train step and the VAE eval step.
+"""The SHOT-VAE and M2 train steps, the VAE eval step and the classifier's
+train and eval steps.
 
-Port of shotvae_tpu/train/steps.py:30-44, 108-124, 261-384 and 470-528.
-The train step keeps the reference's four forwards (labeled, label-smoothed
-labeled, unlabeled, mixed unlabeled) with one backward over
+Port of shotvae_tpu/train/steps.py:30-44, 108-124, 261-462, 470-528 and
+536-596. The SHOT-VAE step keeps the reference's four forwards (labeled,
+label-smoothed labeled, unlabeled, mixed unlabeled) with one backward over
 ``loss_supervised + loss_unsupervised`` (the gradient of the sum equals the
 reference's two accumulated ``.backward()`` calls) and one SGD update.
 Stop-gradients are ``.detach()``. The BatchNorm running statistics update
@@ -16,14 +17,22 @@ host, the mixup permutations on the device. ``inject`` replays pre-drawn
 randomness instead, under the JAX step's keys ``eps_1..eps_4``, ``unif_3``,
 ``unif_4``, ``lam_sm``, ``perm_sm``, ``lam_mx``, ``perm_mx``, plus
 ``aug_l`` / ``aug_u``, the ``(off_y, off_x, flip)`` of ``augment_batch``.
+
+The M2 step (the Kingma M2 baseline) takes two forwards, the labeled one
+with its labels' one-hots in place of the discrete draw, and no mixup; its
+draws replay under ``eps_1``, ``eps_2``, ``unif_2``, ``aug_l`` and
+``aug_u``. The classifier step takes one forward of the labeled images and
+the softmax cross entropy; its crops and flips replay under ``aug``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from shotvae_torch.data.pipeline import augment_batch, to_float
 from shotvae_torch.ops import losses, mixup
@@ -57,6 +66,55 @@ def _noise(inject, device, eps_key: str, unif_key: Optional[str] = None):
     return out or None
 
 
+def _elbo(x, recon, mean, log_sigma, log_alpha, sched, *, num_classes: int,
+          bce: bool, x_sigma: float):
+    """recon + beta_c |KL_c - cmi| + beta_d |KL_d - dmi|, and its three
+    terms."""
+    terms = losses.elbo_terms(x, recon, mean, log_sigma, log_alpha,
+                              num_classes=num_classes, bce=bce,
+                              x_sigma=x_sigma)
+    r, ckl, dkl = terms
+    return (r + sched["kl_beta_c"] * losses.mi_hinge(ckl, sched["cmi"])
+            + sched["kl_beta_d"] * losses.mi_hinge(dkl, sched["dmi"])), terms
+
+
+def _update(state: TrainState, loss) -> None:
+    """One backward of ``loss`` and one SGD update of ``state``."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    state.apply_gradients()
+
+
+def _check_state(state: TrainState, model, optimizer) -> None:
+    if state.model is not model or state.optimizer is not optimizer:
+        raise ValueError("state holds another model or optimizer than the "
+                         "step was made for")
+
+
+def _vae_train_step(model, optimizer, loss_fn, aug: bool):
+    """The two-stream step around ``loss_fn(x_l, lab_l, x_u, lab_u, sched,
+    generator, inject) -> (total, metrics)``."""
+
+    def step(state: TrainState, img_l, lab_l, img_u, lab_u, sched,
+             generator: Optional[torch.Generator] = None, inject=None):
+        _check_state(state, model, optimizer)
+        inj = inject or {}
+        dev = _device(model)
+        model.train()
+        x_l = _prepare(img_l, dev, augment=aug, generator=generator,
+                       offsets=inj.get("aug_l"))
+        x_u = _prepare(img_u, dev, augment=aug, generator=generator,
+                       offsets=inj.get("aug_u"))
+        lab_l = torch.as_tensor(lab_l).to(dev).long()
+        lab_u = torch.as_tensor(lab_u).to(dev).long()
+        total, metrics = loss_fn(x_l, lab_l, x_u, lab_u, sched, generator,
+                                 inj)
+        _update(state, total)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
 def _cont_posterior(mean, log_sigma, target: mixup.MixupBatch, batch: int):
     return (((mean - target.z_mean) ** 2).sum()
             + ((torch.exp(log_sigma) - target.z_sigma) ** 2).sum()) / batch
@@ -77,15 +135,8 @@ def make_shot_vae_train_step(model, optimizer, *, num_classes: int, bce: bool,
     metrics as 0-d tensors on the model's device. ``aug=False`` turns the
     crops and flips off.
     """
-
-    def elbo(x, recon, mean, log_sigma, log_alpha, sched):
-        terms = losses.elbo_terms(x, recon, mean, log_sigma, log_alpha,
-                                  num_classes=num_classes, bce=bce,
-                                  x_sigma=x_sigma)
-        r, ckl, dkl = terms
-        return (r + sched["kl_beta_c"] * losses.mi_hinge(ckl, sched["cmi"])
-                + sched["kl_beta_d"] * losses.mi_hinge(dkl, sched["dmi"])), \
-            terms
+    elbo = functools.partial(_elbo, num_classes=num_classes, bce=bce,
+                             x_sigma=x_sigma)
 
     def loss_fn(x_l, lab_l, x_u, lab_u, sched, generator, inj):
         dev = x_l.device
@@ -148,28 +199,52 @@ def make_shot_vae_train_step(model, optimizer, *, num_classes: int, bce: bool,
         }
         return total, metrics
 
-    def step(state: TrainState, img_l, lab_l, img_u, lab_u, sched,
-             generator: Optional[torch.Generator] = None, inject=None):
-        if state.model is not model or state.optimizer is not optimizer:
-            raise ValueError("state holds another model or optimizer than "
-                             "the step was made for")
-        inj = inject or {}
-        dev = _device(model)
-        model.train()
-        x_l = _prepare(img_l, dev, augment=aug, generator=generator,
-                       offsets=inj.get("aug_l"))
-        x_u = _prepare(img_u, dev, augment=aug, generator=generator,
-                       offsets=inj.get("aug_u"))
-        lab_l = torch.as_tensor(lab_l).to(dev).long()
-        lab_u = torch.as_tensor(lab_u).to(dev).long()
-        total, metrics = loss_fn(x_l, lab_l, x_u, lab_u, sched, generator,
-                                 inj)
-        optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        state.apply_gradients()
-        return {k: v.detach() for k, v in metrics.items()}
+    return _vae_train_step(model, optimizer, loss_fn, aug)
 
-    return step
+
+def make_m2_train_step(model, optimizer, *, num_classes: int, bce: bool,
+                       x_sigma: float, aug: bool = True):
+    """The M2 step, with ``make_shot_vae_train_step``'s signature and
+    metrics: ``elbo = recon + beta_c |KL_c - cmi| + beta_d |KL_d - dmi|`` on
+    each stream, ``loss_supervised = ew * elbo_l + NLL(q(y|x_l), y_l)`` and
+    ``loss_unsupervised = ew * elbo_u``; ``sched`` needs ``ew``,
+    ``kl_beta_c``, ``kl_beta_d``, ``cmi`` and ``dmi``."""
+    elbo = functools.partial(_elbo, num_classes=num_classes, bce=bce,
+                             x_sigma=x_sigma)
+
+    def loss_fn(x_l, lab_l, x_u, lab_u, sched, generator, inj):
+        dev = x_l.device
+        # labeled: the one-hots of the labels replace the discrete draw
+        recon_l, mean_l, ls_l, la_l = model(
+            x_l, labels=lab_l, noise=_noise(inj, dev, "eps_1"),
+            generator=generator)
+        elbo_l, (r_l, ckl_l, dkl_l) = elbo(x_l, recon_l, mean_l, ls_l, la_l,
+                                           sched)
+        loss_supervised = sched["ew"] * elbo_l + losses.cls_nll(
+            la_l, label_onehot(lab_l, num_classes))
+
+        # unlabeled: the Gumbel-softmax draw
+        recon_u, mean_u, ls_u, la_u = model(
+            x_u, noise=_noise(inj, dev, "eps_2", "unif_2"),
+            generator=generator)
+        elbo_u, (r_u, ckl_u, dkl_u) = elbo(x_u, recon_u, mean_u, ls_u, la_u,
+                                           sched)
+        loss_unsupervised = sched["ew"] * elbo_u
+        inference_kl = losses.inference_kl_metric(la_u.detach(), lab_u,
+                                                  num_classes)
+
+        total = loss_supervised + loss_unsupervised
+        metrics = {
+            "loss": total,
+            "loss_supervised": loss_supervised,
+            "loss_unsupervised": loss_unsupervised,
+            "recon_l": r_l, "cont_kl_l": ckl_l, "disc_kl_l": dkl_l,
+            "recon_u": r_u, "cont_kl_u": ckl_u, "disc_kl_u": dkl_u,
+            "kl_inference": inference_kl,
+        }
+        return total, metrics
+
+    return _vae_train_step(model, optimizer, loss_fn, aug)
 
 
 def make_vae_eval_step(model, *, num_classes: int, bce: bool, x_sigma: float):
@@ -221,5 +296,60 @@ def make_vae_eval_step(model, *, num_classes: int, bce: bool, x_sigma: float):
             "count": w.sum(),
         }
         return metrics, recon_sig.permute(0, 2, 3, 1)
+
+    return step
+
+
+def softmax_ce(logits, labels):
+    """``F.cross_entropy`` of the f32 logits: the batch mean of
+    -log_softmax[label]."""
+    return F.cross_entropy(logits.to(torch.float32), labels)
+
+
+def make_classifier_train_step(model, optimizer, *, aug: bool = True):
+    """The classifier step: ``step(state, img, lab, generator=None,
+    inject=None) -> {"cls_loss"}``, one forward of the augmented labeled
+    images, the cross entropy, one backward and one SGD update of
+    ``state``; ``generator`` draws the crops and flips and the dropout
+    masks, ``inject`` replays the crops and flips under ``aug``."""
+
+    def step(state: TrainState, img, lab,
+             generator: Optional[torch.Generator] = None, inject=None):
+        _check_state(state, model, optimizer)
+        inj = inject or {}
+        dev = _device(model)
+        model.train()
+        x = _prepare(img, dev, augment=aug, generator=generator,
+                     offsets=inj.get("aug"))
+        loss = softmax_ce(model(x, generator=generator),
+                          torch.as_tensor(lab).to(dev).long())
+        _update(state, loss)
+        return {"cls_loss": loss.detach()}
+
+    return step
+
+
+def make_classifier_eval_step(model, *, num_classes: int):
+    """The classifier's eval pass: ``step(img, lab, weight) -> {
+    "cls_loss_sum", "top1_count", "top5_count", "count"}``, each summed
+    over the batch with the per-sample 0/1 ``weight`` (top 5 is top
+    min(5, K)); BN uses the running statistics."""
+
+    @torch.inference_mode()
+    def step(img, lab, weight):
+        dev = _device(model)
+        model.eval()
+        logits = model(_prepare(img, dev, augment=False)).to(torch.float32)
+        w = torch.as_tensor(weight).to(dev).to(torch.float32)
+        lab = torch.as_tensor(lab).to(dev).long()
+        nll_per = -F.log_softmax(logits, 1).gather(1, lab[:, None])[:, 0]
+        probs = F.softmax(logits, 1)
+        top1_per = torch.argmax(probs, 1) == lab
+        topk = torch.topk(probs, min(5, num_classes), dim=1).indices
+        top5_per = (topk == lab[:, None]).any(1)
+        return {"cls_loss_sum": (nll_per * w).sum(),
+                "top1_count": (top1_per * w).sum(),
+                "top5_count": (top5_per * w).sum(),
+                "count": w.sum()}
 
     return step

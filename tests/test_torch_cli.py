@@ -1,7 +1,9 @@
-"""The port's CLI against the JAX package's: the same argv lists give the
-same config, flag for flag; one epoch runs through ``main`` on the CPU;
-the flags of parts not ported yet parse, then raise, naming their
-ROADMAP.md item; a split too small for the batch raises."""
+"""The port's CLIs against the JAX package's: the same argv lists give the
+same config, flag for flag (through each command's ``main`` for the M2 and
+classifier commands, the classifier's own defaults included); one epoch
+runs through each ``main`` on the CPU; the flags of parts not ported yet
+parse, then raise, naming their ROADMAP.md item; a split too small for the
+batch raises."""
 
 import os
 
@@ -9,7 +11,9 @@ import pytest
 import torch
 
 from shotvae_tpu.cli import common as jax_common
-from shotvae_torch.cli import common
+from shotvae_tpu.cli import main_classifier as jax_main_classifier
+from shotvae_tpu.cli import main_m2_vae as jax_main_m2
+from shotvae_torch.cli import common, main_classifier, main_m2_vae
 from shotvae_torch.cli.main_shot_vae import main
 
 ARGVS = [
@@ -107,3 +111,75 @@ def test_split_too_small_raises(tmp_path):
     with pytest.raises(ValueError, match="SSL split too small"):
         main(["-bp", str(tmp_path), "--synthetic-data", "--yes"],
              device="cpu")
+
+
+# ------------------------------------------------- the M2 and classifier CLIs
+
+NEW_CLIS = {"m2": (main_m2_vae, jax_main_m2, "run_shot_vae"),
+            "classifier": (main_classifier, jax_main_classifier,
+                           "run_classifier")}
+
+
+def _captured(module, monkeypatch, name):
+    """``module.main`` with its trainer replaced by one that returns the
+    config and the keyword arguments it was called with."""
+    monkeypatch.setattr(module, name, lambda cfg, **kw: (cfg, kw))
+    return module.main
+
+
+@pytest.mark.parametrize("cli", list(NEW_CLIS))
+@pytest.mark.parametrize("argv", ARGVS, ids=lambda a: " ".join(a)[:40])
+def test_new_cli_configs_match_jax(cli, argv, monkeypatch):
+    """Each argv gives the M2 and classifier commands the config and the
+    trainer call of the JAX commands (M2: ``m2=True``; the classifier: a
+    ``ClassifierConfig`` with epochs 500 and milestones [300, 350, 400]
+    unless given)."""
+    port, jax_cli, name = NEW_CLIS[cli]
+    got, got_kw = _captured(port, monkeypatch, name)(argv, device="cpu")
+    want, want_kw = _captured(jax_cli, monkeypatch, name)(argv)
+    assert type(got).__name__ == type(want).__name__
+    assert got.asdict() == want.asdict()
+    assert got_kw == dict(want_kw, device="cpu")
+    if cli == "classifier" and not argv:
+        assert (got.epochs, got.adjust_lr) == (500, [300, 350, 400])
+
+
+def test_classifier_parser_surface_matches_jax():
+    """The classifier's parser: the common surface with its two defaults,
+    as shotvae_tpu/cli/main_classifier.py:14 sets them."""
+    def surface(parser):
+        return {tuple(a.option_strings): (a.dest, a.default, a.nargs,
+                                          type(a).__name__)
+                for a in parser._actions}
+    want = jax_common.build_parser("t")
+    want.set_defaults(epochs=500, adjust_lr=[300, 350, 400])
+    assert surface(main_classifier.build_classifier_parser()) \
+        == surface(want)
+
+
+def test_one_m2_cli_epoch(tmp_path):
+    out = main_m2_vae.main(_small_argv(str(tmp_path)), device="cpu")
+    assert len(out["history"]) == 1
+    assert 0.0 <= out["history"][0]["valid_top1"] <= 1.0
+    assert os.listdir(tmp_path) == ["Cifar10-M2-VAE"]
+
+
+def test_one_classifier_cli_epoch(tmp_path):
+    out = main_classifier.main(_small_argv(str(tmp_path)), device="cpu")
+    assert len(out["history"]) == len(out["train_losses"]) == 1
+    assert 0.0 <= out["history"][0]["test_top1"] <= 1.0
+    assert os.listdir(tmp_path) == ["Cifar10-SSL-Classifier"]
+
+
+@pytest.mark.parametrize("cli", list(NEW_CLIS))
+@pytest.mark.parametrize("flags,item", [
+    (["--multihost"], "item 11"), (["--bn-per-replica"], "item 11"),
+    (["--steps-per-call", "4"], "item 13a"),
+    (["--net-name", "preactresnet-18"], "item 9")])
+def test_new_clis_refuse_unported_flags(cli, flags, item, tmp_path):
+    argv = _small_argv(str(tmp_path))
+    if "--net-name" in flags:
+        argv = argv[2:]
+    with pytest.raises(NotImplementedError, match=item):
+        NEW_CLIS[cli][0].main([*argv, *flags], device="cpu")
+    assert not os.listdir(tmp_path)

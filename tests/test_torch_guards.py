@@ -75,6 +75,46 @@ def test_entry_points_need_an_explicit_cpu(monkeypatch, tmp_path):
     ShotVaeInference.from_checkpoint(str(path), device="cpu")
 
 
+_NEW_ENTRY_POINTS = ["run_shot_vae m2", "run_classifier", "main_m2_vae",
+                     "main_classifier", "WideResNetClassifier",
+                     "MLPClassifier"]
+
+
+def _call_entry_point(entry, base):
+    from shotvae_torch.cli import main_classifier, main_m2_vae
+    from shotvae_torch.config import ClassifierConfig, ShotVaeConfig
+    from shotvae_torch.models.classifier import (MLPClassifier,
+                                                 WideResNetClassifier)
+    from shotvae_torch.train.loop import run_classifier, run_shot_vae
+
+    argv = ["-bp", base, "--synthetic-data", "--yes"]
+    calls = {
+        "run_shot_vae m2": lambda: run_shot_vae(
+            ShotVaeConfig(base_path=base, synthetic_data=True), m2=True),
+        "run_classifier": lambda: run_classifier(
+            ClassifierConfig(base_path=base, synthetic_data=True)),
+        "main_m2_vae": lambda: main_m2_vae.main(argv),
+        "main_classifier": lambda: main_classifier.main(argv),
+        "WideResNetClassifier": lambda: WideResNetClassifier(10, 1),
+        "MLPClassifier": MLPClassifier,
+    }
+    return calls[entry]()
+
+
+@pytest.mark.parametrize("entry", _NEW_ENTRY_POINTS)
+def test_m2_and_classifier_entry_points_need_an_explicit_cpu(entry,
+                                                             monkeypatch,
+                                                             tmp_path):
+    """With no card, the M2 and classifier trainers, their commands and the
+    classifier modules raise unless the caller names the CPU, before they
+    write anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    base = str(tmp_path / "runs")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _call_entry_point(entry, base)
+    assert not os.path.exists(base)
+
+
 def test_train_mode_and_other_encoders_raise():
     """Train mode now runs (and updates the running statistics); an encoder
     not ported yet still raises."""
@@ -606,3 +646,93 @@ def test_chip_smoke_loop_phase_fails_a_wrong_launch_count(monkeypatch,
     monkeypatch.setattr(vae, "fused_joint_sample", counted)
     with pytest.raises(RuntimeError, match="the loop's epoch"):
         _loop_phase(chip_smoke, str(tmp_path))
+
+
+# the M2 and classifier epochs at the tiny size of _LOOP_CPU: 47 unlabeled
+# images (2 M2 steps of 16 + 16) and 47 labeled ones (3 classifier steps of
+# 16), 145 valid and 256 test images (10 and 16 batches), M2's grid
+_BASELINE_LOOPS = {"m2": (2, 27), "classifier": (3, 26)}
+
+
+@pytest.mark.parametrize("kind", ["m2", "classifier"])
+def test_chip_smoke_baseline_phases_run_on_cpu(kind, monkeypatch, tmp_path):
+    """chip_smoke.py's M2 and classifier phases at batch 2 on the CPU, bf16
+    as on the card: no launch is counted, the metrics are finite, the
+    card-against-CPU steps are exact when both sides are the CPU; the
+    epoch runs at a tiny size with its steps and eval forwards counted and
+    writes only its own run folder."""
+    chip_smoke = _chip_smoke(monkeypatch)
+    out = chip_smoke.train_phase(torch.device("cpu"), 2, steps=1,
+                                 dtype=torch.bfloat16, kind=kind)
+    assert set(out["launches"].values()) == {0}
+    assert set(out["eval_launches"].values()) == {0}
+    assert all(np.isfinite(v) for v in out["last_metrics"].values())
+    images = "labeled" if kind == "classifier" else "unlabeled"
+    assert out["timing"][f"{images}_images_per_s"] > 0
+    vs_cpu = out["vs_cpu"]
+    assert 0.0 < vs_cpu.pop("grad_one_ulp_spread_max") < math.inf
+    vs_cpu.pop("grad_one_ulp_spread_median")
+    assert set(vs_cpu.values()) == {0.0}
+    assert out["vs_cpu_bf16"]["worst_share_of_tol"] == 0.0
+    assert out["vs_cpu_bf16"]["cpu_bf16_vs_f32_rel_median"] > 0.0
+    steps, forwards = _BASELINE_LOOPS[kind]
+    loop = chip_smoke.baseline_loop_phase(
+        torch.device("cpu"), str(tmp_path), kind, dict(_LOOP_CPU, br=True),
+        steps, forwards)
+    assert set(loop["launches"].values()) == {0}
+    assert loop["train_steps"] == steps and math.isfinite(loop["train_loss"])
+
+
+@pytest.mark.parametrize("kind", ["m2", "classifier"])
+def test_chip_smoke_baseline_step_check_fails_a_wrong_gradient(kind,
+                                                               monkeypatch):
+    """The M2 and classifier card-against-CPU steps at batch 2 on the CPU,
+    with the training BN's dgamma zeroed in the first (card-side) step
+    only: the gradient check fails it."""
+    from shotvae_torch.ops.kernels import bn_leaky
+
+    chip_smoke = _chip_smoke(monkeypatch)
+    fn = bn_leaky._BnLeakyTrain
+    backward = fn.backward
+    faulty = staticmethod(lambda ctx, *g: _WRONG_BN_GRADS["dgamma zeroed"](
+        backward(ctx, *g)))
+    name = {"m2": "m2_trainer", "classifier": "classifier_trainer"}[kind]
+    trainer, made = getattr(chip_smoke, name), []
+
+    def planted(model):
+        state, step, sched = trainer(model)
+        first = not made
+        made.append(model)
+
+        def run(*args, **kwargs):
+            if first:
+                monkeypatch.setattr(fn, "backward", faulty)
+            try:
+                return step(*args, **kwargs)
+            finally:
+                monkeypatch.setattr(fn, "backward", staticmethod(backward))
+        return state, run, sched
+
+    monkeypatch.setattr(chip_smoke, name, planted)
+    with pytest.raises(RuntimeError, match="disagree on the gradient"):
+        chip_smoke.compare_train_step(torch.device("cpu"), 2, kind)
+    assert len(made) == 3
+
+
+def test_chip_smoke_baseline_loop_fails_a_wrong_launch_count(monkeypatch,
+                                                             tmp_path):
+    """The M2 epoch check fails an epoch whose eval forwards launch the
+    sampler where none is expected (on the CPU, none is)."""
+    from shotvae_torch.models import vae
+    from shotvae_torch.ops.kernels.fused_sample import fused_joint_sample
+
+    def counted(*args, **kwargs):
+        fused_joint_sample.launches += 1
+        return fused_joint_sample(*args, **kwargs)
+
+    chip_smoke = _chip_smoke(monkeypatch)
+    monkeypatch.setattr(vae, "fused_joint_sample", counted)
+    with pytest.raises(RuntimeError, match="the m2 loop's epoch"):
+        chip_smoke.baseline_loop_phase(torch.device("cpu"), str(tmp_path),
+                                       "m2", dict(_LOOP_CPU, br=True),
+                                       *_BASELINE_LOOPS["m2"])

@@ -173,9 +173,7 @@ def test_loop_checkpoint_serves(straight):
     assert torch.equal(serving.classify(images), want)
 
 
-def test_m2_and_unported_settings_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        run_shot_vae(_tiny_cfg(str(tmp_path)), m2=True, device="cpu")
+def test_unported_settings_raise(tmp_path):
     for kw, item in (({"bn_per_replica": True}, "item 11"),
                      ({"global_mixup": True}, "item 11"),
                      ({"num_devices": 2}, "item 11"),
