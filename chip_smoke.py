@@ -93,8 +93,30 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    ``run_classifier`` (4,000 labeled images: 6 steps, then 7 valid and 17
    test forwards) with its launches checked, nothing written outside
    ``Cifar10-SSL-Classifier``.
+11. The PreActResNet and DenseNet encoders (run after phase 9, before
+   the lines of phase 10), in bf16 on CIFAR-100's shape (K 100):
+   preactresnet18 and densenet121, their BN sites found by running each
+   encoder once (13 fused, 7 standalone of which 3 identity; 58 fused, 62
+   standalone). Every kernel against its plain version at every distinct
+   shape they give it at batch 768, with ReLU (slope 0) and the identity
+   site (slope 1): the four ``bn_leaky`` kernels, ``bn_act`` in bf16 and
+   f32, the fused conv in bf16 and f32 (timed beside its bound and
+   ``F.conv2d``; 4x4 maps and Cin 512 included) and the train-mode fused
+   site's backward; the fused conv also held at DenseNet-BC's and
+   densenet161's narrow Cout (12 to 48). The bf16 SHOT-VAE step at 768 +
+   768 of preactresnet18, densenet121 and densenet121 with --efficient
+   (``EXPECTED_ENCODER_LAUNCHES``, the recompute's launches included),
+   their times, a profiled step, peak memory and the eval step; each
+   family's step on the card against the CPU at 16 + 16 in f32 and bf16;
+   the efficient step against the plain one on the same draws (cuDNN
+   deterministic): metrics and running statistics equal, gradients within
+   one bf16 ulp. The M2 step over preactresnet18 and one bf16 epoch of
+   ``run_shot_vae(m2=True)`` on 50,000 synthetic CIFAR-100 images; f32
+   ``ShotVaeInference.from_checkpoint`` of both models at 768
+   (``classify``, ``reconstruct``) with launches, times and 16 images
+   against the CPU.
 10. Print the ``kernels`` JSON line (each kernel's launches on every path,
-   the M2 and classifier paths included), then the result line
+   the M2, classifier and encoder paths included), then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits with an error, printing no result, where torch sees no card or where
@@ -161,9 +183,9 @@ ULP_BF16 = 2.0 ** -7  # one bf16 ulp, relative, at most: a bf16 output of the
 BF16_FACTOR = 3.0
 BF16_FLOOR = 1e-3
 # ... the CPU's distance taken as its largest over the step's inputs and
-# two more, for the M2 and classifier steps (the SHOT-VAE check takes
-# one): a scalar's bf16 rounding lands far under its usual size on some
-# inputs
+# two more, for the M2 and classifier steps and phase 11's encoder steps
+# (the headline SHOT-VAE check takes one): a scalar's bf16 rounding lands
+# far under its usual size on some inputs (a discrete KL of about 0.03)
 BF16_CALIBRATION_DRAWS = 3
 TRAIN_STEPS = 3    # counted train steps at full batch
 COMPARE_BATCH = 16  # per stream, for the card-against-CPU step
@@ -188,12 +210,19 @@ BN_TRAIN_SITES = lambda b: [  # noqa: E731
 # wrapper pads the weight's input channels), a last N slice of 8 channels;
 # then Cin past the 320 whose weight slice stays in shared memory, so the
 # weights stream through the stages: WRN-28-10's third group (640 -> 640
-# at 8x8) and a ragged one
+# at 8x8) and a ragged one; then maps smaller than one tile (4x4, as in
+# PreActResNet's group 4, streamed at Cin 512, and DenseNet's block 4;
+# 2x2) and DenseNet-BC's narrow Cout (12, not a multiple of 8, stored
+# without the TMA; 24, 40, 48)
 CONV_CHECK_SHAPES = [(8, 128, 8, 8, 128), (4, 64, 16, 16, 64),
                      (2, 32, 32, 32, 32), (6, 128, 8, 8, 64),
                      (1, 24, 13, 11, 32), (1, 8, 9, 17, 16),
                      (3, 40, 7, 5, 72), (2, 640, 8, 8, 640),
-                     (1, 360, 5, 9, 40)]
+                     (1, 360, 5, 9, 40), (1, 128, 4, 4, 32),
+                     (1, 512, 4, 4, 512), (1, 64, 2, 2, 64),
+                     (2, 48, 8, 8, 12), (2, 96, 16, 8, 24),
+                     (1, 160, 4, 4, 40), (1, 192, 2, 2, 48),
+                     (1, 48, 5, 3, 12)]
 # kernel launches per train step at WRN-28-2, from the sites above: the
 # fused conv kernel at the 22 fused sites of each of 4 forwards (its
 # backward is cuDNN plus the bn_leaky kernels); statistics and apply at all
@@ -255,6 +284,10 @@ RESUME_CONFIG = dict(dataset="Cifar10", batch_size=64,
                      synthetic_size=512, valid_per_class=10,
                      annotated_per_class=10, yes=True, reconstruct_freq=1,
                      print_freq=100, adjust_lr=[0, 1, 2])
+# an encoder path: the net, the dataset whose shape and classes it trains
+# on, and DenseNet's block recomputation; the headline one
+WRN = dict(net="wideresnet-28-2", dataset="Cifar10", efficient=False)
+CLASSES = {"Cifar10": 10, "Cifar100": 100}
 # kernel launches per endpoint at WRN-28-2: (fused conv, bn_act, sample)
 EXPECTED_LAUNCHES = {"classify": (22, 6, 0), "encode": (22, 6, 0),
                      "reconstruct": (22, 11, 1), "generate": (0, 5, 0)}
@@ -368,9 +401,10 @@ def ulp_of(t) -> float:
 # ----------------------------------------------------------------- phase 2
 
 
-def bn_act_phase(dev, batch: int, dtype=None):
+def bn_act_phase(dev, batch: int, dtype=None, cases=None):
     """bn_act_inference at each (M, C, slope) of the serving forward (the
-    eval step's in bf16), x and y in ``dtype`` (None: float32)."""
+    eval step's in bf16), x and y in ``dtype`` (None: float32); ``cases``
+    (M, C, slope, launches per forward) in place of the WRN-28-2's."""
     import torch
 
     from shotvae_torch.ops.kernels.bn_act import bn_act_inference, bn_act_plain
@@ -379,7 +413,7 @@ def bn_act_phase(dev, batch: int, dtype=None):
     size = torch.finfo(dtype).bits // 8
     b = batch
     # (M, C, slope, launches per reconstruct)
-    cases = [(b * 32 * 32, 16, 0.01, 1),   # group-1 shortcut norm
+    cases = cases or [(b * 32 * 32, 16, 0.01, 1),   # group-1 shortcut norm
              (b * 32 * 32, 32, 0.01, 2),   # group-2 unit-1 norm1 + shortcut
              (b * 16 * 16, 64, 0.01, 2),   # group-3 unit-1 norm1 + shortcut
              (b * 8 * 8, 128, 0.01, 1),    # transition
@@ -409,13 +443,16 @@ def bn_act_phase(dev, batch: int, dtype=None):
     return rows, err
 
 
-def conv_phase(dev, batch: int, dtype=None):
+def conv_phase(dev, batch: int, dtype=None, cases=None, slope: float = 0.01,
+               check_shapes=None):
     """fused_bn_act_conv at each (B, Cin, H, W, Cout) of the encoder, x, the
-    weight and y in ``dtype`` (None: float32). In bf16 the kernel is held
-    against the f32 conv (TF32 off) of the bf16-rounded activation and
-    weight, within one bf16 ulp plus TOL_CONV, also at CONV_CHECK_SHAPES
-    (held, not timed); the plain version and the library call then
-    convolve in bf16."""
+    weight and y in ``dtype`` (None: float32), the activation
+    LeakyReLU(``slope``). In bf16 the kernel is held against the f32 conv
+    (TF32 off) of the bf16-rounded activation and weight, within one bf16
+    ulp plus TOL_CONV, also at CONV_CHECK_SHAPES (held, not timed); the
+    plain version and the library call then convolve in bf16. ``cases``
+    (B, Cin, H, W, Cout, launches per forward) replace WRN-28-2's, and
+    ``check_shapes`` the shapes held but not timed (in both dtypes)."""
     import torch
     import torch.nn.functional as F
 
@@ -427,8 +464,8 @@ def conv_phase(dev, batch: int, dtype=None):
                   else (4, F32_FLOPS))
     b = batch
     # (B, Cin, H, W, Cout, launches per encoder forward)
-    cases = [(b, 16, 32, 32, 32, 1), (b, 32, 32, 32, 32, 7),
-             (b, 64, 16, 16, 64, 7), (b, 128, 8, 8, 128, 7)]
+    cases = cases or [(b, 16, 32, 32, 32, 1), (b, 32, 32, 32, 32, 7),
+                      (b, 64, 16, 16, 64, 7), (b, 128, 8, 8, 128, 7)]
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     cl = dict(memory_format=torch.channels_last)
 
@@ -441,21 +478,24 @@ def conv_phase(dev, batch: int, dtype=None):
         shift = torch.randn((cin,), generator=gen, device=dev) * 0.5  # != 0
         wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
               * (2.0 / (9 * cin)) ** 0.5).to(dtype).contiguous(**cl)
-        got = fused_bn_act_conv(x, scale, shift, wt)
+        got = fused_bn_act_conv(x, scale, shift, wt, slope=slope)
         check(got.dtype == dtype, f"fused conv gave {got.dtype} for {dtype}")
         pre = x.float() * scale[:, None, None] + shift[:, None, None]
-        act = torch.where(pre > 0, pre, 0.01 * pre).to(dtype)
+        act = torch.where(pre > 0, pre, slope * pre).to(dtype)
         e = max_err(got, F.conv2d(act.float(), wt.float(), padding=1),
                     TOL_CONV, ulp=ulp_of(got),
-                    what=f"fused conv at {(bb, cin, h, w, cout)} {dtype}")
+                    what=f"fused conv at {(bb, cin, h, w, cout)} slope "
+                    f"{slope} {dtype}")
         return e, (x, scale, shift, wt, act)
 
     rows, err = [], 0.0
     for bb, cin, h, w, cout, n in cases:
         e, (x, scale, shift, wt, act) = held(bb, cin, h, w, cout)
         err = max(err, e)
-        kernel = lambda: fused_bn_act_conv(x, scale, shift, wt)  # noqa: E731
-        plain = lambda: fused_bn_act_conv_plain(x, scale, shift, wt)  # noqa: E731
+        kernel = lambda: fused_bn_act_conv(  # noqa: E731
+            x, scale, shift, wt, slope=slope)
+        plain = lambda: fused_bn_act_conv_plain(  # noqa: E731
+            x, scale, shift, wt, slope=slope)
         library = lambda: F.conv2d(act, wt, padding=1)  # noqa: E731
         flops = 2 * bb * h * w * 9 * cin * cout
         nbytes = (size * (bb * h * w * (cin + cout) + 9 * cin * cout)
@@ -468,9 +508,10 @@ def conv_phase(dev, batch: int, dtype=None):
                          bound_by=("operations" if flops / peak
                                    > nbytes / HBM_BYTES_PER_S else "bytes"),
                          library_ms=time_ms(library)))
-    if dtype == torch.bfloat16:
-        for shape in CONV_CHECK_SHAPES:
-            err = max(err, held(*shape)[0])
+    if check_shapes is None:
+        check_shapes = CONV_CHECK_SHAPES if dtype == torch.bfloat16 else []
+    for shape in check_shapes:
+        err = max(err, held(*shape)[0])
     return rows, err
 
 
@@ -648,17 +689,20 @@ def _randomize_bn(model):
     return model
 
 
-def random_model(device: str, dtype=None):
-    """A full-width WRN-28-2 SHOT-VAE with seeded random weights and BN
-    statistics (the same for every ``dtype``, the trunk's compute dtype)."""
+def random_model(device: str, dtype=None, net: dict = WRN):
+    """A full-width SHOT-VAE of the encoder path ``net`` (default the
+    headline WRN-28-2 on CIFAR-10) with seeded random weights and BN
+    statistics (the same for every ``dtype``, the trunk's compute dtype,
+    and either ``efficient``)."""
     import torch
 
     from shotvae_torch.models.vae import VariationalAutoEncoder
 
     torch.manual_seed(SEED)
     return _randomize_bn(VariationalAutoEncoder(
-        "wideresnet-28-2", continuous_latent_dim=128, disc_latent_dim=10,
-        device=device, dtype=dtype))
+        net["net"], continuous_latent_dim=128,
+        disc_latent_dim=CLASSES[net["dataset"]], device=device, dtype=dtype,
+        efficient=net["efficient"]))
 
 
 def random_classifier(device: str, dtype=None):
@@ -789,13 +833,18 @@ def events_ms(fn, iters: int = 10) -> float:
 REDUCTIONS = {"bn_stats": "_stats_kernel", "bn_bwd_reduce": "_bwd_reduce_kernel"}
 
 
-def bn_leaky_phase(dev, batch: int, dtype=None):
+def bn_leaky_phase(dev, batch: int, dtype=None, sites=None,
+                   deep: bool = True):
     """The four bn_leaky_train kernels at each (M, C, slope) of a train
     step: each against its plain version on the same inputs, timed. x, y,
     g and dx are in ``dtype`` (None: float32); xhat, the statistics and
     the sums are always f32. Each reduction gives one bitstream for one
-    input (two calls compared bit for bit) and, on the card, runs one CUDA
-    kernel per call (torch.profiler over one call at every site)."""
+    input (two calls compared bit for bit) and, with ``deep`` on the card,
+    runs one CUDA kernel per call (torch.profiler over one call at every
+    site) and gives the same bits on two streams at once. ``sites`` (M, C,
+    slope, BN sites per forward, backward launches per train step) replace
+    the WRN-28-2 step's; without ``deep`` the plain versions are held but
+    not timed."""
     import torch
 
     from shotvae_torch.ops.kernels import bn_leaky as bl
@@ -807,7 +856,7 @@ def bn_leaky_phase(dev, batch: int, dtype=None):
                             "bn_bwd_apply")}
     err = {k: 0.0 for k in rows}
     reductions = []
-    for m, c, slope, n_fwd, n_bwd in BN_TRAIN_SITES(batch):
+    for m, c, slope, n_fwd, n_bwd in sites or BN_TRAIN_SITES(batch):
         x = (torch.randn((m, c), generator=gen, device=dev) * 2
              + 0.5).to(dtype)
         gamma = torch.rand((c,), generator=gen, device=dev) + 0.5
@@ -855,10 +904,11 @@ def bn_leaky_phase(dev, batch: int, dtype=None):
             err[name] = max(err[name], e)
             rows[name].append(dict(
                 shape=[m, c], slope=slope, launches=launches, max_abs_err=e,
-                ms=time_ms(kernel), plain_ms=time_ms(plain),
+                ms=time_ms(kernel),
+                plain_ms=time_ms(plain) if deep else None,
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                 library_ms=None if library is None else time_ms(library)))
-    for name, fn in reductions if dev.type == "cuda" else ():
+    for name, fn in reductions if dev.type == "cuda" and deep else ():
         where = f"{name} at {tuple(fn.args[0].shape)} {dtype}"
         counter = ("launches_bf16" if dtype == torch.bfloat16
                    else "launches")
@@ -919,7 +969,8 @@ def cuda_launches(fn, count):
     return launches, counted, kernels
 
 
-def conv_bwd_phase(dev, batch: int, dtype=None):
+def conv_bwd_phase(dev, batch: int, dtype=None, cases=None,
+                   slope: float = 0.01):
     """The train-mode fused conv site, forward and backward, at each
     encoder shape against the same function as plain autograd ops, x, y and
     dx in ``dtype`` (None: float32), the f32 weight cast to it by the site.
@@ -927,7 +978,9 @@ def conv_bwd_phase(dev, batch: int, dtype=None):
     the f32 tolerance: the kernel folds BN into x * scale + shift where the
     plain version normalises, so an activation may round to the
     neighbouring bf16 value, which moves a conv output by an ulp of its
-    largest terms; the sums over the rows of bf16 gradients carry the same."""
+    largest terms; the sums over the rows of bf16 gradients carry the same.
+    ``cases`` (B, Cin, H, W, Cout, fused sites per forward) replace
+    WRN-28-2's; ``slope`` is the activation's."""
     import torch
 
     from shotvae_torch.ops.kernels.fused_conv import (
@@ -937,8 +990,10 @@ def conv_bwd_phase(dev, batch: int, dtype=None):
     ulp = ULP_BF16 if dtype == torch.bfloat16 else 0.0
     b = batch
     # (B, Cin, H, W, Cout, fused sites per forward)
-    cases = [(b, 16, 32, 32, 32, 1), (b, 32, 32, 32, 32, 7),
-             (b, 64, 16, 16, 64, 7), (b, 128, 8, 8, 128, 7)]
+    cases = cases or [(b, 16, 32, 32, 32, 1), (b, 32, 32, 32, 32, 7),
+                      (b, 64, 16, 16, 64, 7), (b, 128, 8, 8, 128, 7)]
+    site = functools.partial(fused_bn_act_conv_train, slope=slope)
+    site_plain = functools.partial(fused_bn_act_conv_train_plain, slope=slope)
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     rows, err = [], 0.0
     for bb, cin, h, w, cout, n in cases:
@@ -959,8 +1014,8 @@ def conv_bwd_phase(dev, batch: int, dtype=None):
             return [y.detach(), mean.detach(), var.detach()] + [
                 t.grad for t in ins]
 
-        got = run(fused_bn_act_conv_train)
-        want = run(fused_bn_act_conv_train_plain)
+        got = run(site)
+        want = run(site_plain)
         check([a.dtype for a in got] == [dtype] + [torch.float32] * 2
               + [dtype] + [torch.float32] * 3,
               f"fused site gave {[a.dtype for a in got]} for {dtype}")
@@ -974,10 +1029,8 @@ def conv_bwd_phase(dev, batch: int, dtype=None):
         err = max(err, e)
         rows.append(dict(shape=[bb, cin, h, w, cout], launches=4 * n,
                          max_abs_err=e,
-                         fwd_bwd_ms=events_ms(
-                             lambda: run(fused_bn_act_conv_train)),
-                         plain_fwd_bwd_ms=events_ms(
-                             lambda: run(fused_bn_act_conv_train_plain))))
+                         fwd_bwd_ms=events_ms(lambda: run(site)),
+                         plain_fwd_bwd_ms=events_ms(lambda: run(site_plain))))
     return rows, err
 
 
@@ -1011,15 +1064,16 @@ def _sgd_state(model, cfg, steps_per_epoch: int):
 
 def trainer(model, m2: bool = False):
     """The headline configuration's train step over ``model`` (CIFAR-10,
-    ``--br --om``, SGD with the multistep LR at CIFAR-10's 45,000 train
-    images per epoch, the epoch-0 loss weights); with ``m2`` the M2
-    baseline's step (no mixup, M2's cmi)."""
+    or CIFAR-100 for a model of 100 classes, ``--br --om``, SGD with the
+    multistep LR at 45,000 train images per epoch, the epoch-0 loss
+    weights); with ``m2`` the M2 baseline's step (no mixup, M2's cmi)."""
     from shotvae_torch.config import ShotVaeConfig
     from shotvae_torch.ops.schedules import shot_vae_epoch_schedules
     from shotvae_torch.train.steps import (make_m2_train_step,
                                            make_shot_vae_train_step)
 
-    cfg = ShotVaeConfig(br=True, om=not m2)
+    dataset = {k: d for d, k in CLASSES.items()}[model.disc_latent_dim]
+    cfg = ShotVaeConfig(br=True, om=not m2, dataset=dataset)
     spec = cfg.apply_dataset_overrides(m2=m2)
     state = _sgd_state(model, cfg, (50000 - spec.valid_per_class
                                     * spec.num_classes) // cfg.batch_size)
@@ -1053,9 +1107,10 @@ def _trainer(kind: str):
             "classifier": classifier_trainer}[kind]
 
 
-def _model(kind: str):
-    """The seeded full-width model of a path."""
-    return random_classifier if kind == "classifier" else random_model
+def _model(kind: str, net: dict = WRN):
+    """The seeded full-width model of a path and encoder path."""
+    return random_classifier if kind == "classifier" else functools.partial(
+        random_model, net=net)
 
 
 def _state_errors(got, want, tol: float) -> float:
@@ -1087,11 +1142,12 @@ def one_ulp_apart(model):
     return other
 
 
-def step_inputs(batch: int, kind: str = "shot", draw: int = 0):
+def step_inputs(batch: int, kind: str = "shot", draw: int = 0,
+                classes: int = 10):
     """Seeded uint8 images and labels of both streams (the classifier: the
     labeled one), and every draw of one train step of the path ``kind`` at
-    ``batch`` (+ ``batch``) (the ``inject`` dict); ``draw`` above 0 seeds
-    other ones."""
+    ``batch`` (+ ``batch``) (the ``inject`` dict) over ``classes``
+    classes; ``draw`` above 0 seeds other ones."""
     import numpy as np
     import torch
 
@@ -1100,7 +1156,8 @@ def step_inputs(batch: int, kind: str = "shot", draw: int = 0):
     if kind == "shot":
         inject = {f"eps_{i}": t(rng.standard_normal((batch, 128), np.float32))
                   for i in range(1, 5)}
-        inject.update({f"unif_{i}": t(rng.random((batch, 10), np.float32))
+        inject.update({f"unif_{i}": t(rng.random((batch, classes),
+                                                 np.float32))
                        for i in (3, 4)})
         inject.update(lam_sm=float(rng.beta(0.1, 0.1)),
                       perm_sm=t(rng.permutation(batch)),
@@ -1109,7 +1166,7 @@ def step_inputs(batch: int, kind: str = "shot", draw: int = 0):
     elif kind == "m2":
         inject = {f"eps_{i}": t(rng.standard_normal((batch, 128), np.float32))
                   for i in (1, 2)}
-        inject["unif_2"] = t(rng.random((batch, 10), np.float32))
+        inject["unif_2"] = t(rng.random((batch, classes), np.float32))
     else:
         inject = {}
     streams = ("",) if kind == "classifier" else ("_l", "_u")
@@ -1119,7 +1176,7 @@ def step_inputs(batch: int, kind: str = "shot", draw: int = 0):
                              t(rng.random(batch) < 0.5))
     images = [t(rng.integers(0, 256, (batch, 32, 32, 3), dtype=np.uint8))
               for _ in streams]
-    labels = [t(rng.integers(0, 10, batch)) for _ in streams]
+    labels = [t(rng.integers(0, classes, batch)) for _ in streams]
     return (*[x for pair in zip(images, labels) for x in pair], inject)
 
 
@@ -1139,9 +1196,10 @@ def train_once(model, inputs, kind: str = "shot"):
             model.state_dict())
 
 
-def compare_train_step(dev, batch: int, kind: str = "shot"):
+def compare_train_step(dev, batch: int, kind: str = "shot", net: dict = WRN):
     """One train step of the path ``kind`` (``"shot"``, ``"m2"`` or
-    ``"classifier"``) of the same model on ``dev`` and on the CPU at
+    ``"classifier"``; a VAE of the encoder path ``net``) of the same model
+    on ``dev`` and on the CPU at
     ``batch`` (+ ``batch``), every draw injected and the crops and flips
     replayed. Holds the metrics, each parameter's gradient (the step moves
     a parameter by a few hundredths of its size, so the parameters after it
@@ -1154,10 +1212,10 @@ def compare_train_step(dev, batch: int, kind: str = "shot"):
     tolerance that a gradient used and the largest one-ulp spread."""
     import torch
 
-    cpu_model = _model(kind)("cpu")
+    cpu_model = _model(kind, net)("cpu")
     dev_model = copy.deepcopy(cpu_model).to(dev)
     ulp_model = one_ulp_apart(cpu_model)
-    inputs = step_inputs(batch, kind)
+    inputs = step_inputs(batch, kind, classes=CLASSES[net["dataset"]])
     (m_dev, g_dev, sd_dev), (m_cpu, g_cpu, sd_cpu), (_, g_ulp, _) = [
         train_once(model, inputs, kind)
         for model in (dev_model, cpu_model, ulp_model)]
@@ -1241,51 +1299,59 @@ def check_counts(counters, dtype, expected: dict, what: str) -> dict:
 
 
 def train_phase(dev, batch: int, steps: int = TRAIN_STEPS, dtype=None,
-                kind: str = "shot"):
+                kind: str = "shot", net: dict = WRN, expected=None,
+                vs_cpu: bool = True):
     """A training main path on ``dev`` with the trunk in ``dtype`` (None:
     float32): ``kind`` ``"shot"`` (the SHOT-VAE), ``"m2"`` or
-    ``"classifier"``. ``steps`` train steps at ``batch`` (+ ``batch``
-    unlabeled, but for the classifier) with every kernel's launches
-    counted, then step times, one profiled step, the eval step, and one
-    step held against the CPU: the SHOT-VAE's in the trunk's dtype, the
-    baselines' in f32 (``vs_cpu``) and in bf16 (``vs_cpu_bf16``). On the
-    CPU no wrapper launches a kernel: every count must be 0."""
+    ``"classifier"``, a VAE of the encoder path ``net``. ``steps`` train
+    steps at ``batch`` (+ ``batch`` unlabeled, but for the classifier)
+    with every kernel's launches counted (``expected``: the (train, eval)
+    launches; default the path's ``PATHS`` entry), then step times, one
+    profiled step, the peak device memory of a step, the eval step, and,
+    with ``vs_cpu``, one step held against the CPU: the headline SHOT-VAE's
+    in the trunk's dtype, the others' in f32 (``vs_cpu``) and in bf16
+    (``vs_cpu_bf16``). On the CPU no wrapper launches a kernel: every
+    count must be 0."""
     import torch
 
     from shotvae_torch.train.steps import (make_classifier_eval_step,
                                            make_vae_eval_step)
 
-    expected_train, expected_eval = PATHS[kind]
+    expected_train, expected_eval = expected or PATHS[kind]
     counters = kernel_counters()
     cuda = dev.type == "cuda"
     bf16 = dtype == torch.bfloat16
-    model = _model(kind)(dev.type, dtype)
+    classes = CLASSES[net["dataset"]]
+    model = _model(kind, net)(dev.type, dtype)
     state, step, sched = _trainer(kind)(model)
     g = torch.Generator().manual_seed(SEED + 9)
     weight = torch.ones(batch, device=dev)
     data = [torch.randint(0, 256, (batch, 32, 32, 3), generator=g,
                           dtype=torch.uint8).to(dev),
-            (torch.arange(batch) % 10).to(dev)]
+            (torch.arange(batch) % classes).to(dev)]
     if kind == "classifier":
         run = lambda: step(state, *data, g)  # noqa: E731
-        evaluate = make_classifier_eval_step(model, num_classes=10)
+        evaluate = make_classifier_eval_step(model, num_classes=classes)
         eval_run = lambda: (evaluate(data[0], data[1], weight),  # noqa: E731
                             None)
     else:
         data += [torch.randint(0, 256, (batch, 32, 32, 3), generator=g,
                                dtype=torch.uint8).to(dev),
-                 torch.randint(0, 10, (batch,), generator=g).to(dev)]
+                 torch.randint(0, classes, (batch,), generator=g).to(dev)]
         run = lambda: step(state, *data, sched, g)  # noqa: E731
-        evaluate = make_vae_eval_step(model, num_classes=10, bce=True,
+        evaluate = make_vae_eval_step(model, num_classes=classes, bce=True,
                                       x_sigma=1.0)
         eval_run = lambda: evaluate(data[2], data[3], weight,  # noqa: E731
                                     generator=g)
     run()  # compiles every kernel variant the step needs
     _sync(dev)
 
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
     zero_counts(counters)
     metrics = [run() for _ in range(steps)]
     _sync(dev)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
     launches = check_counts(
         counters, dtype, {name: n * steps if cuda else 0
                           for name, n in expected_train.items()},
@@ -1326,17 +1392,20 @@ def train_phase(dev, batch: int, steps: int = TRAIN_STEPS, dtype=None,
     timing["eval_step_ms"] = host_ms(dev, eval_run)
 
     n = min(COMPARE_BATCH, batch)
+    timing["peak_memory_gb"] = peak_gb
     out = dict(launches=launches, eval_launches=eval_launches,
                last_metrics=last, timing=timing, profile=profile,
                profile_cudnn_tf32=profile_tf32)
-    if kind == "shot":
+    if not vs_cpu:
+        return out
+    if kind == "shot" and net is WRN:
         out["vs_cpu"] = (compare_train_step_bf16(dev, n) if bf16 else dict(
             zip(VS_CPU_KEYS, compare_train_step(dev, n))))
     else:
         out["vs_cpu"] = dict(zip(VS_CPU_KEYS,
-                                 compare_train_step(dev, n, kind)))
+                                 compare_train_step(dev, n, kind, net)))
         out["vs_cpu_bf16"] = compare_train_step_bf16(
-            dev, n, kind, BF16_CALIBRATION_DRAWS)
+            dev, n, kind, BF16_CALIBRATION_DRAWS, net)
     return out
 
 
@@ -1346,7 +1415,7 @@ def _dist(a, b) -> float:
 
 
 def compare_train_step_bf16(dev, batch: int, kind: str = "shot",
-                            draws: int = 1) -> dict:
+                            draws: int = 1, net: dict = WRN) -> dict:
     """One bf16 train step of the path ``kind`` of the same model on
     ``dev`` and on the CPU at ``batch`` (+ ``batch``), every draw injected
     and the crops and flips replayed, calibrated in the same run: the CPU
@@ -1366,11 +1435,12 @@ def compare_train_step_bf16(dev, batch: int, kind: str = "shot",
     tensor's largest value."""
     import torch
 
-    cpu16 = _model(kind)("cpu", torch.bfloat16)
+    classes = CLASSES[net["dataset"]]
+    cpu16 = _model(kind, net)("cpu", torch.bfloat16)
     dev16 = copy.deepcopy(cpu16).to(dev)
-    cpu32 = _model(kind)("cpu")
+    cpu32 = _model(kind, net)("cpu")
     before = {n: p.detach().clone() for n, p in cpu16.named_parameters()}
-    inputs = step_inputs(batch, kind)
+    inputs = step_inputs(batch, kind, classes=classes)
 
     def flat(run):
         metrics, grads, sd = run
@@ -1387,8 +1457,8 @@ def compare_train_step_bf16(dev, batch: int, kind: str = "shot",
                       for m in (dev16, cpu16, cpu32)]
     spread = {k: _dist(w, f32[k]) for k, w in want.items()}
     for d in range(1, draws):
-        more = step_inputs(batch, kind, draw=d)
-        a, b = [flat(train_once(_model(kind)("cpu", dtype), more, kind))
+        more = step_inputs(batch, kind, draw=d, classes=classes)
+        a, b = [flat(train_once(_model(kind, net)("cpu", dtype), more, kind))
                 for dtype in (torch.bfloat16, None)]
         spread = {k: max(v, _dist(a[k], b[k])) for k, v in spread.items()}
     worst, worst_key, errs, own = 0.0, "", [], []
@@ -1555,18 +1625,20 @@ def loop_phase(dev, base: str, config: dict, steps: int, eval_forwards: int,
 
 
 def baseline_loop_phase(dev, base: str, kind: str, config: dict, steps: int,
-                        eval_forwards: int) -> dict:
+                        eval_forwards: int, expected=None) -> dict:
     """One epoch of ``run_shot_vae(m2=True)`` or ``run_classifier`` of
     ``config`` on ``dev`` under ``base``: ``steps`` train steps and
-    ``eval_forwards`` eval forwards, whose launches are checked; its run
-    folder is the path's own and no other trainer's."""
+    ``eval_forwards`` eval forwards, whose launches are checked (against
+    ``expected``'s (train step, eval forward) launches; default the path's
+    ``PATHS`` entry); its run folder is the path's own and no other
+    trainer's."""
     import torch
 
     from shotvae_torch.config import ClassifierConfig, ShotVaeConfig
     from shotvae_torch.train.loop import run_classifier, run_shot_vae
 
     log = lambda *a: print(f"  {kind} loop:", *a)  # noqa: E731
-    expected_train, expected_eval = PATHS[kind]
+    expected_train, expected_eval = expected or PATHS[kind]
     counters = kernel_counters()
     cuda = dev.type == "cuda"
     if kind == "classifier":
@@ -1611,6 +1683,388 @@ def baseline_loop_phase(dev, base: str, kind: str, config: dict, steps: int,
             f"{images}_images_per_s": steps * batch / times["train_s"],
             "train_loss": h["train_loss"], "valid_top1": h["valid_top1"],
             "test_top1": h["test_top1"]}
+
+
+# ---------------------------------------------------------------- phase 11
+
+# the encoder paths of phase 11, in bf16 on CIFAR-100's shape (32x32x3,
+# K 100): PreActResNet-18 and DenseNet-121, plain and with --efficient
+PREACT = dict(net="preactresnet18", dataset="Cifar100", efficient=False)
+DENSE = dict(net="densenet121", dataset="Cifar100", efficient=False)
+DENSE_EFF = dict(DENSE, efficient=True)
+ENCODER_PATHS = {"preactresnet18": PREACT, "densenet121": DENSE,
+                 "densenet121_efficient": DENSE_EFF}
+
+
+def _launches(fused, bn_act, sample, stats, apply, bwd):
+    return {"fused_bn_act_conv": fused, "bn_act_inference": bn_act,
+            "fused_joint_sample": sample, "bn_stats": stats,
+            "bn_apply": apply, "bn_bwd_reduce": bwd, "bn_bwd_apply": bwd}
+
+
+# kernel launches per SHOT-VAE train step (4 forwards; the encoder's sites
+# get a gradient in all 4, the decoder's 5 in 2, as at WRN-28-2) and per
+# eval forward. preactresnet18: 13 fused sites, 4 standalone BN+ReLU sites
+# (norm1 of unit 1 of groups 2 to 4, before its stride-2 conv, and the
+# transition) and 3 identity BN sites (the projection shortcuts) a
+# forward: fused 13 * 4;
+# statistics and apply (13 + 7 + 5) * 4; backward 20 * 4 + 5 * 2. Eval:
+# 13 fused, 7 + 5 bn_act, one draw. densenet121: 58 fused sites (norm2 of
+# each dense layer) and 62 standalone (58 norm1, 3 transitions, the final
+# norm): fused 58 * 4; statistics and apply (58 + 62 + 5) * 4; backward
+# 120 * 4 + 5 * 2; eval 58 fused, 62 + 5 bn_act. With --efficient the
+# backward recomputes each dense block once per forward: 58 more fused
+# convs, 116 more statistics (norm1 and norm2) and 58 more applies (norm1)
+# per forward, times 4.
+EXPECTED_ENCODER_LAUNCHES = {
+    "preactresnet18": (_launches(52, 0, 0, 100, 100, 90),
+                       _launches(13, 12, 1, 0, 0, 0)),
+    "densenet121": (_launches(232, 0, 0, 500, 500, 490),
+                    _launches(58, 67, 1, 0, 0, 0)),
+    "densenet121_efficient": (_launches(464, 0, 0, 964, 732, 490),
+                              _launches(58, 67, 1, 0, 0, 0)),
+}
+# the M2 step with preactresnet18: two forwards, both with gradients
+EXPECTED_PREACT_M2_LAUNCHES = (_launches(26, 0, 0, 50, 50, 50),
+                               _launches(13, 12, 1, 0, 0, 0))
+# serving: (fused conv, bn_act, sample) per endpoint
+EXPECTED_ENCODER_SERVE = {
+    "preactresnet18": {"classify": (13, 7, 0), "reconstruct": (13, 12, 1)},
+    "densenet121": {"classify": (58, 62, 0), "reconstruct": (58, 67, 1)},
+}
+# the M2 epoch on 50,000 synthetic CIFAR-100 images: 50 valid and 40
+# labeled images per class, 45,000 unlabeled: 58 steps; 7 valid and 17
+# test batches and the grid
+ENCODER_LOOP_CONFIG = dict(LOOP_CONFIG, dataset="Cifar100",
+                           net_name="preactresnet18")
+# the fused sites of the other DenseNets (Cin = 4 x growth -> growth):
+# densenetbc100 48 -> 12, densenetbc250 96 -> 24, densenetbc190 160 -> 40,
+# densenet161 192 -> 48, at each block's map; held in f32 and bf16 with
+# ReLU, not timed
+DENSE_BC_CONV_SHAPES = [(16, 48, 32, 32, 12), (16, 48, 8, 8, 12),
+                        (16, 96, 32, 32, 24), (16, 96, 16, 16, 24),
+                        (16, 160, 16, 16, 40), (16, 160, 8, 8, 40),
+                        (16, 192, 8, 8, 48), (16, 192, 4, 4, 48),
+                        (16, 128, 2, 2, 32)]
+GRAD_EQ_ULPS = 1.0  # efficient against plain: gradients within one bf16 ulp
+#                     of each gradient's largest value
+
+
+def encoder_sites(net: dict) -> dict:
+    """The BN sites of one forward of ``net``'s encoder (batch 1, eval
+    mode, on the CPU), in order and with repeats: 'fused' (Cin, H, W, Cout,
+    in a dense block) and 'alone' (C, H, W, slope, in a dense block)."""
+    import torch
+
+    from shotvae_torch.models.layers import BatchNorm
+    from shotvae_torch.models.vae import build_encoder
+
+    encoder = build_encoder(net["net"]).eval()
+    names = {id(m): n for n, m in encoder.named_modules()}
+    sites = {"fused": [], "alone": []}
+    forward, act_conv = BatchNorm.forward, BatchNorm.act_conv
+
+    def alone(self, x):
+        sites["alone"].append((x.shape[1], x.shape[2], x.shape[3],
+                               self.slope, "denseblock" in names[id(self)]))
+        return forward(self, x)
+
+    def fused(self, x, conv):
+        sites["fused"].append((x.shape[1], x.shape[2], x.shape[3],
+                               conv.weight.shape[0],
+                               "denseblock" in names[id(self)]))
+        return act_conv(self, x, conv)
+
+    BatchNorm.forward, BatchNorm.act_conv = alone, fused
+    try:
+        with torch.no_grad():
+            encoder(torch.zeros(1, 3, 32, 32).contiguous(
+                memory_format=torch.channels_last))
+    finally:
+        BatchNorm.forward, BatchNorm.act_conv = forward, act_conv
+    return sites
+
+
+def _tally(items) -> dict:
+    out = {}
+    for item in items:
+        out[item] = out.get(item, 0) + 1
+    return out
+
+
+def encoder_kernel_phase(dev, batch: int) -> dict:
+    """Every kernel against its plain version at every distinct shape the
+    two encoders give it at ``batch`` (the ReLU and identity sites):
+    the bf16 bn_leaky kernels (train), bn_act in bf16 (eval step) and f32
+    (serving), the fused conv forward in bf16 and f32 with ReLU, timed
+    beside its bound and F.conv2d, and held at DENSE_BC_CONV_SHAPES, and
+    the bf16 train-mode fused site forward and backward. Rows carry their
+    launches per forward (bn_act, conv) or per SHOT train step
+    (bn_leaky, the fused site)."""
+    import torch
+
+    bf16 = torch.bfloat16
+    sites = {name: encoder_sites(net) for name, net in
+             (("preactresnet18", PREACT), ("densenet121", DENSE))}
+    out = {}
+    for name, st in sites.items():
+        bn = _tally((c, h * w, slope) for c, h, w, slope, _ in st["alone"])
+        for c, h, w, _, _ in st["fused"]:
+            bn[(c, h * w, 0.0)] = bn.get((c, h * w, 0.0), 0) + 1
+        conv = _tally((c, h, w, o) for c, h, w, o, _ in st["fused"])
+        alone = _tally((c, h * w, slope) for c, h, w, slope, _ in st["alone"])
+        bn_sites = [(batch * hw, c, slope, n, 4 * n)
+                    for (c, hw, slope), n in sorted(bn.items())]
+        act_cases = [(batch * hw, c, slope, n)
+                     for (c, hw, slope), n in sorted(alone.items())]
+        conv_cases = [(batch, c, h, w, o, n)
+                      for (c, h, w, o), n in sorted(conv.items())]
+        res = {"sites": {"fused": len(st["fused"]),
+                         "alone": len(st["alone"]),
+                         "identity": sum(x[3] == 1.0 for x in st["alone"]),
+                         "dense_block_fused": sum(x[4] for x in st["fused"]),
+                         "dense_block_alone": sum(x[4]
+                                                  for x in st["alone"])}}
+        res["bn_leaky_train"] = bn_leaky_phase(dev, batch, bf16, bn_sites,
+                                               deep=False)
+        res["bn_act_inference"] = bn_act_phase(dev, batch, bf16, act_cases)
+        res["bn_act_inference_f32"] = bn_act_phase(dev, batch, None,
+                                                   act_cases)
+        res["fused_bn_act_conv"] = conv_phase(dev, batch, bf16, conv_cases,
+                                              0.0, [])
+        res["fused_bn_act_conv_f32"] = conv_phase(dev, batch, None,
+                                                  conv_cases, 0.0, [])
+        res["fused_bn_act_conv_train"] = conv_bwd_phase(dev, batch, bf16,
+                                                        conv_cases, 0.0)
+        out[name] = res
+    out["dense_bc_conv"] = [conv_phase(dev, 1, dtype, [(1, 48, 8, 8, 12, 0)],
+                                       0.0, DENSE_BC_CONV_SHAPES)[1]
+                            for dtype in (bf16, None)]
+    return out
+
+
+def weighted_rows(res: dict) -> dict:
+    """Each part's rows of ``encoder_kernel_phase`` summed, weighted by
+    their launches: per SHOT-VAE train step (bn_leaky, the train-mode
+    fused site) or per forward (bn_act, the fused conv)."""
+    out = {}
+    for part, result in res.items():
+        if part == "sites":
+            continue
+        rows = result[0]
+        for kernel, kernel_rows in (rows.items() if isinstance(rows, dict)
+                                    else ((part, rows),)):
+            out[kernel] = {"launches": sum(r["launches"]
+                                           for r in kernel_rows)}
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                        "fwd_bwd_ms", "plain_fwd_bwd_ms"):
+                if all(r.get(key) is not None for r in kernel_rows):
+                    out[kernel][key] = sum(r[key] * r["launches"]
+                                           for r in kernel_rows)
+    return out
+
+
+def efficient_vs_plain(dev, batch: int) -> dict:
+    """densenet121 with --efficient against plain densenet121: one bf16
+    SHOT-VAE step each, of the same weights, on the same images and
+    injected draws, cuDNN deterministic. The metrics and the running
+    statistics (and their counts: tracked once per forward) must be equal,
+    each gradient within GRAD_EQ_ULPS bf16 ulps of its largest value."""
+    import torch
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    inputs = step_inputs(batch, "shot", classes=CLASSES[DENSE["dataset"]])
+    runs = []
+    try:
+        for net in (DENSE, DENSE_EFF):
+            model = random_model("cpu", torch.bfloat16, net).to(dev)
+            metrics, grads, sd = train_once(model, inputs)
+            runs.append((metrics, grads, {k: v.cpu() for k, v in sd.items()
+                                          if "running" in k
+                                          or "num_batches" in k}))
+            del model, sd
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    (m_p, g_p, s_p), (m_e, g_e, s_e) = runs
+    check(all(torch.equal(m_e[k], m_p[k]) for k in m_p),
+          f"efficient and plain densenet121 disagree on the metrics: "
+          f"{ {k: (float(m_e[k]), float(m_p[k])) for k in m_p} }")
+    check(s_e.keys() == s_p.keys()
+          and all(torch.equal(s_e[k], s_p[k]) for k in s_p),
+          "efficient and plain densenet121 disagree on the running "
+          "statistics")
+    worst, worst_key, err_max = 0.0, "", 0.0
+    for k, want in g_p.items():
+        e = float((g_e[k].double() - want.double()).abs().max())
+        tol = GRAD_EQ_ULPS * ULP_BF16 * float(want.abs().max())
+        check(e <= tol, f"efficient and plain densenet121 disagree on the "
+              f"gradient of {k}: {e:.3e} beyond {tol:.3e}")
+        err_max = max(err_max, e)
+        if tol and e / tol >= worst:
+            worst, worst_key = e / tol, k
+    tracked = {int(v) for k, v in s_p.items() if "num_batches" in k}
+    return dict(metrics_equal=True, running_stats_equal=True,
+                num_batches_tracked=sorted(tracked), gradients=len(g_p),
+                grad_max_abs_err=err_max, grad_worst_share_of_tol=worst,
+                grad_worst=worst_key, loss=float(m_p["loss"]))
+
+
+def encoder_train_phase(dev, batch: int, steps: int = TRAIN_STEPS) -> dict:
+    """The bf16 SHOT-VAE train and eval steps of preactresnet18,
+    densenet121 and densenet121 --efficient at ``batch`` + ``batch``
+    (``train_phase``: launches, step times, profile, peak memory, eval
+    step; the card against the CPU for the two families, f32 and bf16),
+    then the efficient step against the plain one."""
+    import torch
+
+    out = {}
+    for name, net in ENCODER_PATHS.items():
+        t0 = time.perf_counter()
+        res = out[name] = train_phase(dev, batch, steps, torch.bfloat16,
+                                      "shot", net,
+                                      EXPECTED_ENCODER_LAUNCHES[name],
+                                      vs_cpu=not net["efficient"])
+        for key in ("launches", "eval_launches", "last_metrics", "timing",
+                    "profile", "vs_cpu", "vs_cpu_bf16"):
+            if key in res:
+                print(f"{name}_shot_bf16_{key}_at_batch_{batch} "
+                      + json.dumps(res[key]))
+        print(f"{name} train phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["efficient_vs_plain"] = efficient_vs_plain(dev, batch)
+    print("densenet121_efficient_vs_plain "
+          + json.dumps(out["efficient_vs_plain"]))
+    print(f"efficient against plain {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def encoder_m2_phase(dev, batch: int, base: str, config: dict, steps: int,
+                     eval_forwards: int, train_steps: int = TRAIN_STEPS
+                     ) -> dict:
+    """The M2 baseline over preactresnet18 (BASELINE config 5): the bf16
+    step at ``batch`` + ``batch`` with launches, times and the eval step,
+    then one bf16 epoch of ``run_shot_vae(m2=True)`` of ``config`` under
+    ``base`` with launches equal to the step's and the eval step's
+    multiples."""
+    import torch
+
+    out = train_phase(dev, batch, train_steps, torch.bfloat16, "m2", PREACT,
+                      EXPECTED_PREACT_M2_LAUNCHES, vs_cpu=False)
+    out["loop"] = baseline_loop_phase(dev, base, "m2", config, steps,
+                                      eval_forwards,
+                                      EXPECTED_PREACT_M2_LAUNCHES)
+    return out
+
+
+def encoder_serve_phase(dev, batch: int, name: str) -> dict:
+    """f32 ``ShotVaeInference.from_checkpoint`` of a seeded ``name`` model
+    saved as the trainer saves one (its ``net_name`` in ``args``), under a
+    folder of ``build/`` removed after: ``classify`` and ``reconstruct`` at
+    ``batch`` with their launches checked and timed, and 16 images of each
+    against the same model on the CPU."""
+    import torch
+
+    from shotvae_torch.api import ShotVaeInference
+    from shotvae_torch.ops.kernels.fused_sample import fused_joint_sample
+
+    net = ENCODER_PATHS[name]
+    classes = CLASSES[net["dataset"]]
+    cpu_model = random_model("cpu", None, net)
+    root = os.path.join(ROOT, "build")
+    os.makedirs(root, exist_ok=True)
+    folder = tempfile.mkdtemp(prefix=f"serve_{name}_", dir=root)
+    try:
+        path = os.path.join(folder, "checkpoint.pth.tar")
+        torch.save({"args": {"net_name": net["net"]},
+                    "state_dict": cpu_model.state_dict()}, path)
+        gpu = ShotVaeInference.from_checkpoint(path, device=dev)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    cpu = ShotVaeInference(cpu_model, device="cpu")
+    g = torch.Generator().manual_seed(SEED + 4)
+    images = torch.randint(0, 256, (batch, 32, 32, 3), generator=g,
+                           dtype=torch.uint8)
+    endpoints = {"classify": lambda: gpu.classify(images),
+                 "reconstruct": lambda: gpu.reconstruct(
+                     images, generator=torch.Generator().manual_seed(
+                         SEED + 5))}
+    counters = kernel_counters()
+    serving = ("fused_bn_act_conv", "bn_act_inference", "fused_joint_sample")
+    outs, launches = {}, dict.fromkeys(serving, 0)
+    for endpoint, fn in endpoints.items():
+        zero_counts(counters)
+        outs[endpoint] = fn()
+        _sync(dev)
+        got = tuple(read_counts(counters, torch.float32)[k] for k in serving)
+        want = tuple(n if dev.type == "cuda" else 0
+                     for n in EXPECTED_ENCODER_SERVE[name][endpoint])
+        check(got == want and set(read_counts(
+            counters, torch.bfloat16).values()) == {0},
+            f"{name} {endpoint} launched (conv, bn_act, sample) = {got}, "
+            f"expected {want}")
+        for k, n in zip(serving, got):
+            launches[k] += n
+    probs, recon = outs["classify"], outs["reconstruct"]
+    check(probs.shape == (batch, classes)
+          and recon.shape == (batch, 32, 32, 3)
+          and bool(torch.isfinite(probs).all())
+          and bool(torch.isfinite(recon).all())
+          and float((probs.sum(1) - 1).abs().max()) < 1e-5,
+          f"{name} serving gave a wrong shape or value")
+    n = min(16, batch)
+    err = {"classify": max_err(probs[:n].cpu(), cpu.classify(images[:n]),
+                               TOL_E2E, what=f"{name} classify")}
+    with torch.inference_mode():
+        mean, log_sigma, log_alpha = gpu.encode(images)
+        draw = fused_joint_sample(mean, log_sigma, log_alpha,
+                                  gpu.model.sample_temperature,
+                                  generator=torch.Generator().manual_seed(
+                                      SEED + 5))
+        want = torch.sigmoid(cpu.model.decode(draw[:n].cpu()))
+    err["reconstruct"] = max_err(recon[:n].cpu(), want.permute(0, 2, 3, 1),
+                                 TOL_E2E, what=f"{name} reconstruct")
+    return {"launches": launches, "vs_cpu_max_abs_err": err,
+            "ms": {k: host_ms(dev, fn) for k, fn in endpoints.items()}}
+
+
+def encoder_paths(encoders: dict) -> dict:
+    """{path: the bf16 launches of each kernel} of phase 11's train, eval
+    and epoch paths."""
+    out = {}
+    for name in ENCODER_PATHS:
+        res = encoders["train"][name]
+        out[f"{name}_shot_train_bf16"] = res["launches"]
+        out[f"{name}_shot_eval_bf16"] = res["eval_launches"]
+    m2 = encoders["m2"]
+    out["preactresnet18_m2_train_bf16"] = m2["launches"]
+    out["preactresnet18_m2_eval_bf16"] = m2["eval_launches"]
+    out["preactresnet18_m2_loop_bf16"] = m2["loop"]["launches"]
+    return out
+
+
+def check_encoder_rows(kernels: dict, train: dict, steps: int) -> None:
+    """Phase 11's timed rows weigh what the main path launched: per
+    forward, the fused conv rows 1/4 of the train step's fused convs; per
+    step, the bn_leaky rows plus the decoder's 5 sites (statistics and
+    apply in 4 forwards, backward in 2) the step's launches."""
+    for name in ("preactresnet18", "densenet121"):
+        got = train[name]["launches"]
+        rows = kernels[name]
+        conv = sum(r["launches"] for r in rows["fused_bn_act_conv"][0])
+        check(4 * conv * steps == got["fused_bn_act_conv"],
+              f"{name}'s fused conv rows weigh {conv} launches per forward; "
+              f"{steps} steps launched {got['fused_bn_act_conv']}")
+        for kernel, decoder in (("bn_stats", 20), ("bn_apply", 20),
+                                ("bn_bwd_reduce", 10), ("bn_bwd_apply", 10)):
+            weight = sum(r["launches"]
+                         for r in rows["bn_leaky_train"][0][kernel])
+            check((weight + decoder) * steps == got[kernel],
+                  f"{name}'s {kernel} rows weigh {weight} + {decoder} "
+                  f"launches per step; {steps} steps launched {got[kernel]}")
 
 
 # -------------------------------------------------------------------- main
@@ -1679,6 +2133,57 @@ def summarize(name, route, source, replaces, bound_by, rows, err, launches,
                 library_ms=(None if rows[0]["library_ms"] is None
                             else total("library_ms")), per=per,
                 launches_per_unit=sum(r["launches"] for r in rows))
+
+
+def encoder_phases(dev, batch: int, steps: int = TRAIN_STEPS,
+                   loop: tuple = (ENCODER_LOOP_CONFIG, LOOP_STEPS,
+                                  LOOP_EVAL_FORWARDS)) -> dict:
+    """Phase 11: the encoders' kernel shapes, their bf16 SHOT-VAE train and
+    eval steps (``steps`` counted), the M2 step and epoch of ``loop``
+    (config, steps, eval forwards) under a folder of ``build/`` removed
+    after, and f32 serving; each part's lines printed as it ends."""
+    out = {}
+    t0 = time.perf_counter()
+    out["kernels"] = encoder_kernel_phase(dev, batch)
+    for name in ("preactresnet18", "densenet121"):
+        res = out["kernels"][name]
+        print(f"{name}_sites " + json.dumps(res["sites"]))
+        for part in ("bn_leaky_train", "bn_act_inference",
+                     "bn_act_inference_f32", "fused_bn_act_conv",
+                     "fused_bn_act_conv_f32", "fused_bn_act_conv_train"):
+            rows, err = res[part]
+            for kernel, kernel_rows in (rows.items() if isinstance(rows, dict)
+                                        else ((part, rows),)):
+                for row in kernel_rows:
+                    print(f"{name} {kernel} {json.dumps(row)}")
+    for name in ("preactresnet18", "densenet121"):
+        print(f"{name}_kernel_ms_weighted "
+              + json.dumps(weighted_rows(out["kernels"][name])))
+    print("dense_bc_conv_max_abs_err_bf16_f32 "
+          + json.dumps(out["kernels"]["dense_bc_conv"]))
+    print(f"encoder kernel phase {time.perf_counter() - t0:.1f} s")
+    out["train"] = encoder_train_phase(dev, batch, steps)
+    check_encoder_rows(out["kernels"], out["train"], steps)
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build")
+    os.makedirs(root, exist_ok=True)
+    base = tempfile.mkdtemp(prefix="encoder_m2_", dir=root)
+    try:
+        out["m2"] = encoder_m2_phase(dev, batch, base, *loop, steps)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    for key in ("launches", "eval_launches", "last_metrics", "timing",
+                "profile", "loop"):
+        print(f"preactresnet18_m2_bf16_{key}_at_batch_{batch} "
+              + json.dumps(out["m2"][key]))
+    print(f"preactresnet18 m2 phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["serve"] = {name: encoder_serve_phase(dev, batch, name)
+                    for name in EXPECTED_ENCODER_SERVE}
+    for name, res in out["serve"].items():
+        print(f"{name}_serve_f32_at_batch_{batch} " + json.dumps(res))
+    print(f"encoder serve phase {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def baseline_paths(baselines: dict) -> dict:
@@ -1869,6 +2374,7 @@ def main() -> int:
         print(f"{kind}_loop_epoch_at_batch_{BATCH} "
               + json.dumps(out["loop"]))
         print(f"{kind} phase {time.perf_counter() - t0:.1f} s")
+    encoders = encoder_phases(dev, BATCH)
     conv_train = sum(r["launches"] for r in conv_bwd_rows)
     check(conv_train * TRAIN_STEPS == train["launches"]["fused_bn_act_conv"],
           f"the fused conv backward rows weigh {conv_train} launches per "
@@ -1921,15 +2427,21 @@ def main() -> int:
     sampler = entries[2]
     sampler["launches_by_path"]["eval_bf16_trunk"] = \
         bf16["train"]["eval_launches"]["fused_joint_sample"]
-    # and 25 times in the loop's bf16 epoch; so in M2's eval step and
-    # epoch
+    # and 25 times in the loop's bf16 epoch; so in each eval step and
+    # epoch of the M2 and encoder paths
     sampler["launches_by_path"]["loop_bf16_trunk"] = \
         loop["epoch"]["launches"]["fused_joint_sample"]
     paths = baseline_paths(baselines)
+    paths.update(encoder_paths(encoders))
     for path, counts in paths.items():
-        if path.startswith("m2"):
+        if counts["fused_joint_sample"]:
             sampler["launches_by_path"][path] = counts["fused_joint_sample"]
-    sampler["launches"] = sum(sampler["launches_by_path"].values())
+    # and in phase 11's f32 serving
+    for entry in entries[:3]:
+        for net, res in encoders["serve"].items():
+            entry["launches_by_path"][f"{net}_serve"] = \
+                res["launches"][entry["name"]]
+        entry["launches"] = sum(entry["launches_by_path"].values())
     entries += bf16_entries(bf16, loop["epoch"]["launches"], paths)
     print(smi)
     print(json.dumps({"kernels": entries}))

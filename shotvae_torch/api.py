@@ -48,9 +48,12 @@ class ShotVaeInference:
         scripts/export_torch_checkpoint.py wrote. ``source`` is a
         ``CheckpointManager`` (its latest ``checkpoint``, or ``best``), a
         run folder or pointer-managed name (``best`` picks the ``best``
-        pointer) or a file. The latent sizes are read from the weights; the
-        encoder name and temperature from the stored config, unless
-        ``encoder_name`` is given. The model serves in float32."""
+        pointer) or a file. The latent sizes and the stem (``small_input``)
+        are read from the weights; the encoder name (any family
+        ``build_encoder`` takes) and temperature from the stored config,
+        unless ``encoder_name`` is given. The model serves in float32 in
+        eval mode, where DenseNet's ``efficient`` changes nothing, so it is
+        not read."""
         device = resolve_device(device)
         name = "best" if best else "checkpoint"
         path = (source.latest_path(best)
@@ -62,10 +65,10 @@ class ShotVaeInference:
         if not encoder_name:
             raise ValueError(f"{path} names no net_name; pass encoder_name")
         up0 = sd["feature_reconstructor.decoder.0.weight"]
+        stem = sd["feature_extractor.encoder.pre_process.conv0.weight"]
         model = VariationalAutoEncoder(
-            encoder_name,
-            num_input_channels=sd[
-                "feature_extractor.encoder.pre_process.conv0.weight"].shape[1],
+            encoder_name, num_input_channels=stem.shape[1],
+            small_input=stem.shape[2] == 3,  # else the 7x7 stem
             img_size=(32 * up0.shape[2], 32 * up0.shape[3]),
             continuous_latent_dim=sd[
                 "continuous_inference.mean.fc.weight"].shape[0],

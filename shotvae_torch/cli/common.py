@@ -60,7 +60,9 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                         help="The ratio for semi-supervised annotation")
     # Deep VAE Model Parameters
     parser.add_argument("--net-name", default="wideresnet-28-2", type=str,
-                        help="the name for network to use")
+                        help="the encoder: wideresnet-<depth>-<width>, "
+                             "preactresnet18/34/50/101/152, densenet121/161/"
+                             "169/201 or densenetbc100/190/250")
     parser.add_argument("--temperature", default=0.67, type=float,
                         help="centeralization parameter")
     parser.add_argument("-dr", "--drop-rate", default=0, type=float,
@@ -152,7 +154,8 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     parser.add_argument("--yes", action="store_true",
                         help="skip the interactive run-dir removal prompt")
     parser.add_argument("--efficient", action="store_true",
-                        help="densenet gradient rematerialisation")
+                        help="densenet: recompute each dense block in the "
+                             "backward (block-level rematerialisation)")
     parser.add_argument("--max-epochs", default=None, type=int,
                         help="stop after N epochs (debug/smoke)")
     parser.add_argument("--ckpt-every", default=1, type=int,

@@ -57,9 +57,13 @@
 //     plane): two `wgmma.mma_async` m64nBNk16 into f32 registers, 18 * CC
 //     / 16 per chunk. Its epilogue writes bf16 y into swizzled shared
 //     memory and one TMA store per tile (which clips the image border and
-//     channels past Cout). While one consumer runs its products or its
-//     epilogue, the other runs its own, the activation warpgroups prepare
-//     the next stages and the producer loads ahead;
+//     channels past Cout). Where Cout is not a multiple of 8 (DenseNet-BC
+//     100's growth rate of 12), no TMA map can describe y, whose rows are
+//     then not 16-byte strided: the epilogue stores each accumulator to
+//     device memory itself, clipped to the image and to Cout (`direct`).
+//     While one consumer runs its products or its epilogue, the other
+//     runs its own, the activation warpgroups prepare the next stages and
+//     the producer loads ahead;
 //   * `setmaxnreg` moves registers from the producer and activation
 //     warpgroups to the consumers, in one if/else on the warpgroup whose
 //     paths never rejoin.
@@ -319,7 +323,7 @@ __device__ __forceinline__ void wgmma_bn(float (&d)[BN / 2], uint64_t a,
 
 struct Geometry {
   int H, W, Cin, Cout, cin_pad, tiles_x, tiles_per_image, tiles, n_slices,
-      stages, stream;
+      stages, stream, direct;
 };
 
 template <int BN, int CC>
@@ -329,6 +333,7 @@ fused_bn_act_conv3x3_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
                                  const float* __restrict__ scale,
                                  const float* __restrict__ shift,
                                  const __grid_constant__ CUtensorMap y_map,
+                                 __nv_bfloat16* __restrict__ y,
                                  const Geometry g, float slope) {
   constexpr int Q = CC / 8;  // 16-byte channel groups of a position
   extern __shared__ __align__(1024) uint8_t smem[];
@@ -551,10 +556,35 @@ fused_bn_act_conv3x3_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
         for (int u = 0; u < TPI; ++u) fence_acc(acc[u]);
         if (tid == 0) mbar_arrive(act_empty + 8 * s);
       }
-      // epilogue: bf16 y through shared memory and a TMA store per tile,
-      // which clips the image border and channels past Cout. Accumulator
-      // 4j + 2h + e of tile u: pixel 8 * (2 * warp + h) + lane / 4 of the
-      // tile, channel 8j + 2 * (lane % 4) + e of the slice. The staging
+      // epilogue. Accumulator 4j + 2h + e of tile u: pixel 8 * (2 * warp +
+      // h) + lane / 4 of the tile, channel 8j + 2 * (lane % 4) + e of the
+      // slice. Direct: each to y itself, clipped to the image and Cout
+      if (g.direct) {
+        for (int u = 0; u < n_sub; ++u) {
+          int b, y0, x0;
+          tile(TPI * it + u, b, y0, x0);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int P = 8 * (2 * warp + h) + (lane >> 2);
+            const int py = y0 + P / TILE, px = x0 + P % TILE;
+            if (py >= g.H || px >= g.W) continue;
+            __nv_bfloat16* row =
+                y + ((static_cast<size_t>(b) * g.H + py) * g.W + px) * g.Cout;
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int c = n0 + 8 * j + 2 * (lane & 3) + e;
+                if (c < g.Cout)
+                  row[c] = __float2bfloat16_rn(acc[u][4 * j + 2 * h + e]);
+              }
+            }
+          }
+        }
+        continue;
+      }
+      // Else bf16 y through shared memory and a TMA store per tile, which
+      // clips the image border and channels past Cout. The staging
       // tile is [pixel][BN channels] with the TMA's 128-byte (BN = 64) or
       // 64-byte (BN = 32) swizzle: 16-byte chunk j of pixel P at j ^ (P % 8)
       // or j ^ (P / 2 % 4), so the 8 pixels of a store fall in other banks
@@ -673,7 +703,7 @@ bool encode_bf16(EncodeTiled encode, CUtensorMap* map, const void* base,
 template <int BN, int CC>
 int launch(const CUtensorMap& x_map, const CUtensorMap& w_map,
            const CUtensorMap& y_map, const float* scale, const float* shift,
-           const Geometry& g, int smem_bytes, int grid, float slope,
+           void* y, const Geometry& g, int smem_bytes, int grid, float slope,
            cudaStream_t stream) {
   static bool attr = false;
   auto kernel = fused_bn_act_conv3x3_bf16_kernel<BN, CC>;
@@ -683,8 +713,9 @@ int launch(const CUtensorMap& x_map, const CUtensorMap& w_map,
     if (err != cudaSuccess) return static_cast<int>(err);
     attr = true;
   }
-  kernel<<<grid, NTHREADS, smem_bytes, stream>>>(x_map, w_map, scale, shift,
-                                                 y_map, g, slope);
+  kernel<<<grid, NTHREADS, smem_bytes, stream>>>(
+      x_map, w_map, scale, shift, y_map, static_cast<__nv_bfloat16*>(y), g,
+      slope);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -692,10 +723,12 @@ int launch(const CUtensorMap& x_map, const CUtensorMap& w_map,
 
 // x: (B, H, W, Cin) bf16; scale, shift: (Cin,) f32; w: the K-major (Cout,
 // 9 * cin_pad) bf16 matrix, row co = [ky][kx][ci] with input channels padded
-// with zeros to cin_pad; y: (B, H, W, Cout) bf16. Cin and Cout multiples of
-// 8, every pointer 16-byte aligned. (cin_pad, bn, cc, stages, streamed,
-// smem_bytes, grid) is conv_plan()'s launch plan; streamed is 1 where the
-// weights go through the stages rather than stay resident.
+// with zeros to cin_pad; y: (B, H, W, Cout) bf16. Cin a multiple of 8 (the
+// TMA's 16-byte row stride of x), any Cout (the epilogue stores directly
+// where Cout is not a multiple of 8), every pointer 16-byte aligned.
+// (cin_pad, bn, cc, stages, streamed, smem_bytes, grid) is conv_plan()'s
+// launch plan; streamed is 1 where the weights go through the stages
+// rather than stay resident.
 extern "C" int fused_bn_act_conv3x3_bf16(const void* x, const float* scale,
                                          const float* shift, const void* w,
                                          void* y, int B, int H, int W,
@@ -712,9 +745,10 @@ extern "C" int fused_bn_act_conv3x3_bf16(const void* x, const float* scale,
   g.n_slices = (Cout + bn - 1) / bn;
   g.stages = stages;
   g.stream = streamed != 0;
+  g.direct = Cout % 8 != 0;
   const bool plan_ok =
       B > 0 && H > 0 && W > 0 && Cin > 0 && Cin % 8 == 0 && Cout > 0 &&
-      Cout % 8 == 0 && (bn == 32 || bn == 64) &&
+      (bn == 32 || bn == 64) &&
       (cc == 16 || cc == 32 || cc == 64) && cin_pad % 16 == 0 &&
       cin_pad >= Cin && cin_pad - Cin < 16 && cin_pad % cc == 0 &&
       stages >= 2 && stages <= 8 && stages % 2 == 0 &&
@@ -748,20 +782,24 @@ extern "C" int fused_bn_act_conv3x3_bf16(const void* x, const float* scale,
       static_cast<cuuint64_t>(H) * W * Cout * 2};
   const cuuint32_t y_box[4] = {static_cast<cuuint32_t>(bn), TILE, TILE, 1};
   if (!encode_bf16(encode, &x_map, x, 4, x_dims, x_strides, x_box) ||
-      !encode_bf16(encode, &w_map, w, 2, w_dims, w_strides, w_box) ||
-      !encode_bf16(encode, &y_map, y, 4, y_dims, y_strides, y_box,
-                   bn == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                            : CU_TENSOR_MAP_SWIZZLE_64B))
+      !encode_bf16(encode, &w_map, w, 2, w_dims, w_strides, w_box))
     return -3;
+  if (g.direct) {
+    y_map = x_map;  // no map can describe y; the kernel does not read it
+  } else if (!encode_bf16(encode, &y_map, y, 4, y_dims, y_strides, y_box,
+                          bn == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                   : CU_TENSOR_MAP_SWIZZLE_64B)) {
+    return -3;
+  }
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int key = bn * 100 + cc;
   switch (key) {
-    case 3216: return launch<32, 16>(x_map, w_map, y_map, scale, shift, g, smem_bytes, grid, slope, s);
-    case 3232: return launch<32, 32>(x_map, w_map, y_map, scale, shift, g, smem_bytes, grid, slope, s);
-    case 3264: return launch<32, 64>(x_map, w_map, y_map, scale, shift, g, smem_bytes, grid, slope, s);
-    case 6416: return launch<64, 16>(x_map, w_map, y_map, scale, shift, g, smem_bytes, grid, slope, s);
-    case 6432: return launch<64, 32>(x_map, w_map, y_map, scale, shift, g, smem_bytes, grid, slope, s);
-    default: return launch<64, 64>(x_map, w_map, y_map, scale, shift, g, smem_bytes, grid, slope, s);
+    case 3216: return launch<32, 16>(x_map, w_map, y_map, scale, shift, y, g, smem_bytes, grid, slope, s);
+    case 3232: return launch<32, 32>(x_map, w_map, y_map, scale, shift, y, g, smem_bytes, grid, slope, s);
+    case 3264: return launch<32, 64>(x_map, w_map, y_map, scale, shift, y, g, smem_bytes, grid, slope, s);
+    case 6416: return launch<64, 16>(x_map, w_map, y_map, scale, shift, y, g, smem_bytes, grid, slope, s);
+    case 6432: return launch<64, 32>(x_map, w_map, y_map, scale, shift, y, g, smem_bytes, grid, slope, s);
+    default: return launch<64, 64>(x_map, w_map, y_map, scale, shift, y, g, smem_bytes, grid, slope, s);
   }
 }

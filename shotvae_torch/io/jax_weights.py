@@ -1,11 +1,14 @@
 """JAX (flax) parameter trees -> the port's state_dict.
 
-The port's own copy of the VAE, WideResNet classifier and MLP paths of
+The port's own copy of the VAE (with a WideResNet, PreActResNet or DenseNet
+trunk), WideResNet classifier and MLP paths of
 shotvae_tpu/io/torch_export.py:39-235, 143-153 and 295-315 (the port
 imports nothing of the JAX package). Input: the ``params`` and
 ``batch_stats`` trees as nested dicts of numpy arrays. Output: a state_dict
 with the reference key names, which the port's ``VariationalAutoEncoder``,
 ``WideResNetClassifier`` and ``MLPClassifier`` load with ``strict=True``.
+The WideResNet and PreActResNet trees name their units alike, so a VAE's
+trunk family is given (``encoder_kind``), not sniffed from its paths.
 
 Layouts: Conv HWIO -> OIHW; ConvTranspose (kh, kw, I, O) flipped in space,
 then (I, O, kh, kw); Dense (I, O) -> (O, I); BatchNorm
@@ -44,11 +47,67 @@ def _wrn_stem(path: str) -> str:
             f"{_WRN_UNIT[m.group(3)]}")
 
 
+def _preact_stem(path: str) -> str:
+    """A PreActResNet trunk path -> its reference stem below ``encoder.``
+    (torch_export.py:60-77)."""
+    if path == "pre_process/conv0":
+        return "pre_process.conv0"
+    if path == "transition_norm/bn":
+        return "transition.norm"
+    m = re.match(r"block(\d+)_unit(\d+)/(.+)$", path)
+    if m is None:
+        raise KeyError(f"unknown preactresnet path: {path}")
+    rest = m.group(3)
+    tail = {"shortcut_norm/bn": "i_block.norm",
+            "shortcut_conv": "i_block.conv"}.get(
+                rest, "f_block." + rest.split("/")[0])
+    return f"block{m.group(1)}.preact_block.unit{m.group(2)}.{tail}"
+
+
+def _densenet_stem_of(paths):
+    """The DenseNet trunk path -> reference stem map for a tree holding
+    ``paths`` (torch_export.py:80-103). The reference's last transition
+    holds only the final BN (JAX's ``final_norm``): its index is one past
+    the highest transition that has a conv."""
+    last = 1 + max((int(m.group(1)) for p in paths
+                    for m in [re.match(r"transition(\d+)_", p)] if m),
+                   default=0)
+
+    def stem(path: str) -> str:
+        if path == "pre_process/conv0":
+            return "pre_process.conv0"
+        if path == "final_norm/bn":
+            return f"transition{last}.norm"
+        m = re.match(r"denseblock(\d+)/denselayer(\d+)/"
+                     r"(norm1|conv1|norm2|conv2)(/bn)?$", path)
+        if m:
+            return f"denseblock{m.group(1)}.denselayer{m.group(2)}.{m.group(3)}"
+        m = re.match(r"transition(\d+)_(norm|conv)(/bn)?$", path)
+        if m:
+            return f"transition{m.group(1)}.{m.group(2)}"
+        raise KeyError(f"unknown densenet path: {path}")
+
+    return stem
+
+
+def _vae_stem_of(paths, encoder_kind: str):
+    """The VAE node path -> reference stem map for a tree holding ``paths``
+    whose trunk is of ``encoder_kind``."""
+    pre = "feature_extractor/"
+    if encoder_kind == "densenet":
+        trunk = _densenet_stem_of(p[len(pre):] for p in paths
+                                  if p.startswith(pre))
+    else:
+        trunk = {"wideresnet": _wrn_stem,
+                 "preactresnet": _preact_stem}[encoder_kind]
+    return lambda path: (
+        "feature_extractor.encoder." + trunk(path[len(pre):])
+        if path.startswith(pre) else _vae_stem(path))
+
+
 def _vae_stem(path: str) -> str:
-    """A VAE node path -> its reference state_dict stem."""
-    if path.startswith("feature_extractor/"):
-        return ("feature_extractor.encoder."
-                + _wrn_stem(path[len("feature_extractor/"):]))
+    """A VAE node path outside the trunk -> its reference state_dict
+    stem."""
     heads = {"cont_mean": "continuous_inference.mean.fc",
              "cont_log_sigma": "continuous_inference.log_sigma.fc",
              "disc_inference": "disc_latent_inference.fc"}
@@ -134,11 +193,14 @@ def _convert(flat_params: Dict[str, Dict[str, np.ndarray]],
     return out
 
 
-def state_dict_from_jax(params: Mapping, batch_stats: Mapping
+def state_dict_from_jax(params: Mapping, batch_stats: Mapping,
+                        encoder_kind: str = "wideresnet"
                         ) -> Dict[str, torch.Tensor]:
-    """A WideResNet SHOT-VAE's (params, batch_stats) -> the port's
-    state_dict (CPU tensors)."""
-    return _convert(_flatten(params), batch_stats, _vae_stem)
+    """A SHOT-VAE's (params, batch_stats), its trunk of ``encoder_kind``
+    ('wideresnet', 'preactresnet' or 'densenet') -> the port's state_dict
+    (CPU tensors)."""
+    flat = _flatten(params)
+    return _convert(flat, batch_stats, _vae_stem_of(flat, encoder_kind))
 
 
 def classifier_state_dict_from_jax(params: Mapping, batch_stats: Mapping

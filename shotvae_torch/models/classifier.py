@@ -107,11 +107,14 @@ def build_classifier(net_name: str, num_classes: int, *,
                      device: DeviceLike = None,
                      dtype: Optional[torch.dtype] = None
                      ) -> WideResNetClassifier:
-    """'wideresnet-28-2' -> ``WideResNetClassifier``."""
+    """'wideresnet-28-2' -> ``WideResNetClassifier``. The JAX package's
+    ``build_classifier`` takes WideResNet names only
+    (shotvae_tpu/models/classifier.py:77-83), so neither does this one."""
     if "wideresnet" not in net_name:
         raise NotImplementedError(
-            f"--net-name {net_name} is not ported yet (ROADMAP.md queue 1 "
-            "item 9)")
+            f"--net-name {net_name}: the classifier baseline takes "
+            "wideresnet-<depth>-<width> only; the JAX package has no "
+            "PreActResNet or DenseNet classifier either")
     depth, width = parse_wideresnet_name(net_name)
     return WideResNetClassifier(depth, width, num_classes,
                                 num_input_channels=num_input_channels,

@@ -5,7 +5,9 @@
   the JAX package's documented deviation 4 (README "Parity and documented
   deviations").
 * ``BatchNorm``: BatchNorm2d (eps 1e-5) with the activation that follows it
-  at every site of the model, LeakyReLU(0.01) or ReLU (slope 0). In eval
+  at every site of the model, LeakyReLU(0.01), ReLU (slope 0) or none
+  (slope 1, PreActResNet's projection shortcut: LeakyReLU(1) is the
+  identity exactly, as every kernel computes it). In eval
   mode its running statistics are folded into one per-channel scale/shift,
   applied by the ``bn_act`` kernel alone or as the prologue of the
   ``fused_conv`` kernel. In train mode it normalises with the biased batch
@@ -26,6 +28,8 @@
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -42,6 +46,22 @@ from shotvae_torch.ops.kernels.fused_conv import (bn_affine_from_stats,
 
 LEAKY_SLOPE = 0.01  # torch nn.LeakyReLU default negative_slope
 RELU_SLOPE = 0.0
+IDENTITY_SLOPE = 1.0  # a BN site with no activation
+
+
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Inside, BN sites leave their running statistics alone: a
+    checkpoint's recompute of a forward that already tracked them (in the
+    thread that runs the recompute)."""
+    _recompute.active = True
+    try:
+        yield
+    finally:
+        _recompute.active = False
 
 
 def zero_biases_(module: nn.Module) -> nn.Module:
@@ -88,14 +108,27 @@ def dropout(x: torch.Tensor, rate: float,
                                                         device=x.device))
 
 
+def avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """flax's ``avg_pool(x, (2, 2), strides=(2, 2))``, in x's dtype and
+    memory format: DenseNet's transition."""
+    return F.avg_pool2d(x, 2)
+
+
+def max_pool(x: torch.Tensor) -> torch.Tensor:
+    """flax's ``max_pool(x, (3, 3), strides=(2, 2), padding=((1, 1), (1,
+    1)))`` (padded with -inf): the large-input stem."""
+    return F.max_pool2d(x, 3, stride=2, padding=1)
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """AdaptiveAvgPool2d((1,1)) + flatten: (B, C, H, W) -> (B, C)."""
     return x.mean(dim=(2, 3))
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d followed by LeakyReLU(``slope``) (ReLU for slope 0),
-    with its output in ``dtype`` (None: float32)."""
+    """BatchNorm2d followed by LeakyReLU(``slope``) (ReLU for slope 0, no
+    activation for slope 1), with its output in ``dtype`` (None:
+    float32)."""
 
     def __init__(self, num_features: int, slope: float = LEAKY_SLOPE,
                  dtype: Optional[torch.dtype] = None):
@@ -111,7 +144,9 @@ class BatchNorm(nn.BatchNorm2d):
     @torch.no_grad()
     def _track(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         """running = 0.9 * running + 0.1 * batch statistic (flax's
-        momentum 0.9), in place."""
+        momentum 0.9), in place; nothing inside ``recomputing``."""
+        if getattr(_recompute, "active", False):
+            return
         self.running_mean.mul_(1.0 - self.momentum).add_(mean,
                                                          alpha=self.momentum)
         self.running_var.mul_(1.0 - self.momentum).add_(var,

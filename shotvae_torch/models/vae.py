@@ -14,8 +14,12 @@ through the eval kernels and the ``fused_sample`` kernel, which has no
 gradient. Methods take and return NCHW tensors; the serving API
 (``shotvae_torch.api``) keeps the JAX package's NHWC layout.
 
-``drop_rate`` is the encoder's train-mode dropout (``WideResNet``), seeded
-from the same host generator as the latent draw.
+The encoder is any of the JAX package's families (``build_encoder``):
+``WideResNet``, ``PreActResNet`` or ``DenseNet`` (with ``efficient``, its
+block recomputation), each with the stem ``small_input`` picks; its
+``num_feature_channel`` sizes the heads. ``drop_rate`` is the encoder's
+train-mode dropout, seeded from the same host generator as the latent
+draw.
 
 ``dtype`` (None: float32, as in JAX) is the trunk's compute dtype, as
 ``VariationalAutoEncoder(dtype=jnp.bfloat16)``: the encoder and decoder
@@ -36,24 +40,34 @@ from torch import nn
 
 from shotvae_torch.device import DeviceLike, resolve_device
 from shotvae_torch.models.decoder import Decoder
+from shotvae_torch.models.densenet import DenseNet, densenet_dict
 from shotvae_torch.models.layers import (channels_last, global_avg_pool,
                                          zero_biases_)
+from shotvae_torch.models.preactresnet import PreActResNet, preactresnet_dict
 from shotvae_torch.models.wideresnet import WideResNet, parse_wideresnet_name
 from shotvae_torch.ops import sampling
 from shotvae_torch.ops.kernels.fused_sample import fused_joint_sample
 
 
 def build_encoder(encoder_name: str, *, num_input_channels: int = 3,
-                  dtype: Optional[torch.dtype] = None,
-                  drop_rate: float = 0.0) -> nn.Module:
-    """Resolve an encoder by name; the port has the WideResNet so far."""
+                  dtype: Optional[torch.dtype] = None, drop_rate: float = 0.0,
+                  small_input: bool = True,
+                  efficient: bool = False) -> nn.Module:
+    """Resolve an encoder by name, as shotvae_tpu/models/vae.py:30-60: a
+    ``densenet_dict`` or ``preactresnet_dict`` key, or
+    'wideresnet-<depth>-<width>'. ``efficient`` is DenseNet's block
+    recomputation; the other families take no such option."""
+    kw = dict(num_input_channels=num_input_channels, dtype=dtype,
+              drop_rate=drop_rate, small_input=small_input)
+    if "densenet" in encoder_name:
+        return DenseNet(**densenet_dict[encoder_name], efficient=efficient,
+                        **kw)
     if "wideresnet" in encoder_name:
         depth, width = parse_wideresnet_name(encoder_name)
-        return WideResNet(depth, width, num_input_channels=num_input_channels,
-                          dtype=dtype, drop_rate=drop_rate)
-    raise NotImplementedError(
-        f"{encoder_name} is not ported yet (ROADMAP.md queue 1 item 9: "
-        "PreActResNet and DenseNet encoders)")
+        return WideResNet(depth, width, **kw)
+    if "preactresnet" in encoder_name:
+        return PreActResNet(**preactresnet_dict[encoder_name], **kw)
+    raise NotImplementedError(f"{encoder_name} not implemented")
 
 
 def _linear_head(in_features: int, out_features: int) -> nn.ModuleDict:
@@ -67,7 +81,8 @@ class VariationalAutoEncoder(nn.Module):
                  continuous_latent_dim: int = 128, disc_latent_dim: int = 10,
                  sample_temperature: float = 0.67,
                  device: DeviceLike = None,
-                 dtype: Optional[torch.dtype] = None, drop_rate: float = 0.0):
+                 dtype: Optional[torch.dtype] = None, drop_rate: float = 0.0,
+                 small_input: bool = True, efficient: bool = False):
         super().__init__()
         self.dtype = dtype
         self.continuous_latent_dim = continuous_latent_dim
@@ -75,7 +90,7 @@ class VariationalAutoEncoder(nn.Module):
         self.sample_temperature = sample_temperature
         self.feature_extractor = build_encoder(
             encoder_name, num_input_channels=num_input_channels, dtype=dtype,
-            drop_rate=drop_rate)
+            drop_rate=drop_rate, small_input=small_input, efficient=efficient)
         feat = self.feature_extractor.num_feature_channel
         self.continuous_inference = nn.ModuleDict(OrderedDict(
             mean=_linear_head(feat, continuous_latent_dim),

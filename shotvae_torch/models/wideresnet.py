@@ -33,22 +33,32 @@ from typing import Optional
 import torch
 from torch import nn
 
-from shotvae_torch.models.layers import BatchNorm, conv, dropout
+from shotvae_torch.models.layers import BatchNorm, conv, dropout, max_pool
 from shotvae_torch.ops.sampling import device_generator
 
 NUM_INIT_FEATURES = 16  # conv0's width
 
 
 class PreProcess(nn.Module):
-    """The stem for 32x32 inputs: a 3x3 stride-1 conv."""
+    """The stem (shotvae_tpu/models/wideresnet.py:21-40): a 3x3 stride-1
+    conv for 32x32 inputs (``small_input``), otherwise a 7x7 stride-2 conv
+    and a 3x3 stride-2 max pool."""
 
-    def __init__(self, in_channels: int, dtype: Optional[torch.dtype] = None):
+    def __init__(self, in_channels: int,
+                 num_init_features: int = NUM_INIT_FEATURES,
+                 small_input: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
-        self.conv0 = nn.Conv2d(in_channels, NUM_INIT_FEATURES, 3, padding=1)
+        self.small_input = small_input
+        self.conv0 = (nn.Conv2d(in_channels, num_init_features, 3, padding=1)
+                      if small_input else
+                      nn.Conv2d(in_channels, num_init_features, 7, stride=2,
+                                padding=3))
 
     def forward(self, x):
-        return conv(self.conv0, x, self.dtype)
+        x = conv(self.conv0, x, self.dtype)
+        return x if self.small_input else max_pool(x)
 
 
 class WideResUnit(nn.Module):
@@ -92,8 +102,8 @@ class WideResUnit(nn.Module):
 
 
 def wrn_units(depth: int, width: int, num_input_channels: int = 3,
-              dtype: Optional[torch.dtype] = None,
-              drop_rate: float = 0.0) -> "OrderedDict[str, nn.Module]":
+              dtype: Optional[torch.dtype] = None, drop_rate: float = 0.0,
+              small_input: bool = True) -> "OrderedDict[str, nn.Module]":
     """The trunk's stem and its three groups of units, under the reference's
     names (``pre_process``, ``wideblock{k}.wide_block.wideunit{i}``), in
     order; the caller adds the final BN+LeakyReLU where its layout puts
@@ -101,7 +111,8 @@ def wrn_units(depth: int, width: int, num_input_channels: int = 3,
     if (depth - 4) % 6:
         raise ValueError(f"depth should be 6n+4, got {depth}")
     block_depth = (depth - 4) // 6
-    blocks = OrderedDict(pre_process=PreProcess(num_input_channels, dtype))
+    blocks = OrderedDict(pre_process=PreProcess(
+        num_input_channels, small_input=small_input, dtype=dtype))
     cin = NUM_INIT_FEATURES
     for group, features in enumerate((16 * width, 32 * width, 64 * width),
                                      start=1):
@@ -132,15 +143,17 @@ def run_units(blocks: nn.ModuleDict, x: torch.Tensor, generator=None,
 
 class WideResNet(nn.Module):
     """The encoder trunk; emits (B, 64w, H/4, W/4) features for 32x32
-    inputs."""
+    inputs (``small_input``)."""
 
     def __init__(self, depth: int = 28, width: int = 2,
                  num_input_channels: int = 3,
-                 dtype: Optional[torch.dtype] = None, drop_rate: float = 0.0):
+                 dtype: Optional[torch.dtype] = None, drop_rate: float = 0.0,
+                 small_input: bool = True):
         super().__init__()
         self.drop_rate = drop_rate
         self.num_feature_channel = 64 * width
-        blocks = wrn_units(depth, width, num_input_channels, dtype, drop_rate)
+        blocks = wrn_units(depth, width, num_input_channels, dtype, drop_rate,
+                           small_input)
         blocks["transition"] = nn.ModuleDict({"norm": BatchNorm(
             self.num_feature_channel, dtype=dtype)})
         self.encoder = nn.ModuleDict(blocks)

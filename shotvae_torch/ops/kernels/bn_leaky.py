@@ -14,6 +14,14 @@ statistics in f32:
 * ``bn_bwd_apply`` (``_bwd_apply_kernel`` :111, called at :217):
   ``dx = gamma * invstd * (g' - (sum g' + xhat * sum g' xhat) / M)``.
 
+Every product and sum is rounded on its own, as in the plain versions
+(Triton's ``enable_fp_fusion=False``: no FMA contraction). The backward's
+activation mask is the sign of ``xhat * gamma + beta``; with an FMA, a
+pre-activation within one rounding of 0 took the other sign than in the
+plain version about once in 10^8 elements, and the mask flip moved a
+channel's sums by a whole gradient element (measured on the card at
+densenet121's shapes).
+
 Data types, as the TPU kernels write them (fused_bn_act.py:145, 182-183,
 212, 223): x and y, and g and dx, are float32 or bfloat16 (the bf16 trunk);
 the statistics, xhat and the sums are always float32. A kernel loads bf16,
@@ -347,7 +355,8 @@ def _reduce(kernel: str, inputs, extra, m: int, c: int, stats: bool):
         _compiled()[kernel][(plan["programs"], plan["col_blocks"])](
             *inputs, part, _counters(dev), out, m, c, plan["iters"],
             *extra, BLOCK_M=plan["block_m"], BLOCK_C=plan["block_c"],
-            BLOCK_P=plan["block_p"], num_warps=_REDUCE_WARPS)
+            BLOCK_P=plan["block_p"], num_warps=_REDUCE_WARPS,
+            enable_fp_fusion=False)
     return out
 
 
@@ -375,7 +384,8 @@ def bn_apply(x, stats, gamma, beta, slope: float = LEAKY_SLOPE):
     with torch.cuda.device(x.device):
         _compiled()["_apply_kernel"][(row_blocks, col_blocks)](
             x, stats, gamma, beta, y, xhat, m, c, float(slope),
-            BLOCK_M=block_m, BLOCK_C=block_c, num_warps=4)
+            BLOCK_M=block_m, BLOCK_C=block_c, num_warps=4,
+            enable_fp_fusion=False)
     count_launch(bn_apply, x.dtype)
     return y, xhat
 
@@ -405,7 +415,8 @@ def bn_bwd_apply(g, xhat, gamma, beta, stats, sums,
     with torch.cuda.device(g.device):
         _compiled()["_bwd_apply_kernel"][(row_blocks, col_blocks)](
             g, xhat, gamma, beta, stats, sums, dx, m, c, 1.0 / m,
-            float(slope), BLOCK_M=block_m, BLOCK_C=block_c, num_warps=4)
+            float(slope), BLOCK_M=block_m, BLOCK_C=block_c, num_warps=4,
+            enable_fp_fusion=False)
     count_launch(bn_bwd_apply, g.dtype)
     return dx
 

@@ -28,7 +28,10 @@ are padded with zeros). The bf16 kernel's launch plan (``conv_plan``: N
 slices, chunk channels, ring stages, shared-memory bytes, grid) is computed
 here and checked again by its launcher. Any Cin that is a multiple of 8
 is taken: where the weight slice does not fit in shared memory beside
-the rings, the plan streams it through the stages.
+the rings, the plan streams it through the stages. Any Cout is taken: where it
+is not a multiple of 8 (DenseNet-BC 100's 12), y's rows are not 16-byte
+strided, so the kernel's epilogue stores y itself in place of the TMA
+store (csrc/fused_conv_bf16.cu, ``direct``).
 
 Two differentiable sites launch the kernel:
 
@@ -96,11 +99,13 @@ def fused_bn_act_conv_plain(x, scale, shift, weight, *,
     return F.conv2d(act, weight.to(x.dtype), padding=1)
 
 
-# x's dtype -> (CUDA source, C entry point, channel multiple it needs, int
-# arguments after the 5 pointers: B, H, W, Cin, Cout and, in bf16, the plan)
-_KERNELS = {torch.float32: ("fused_conv", "fused_bn_act_conv3x3_f32", 4, 5),
+# x's dtype -> (CUDA source, C entry point, the multiples of Cin and of Cout
+# it needs, int arguments after the 5 pointers: B, H, W, Cin, Cout and, in
+# bf16, the plan)
+_KERNELS = {torch.float32: ("fused_conv", "fused_bn_act_conv3x3_f32", 4, 4,
+                            5),
             torch.bfloat16: ("fused_conv_bf16", "fused_bn_act_conv3x3_bf16",
-                             8, 12)}
+                             8, 1, 12)}
 # the plan's entries the bf16 launcher takes, in its order
 _PLAN_ARGS = ("cin_pad", "bn", "cc", "stages", "streamed", "smem_bytes",
               "grid")
@@ -169,7 +174,7 @@ def conv_plan(b: int, h: int, w: int, cin: int, cout: int,
 
 
 def _lib(dtype):
-    source, entry, _, n_int = _KERNELS[dtype]
+    source, entry, _, _, n_int = _KERNELS[dtype]
     fn = getattr(_build.load(source), entry)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * n_int
@@ -210,13 +215,13 @@ def _fused_conv_forward(x, scale, shift, weight, slope: float):
                          f"{shift.dtype}")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("fused_conv kernel takes x in channels_last format")
-    mult = _KERNELS[x.dtype][2]
-    if (cin % mult or cout % mult or scale.shape != (cin,)
+    cin_mult, cout_mult = _KERNELS[x.dtype][2:4]
+    if (cin % cin_mult or cout % cout_mult or scale.shape != (cin,)
             or shift.shape != (cin,)):
-        raise ValueError(f"fused_conv {x.dtype} kernel needs Cin and Cout "
-                         f"multiples of {mult} and (Cin,) scale/shift; got "
-                         f"Cin={cin}, Cout={cout}, {tuple(scale.shape)}/"
-                         f"{tuple(shift.shape)}")
+        raise ValueError(f"fused_conv {x.dtype} kernel needs Cin a multiple "
+                         f"of {cin_mult}, Cout of {cout_mult} and (Cin,) "
+                         f"scale/shift; got Cin={cin}, Cout={cout}, "
+                         f"{tuple(scale.shape)}/{tuple(shift.shape)}")
     if x.dtype == torch.bfloat16:
         plan = conv_plan(b, h, w, cin, cout, sm_count(x.device.index))
         w2 = _kmajor_weight(weight, plan["cin_pad"])

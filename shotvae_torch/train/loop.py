@@ -75,8 +75,6 @@ def refuse_unported(cfg: ShotVaeConfig) -> None:
         (cfg.global_mixup, "--global-mixup", 11),
         ((cfg.num_devices or 1) > 1, "--num-devices > 1", 11),
         (cfg.steps_per_call > 1, "--steps-per-call > 1", "13a"),
-        (cfg.efficient, "--efficient", 9),
-        ("wideresnet" not in cfg.net_name, f"--net-name {cfg.net_name}", 9),
     ]
     for on, flag, item in unported:
         if on:
@@ -129,7 +127,8 @@ def build_model(cfg: ShotVaeConfig, spec: DatasetSpec,
             img_size=tuple(cfg.image_size), continuous_latent_dim=cfg.ldc,
             disc_latent_dim=spec.num_classes,
             sample_temperature=cfg.temperature, device=device,
-            dtype=cfg.compute_dtype(), drop_rate=cfg.drop_rate)
+            dtype=cfg.compute_dtype(), drop_rate=cfg.drop_rate,
+            small_input=spec.small_input, efficient=cfg.efficient)
 
 
 def build_classifier_model(cfg: ShotVaeConfig, spec: DatasetSpec,

@@ -2,8 +2,10 @@
 same config, flag for flag (through each command's ``main`` for the M2 and
 classifier commands, the classifier's own defaults included); one epoch
 runs through each ``main`` on the CPU; the flags of parts not ported yet
-parse, then raise, naming their ROADMAP.md item; a split too small for the
-batch raises."""
+parse, then raise, naming their ROADMAP.md item; every encoder family and
+``--efficient`` reach the trainer, an encoder name the JAX dispatch does
+not know raises, and so does any but a WideResNet for the classifier; a
+split too small for the batch raises."""
 
 import os
 
@@ -13,7 +15,8 @@ import torch
 from shotvae_tpu.cli import common as jax_common
 from shotvae_tpu.cli import main_classifier as jax_main_classifier
 from shotvae_tpu.cli import main_m2_vae as jax_main_m2
-from shotvae_torch.cli import common, main_classifier, main_m2_vae
+from shotvae_torch.cli import (common, main_classifier, main_m2_vae,
+                               main_shot_vae)
 from shotvae_torch.cli.main_shot_vae import main
 
 ARGVS = [
@@ -95,14 +98,52 @@ def test_one_cli_epoch_on_cifar100(tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--multihost"], "item 11"), (["--bn-per-replica"], "item 11"),
     (["--global-mixup"], "item 11"), (["--num-devices", "2"], "item 11"),
-    (["--steps-per-call", "4"], "item 13a"), (["--efficient"], "item 9"),
-    (["--net-name", "preactresnet-18"], "item 9")])
+    (["--steps-per-call", "4"], "item 13a")])
 def test_unported_flags_raise(flags, item, tmp_path):
     argv = _small_argv(str(tmp_path))
     if "--net-name" in flags:
         argv = argv[2:]
     with pytest.raises(NotImplementedError, match=item):
         main([*argv, *flags], device="cpu")
+
+
+@pytest.mark.parametrize("cli", ["shot", "m2"])
+def test_other_encoders_and_efficient_reach_the_trainer(cli, monkeypatch,
+                                                        tmp_path):
+    """--net-name preactresnet18 / densenet121 and --efficient parse and
+    reach the trainer's config (the port once refused them); a name the
+    JAX dispatch does not know raises as the JAX package's does."""
+    from shotvae_torch.train import loop
+
+    module = {"shot": main_shot_vae, "m2": main_m2_vae}[cli]
+    seen = []
+    monkeypatch.setattr(loop, "run_shot_vae",
+                        lambda cfg, **kw: seen.append(cfg))
+    monkeypatch.setattr(module, "run_shot_vae",
+                        lambda cfg, **kw: seen.append(cfg))
+    argv = _small_argv(str(tmp_path))[2:]
+    for flags in (["--net-name", "preactresnet18"],
+                  ["--net-name", "densenet121", "--efficient"]):
+        module.main([*argv, *flags], device="cpu")
+    assert [(c.net_name, c.efficient) for c in seen] == [
+        ("preactresnet18", False), ("densenet121", True)]
+    monkeypatch.undo()
+    for name in ("preactresnet-18", "densenet-121"):
+        with pytest.raises(KeyError, match=name):
+            module.main([*argv, "--net-name", name], device="cpu")
+
+
+def test_classifier_refuses_other_encoder_families(tmp_path):
+    """The classifier takes WideResNet names only, as the JAX package's
+    ``build_classifier``: a PreActResNet or DenseNet name raises, saying
+    the JAX package has no such classifier, before anything is written."""
+    argv = _small_argv(str(tmp_path))[2:]
+    for name in ("preactresnet18", "densenet121"):
+        with pytest.raises(NotImplementedError,
+                           match="JAX package has no PreActResNet or "
+                                 "DenseNet classifier"):
+            main_classifier.main([*argv, "--net-name", name], device="cpu")
+    assert not os.listdir(tmp_path)
 
 
 def test_split_too_small_raises(tmp_path):
@@ -174,8 +215,7 @@ def test_one_classifier_cli_epoch(tmp_path):
 @pytest.mark.parametrize("cli", list(NEW_CLIS))
 @pytest.mark.parametrize("flags,item", [
     (["--multihost"], "item 11"), (["--bn-per-replica"], "item 11"),
-    (["--steps-per-call", "4"], "item 13a"),
-    (["--net-name", "preactresnet-18"], "item 9")])
+    (["--steps-per-call", "4"], "item 13a")])
 def test_new_clis_refuse_unported_flags(cli, flags, item, tmp_path):
     argv = _small_argv(str(tmp_path))
     if "--net-name" in flags:

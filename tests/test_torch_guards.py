@@ -32,6 +32,8 @@ import shotvae_torch
 for m in pkgutil.walk_packages(shotvae_torch.__path__, "shotvae_torch."):
     importlib.import_module(m.name)
 import shotvae_torch.api, shotvae_torch.models.vae, shotvae_torch.io.jax_weights
+import shotvae_torch.models.preactresnet, shotvae_torch.models.densenet
+import shotvae_torch.models.mlpvae
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith(("jax.", "shotvae_tpu"))]
 assert not bad, bad
@@ -43,7 +45,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 37  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 40  # every module was imported
 
 
 def test_entry_points_need_an_explicit_cpu(monkeypatch, tmp_path):
@@ -117,7 +119,8 @@ def test_m2_and_classifier_entry_points_need_an_explicit_cpu(entry,
 
 def test_train_mode_and_other_encoders_raise():
     """Train mode now runs (and updates the running statistics); an encoder
-    not ported yet still raises."""
+    name the JAX dispatch does not know raises as it does there (a
+    family's unknown key, or no family at all)."""
     from shotvae_torch.models.vae import VariationalAutoEncoder
 
     model = VariationalAutoEncoder("wideresnet-10-1", continuous_latent_dim=8,
@@ -131,8 +134,10 @@ def test_train_mode_and_other_encoders_raise():
         assert head.weight.grad.abs().sum() > 0  # the draw kept the graph
     after = model.feature_extractor.encoder.transition.norm.running_mean
     assert not torch.equal(before, after)
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    with pytest.raises(KeyError, match="preactresnet-18"):
         VariationalAutoEncoder("preactresnet-18", device="cpu")
+    with pytest.raises(NotImplementedError, match="resnet50 not implemented"):
+        VariationalAutoEncoder("resnet50", device="cpu")
 
 
 def test_gradless_kernels_refuse_grad():
@@ -736,3 +741,116 @@ def test_chip_smoke_baseline_loop_fails_a_wrong_launch_count(monkeypatch,
         chip_smoke.baseline_loop_phase(torch.device("cpu"), str(tmp_path),
                                        "m2", dict(_LOOP_CPU, br=True),
                                        *_BASELINE_LOOPS["m2"])
+
+
+# phase 11 at batch 2 on the CPU; its M2 epoch at a tiny size: 2 steps of
+# 16 + 16 unlabeled CIFAR-100-shaped images, then 6 valid batches (the 92
+# classes the 232 images hold), 16 test batches and the grid
+_ENCODER_LOOP_CPU = dict(dataset="Cifar100", batch_size=16,
+                         net_name="preactresnet18", ldc=8,
+                         synthetic_data=True, synthetic_size=232,
+                         valid_per_class=1, annotated_per_class=1, yes=True,
+                         reconstruct_freq=1, print_freq=100, br=True)
+
+
+def _encoder_chip_smoke(monkeypatch):
+    """chip_smoke.py with its timers cut to one call (on the CPU they time
+    nothing of the card) and the bf16 check calibrated on one draw (the
+    CPU against itself is exact at any tolerance)."""
+    chip_smoke = _chip_smoke(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "BF16_CALIBRATION_DRAWS", 1)
+
+    def once(dev, run, batch, suffix, images="unlabeled"):
+        run()
+        return {f"step_ms{suffix}": 0.0}
+    monkeypatch.setattr(chip_smoke, "step_times", once)
+    monkeypatch.setattr(chip_smoke, "host_ms", lambda dev, fn: (fn(), 0.0)[1])
+    return chip_smoke
+
+
+@pytest.mark.parametrize("part", ["kernels", "train", "m2", "serve"])
+def test_chip_smoke_encoder_phase_runs_on_cpu(part, monkeypatch, tmp_path):
+    """chip_smoke.py's phase 11 at batch 2 on the CPU, bf16 as on the card:
+    the sites the kernel rows weigh (preactresnet18: 13 fused, 7
+    standalone of which 3 identity; densenet121: 58 fused and 62
+    standalone, all but 4 in dense blocks), every plain version against
+    itself, no launch counted, the card-against-CPU steps exact when both
+    sides are the CPU, the efficient step equal to the plain one, the M2
+    epoch over preactresnet18 writing only its own run folder, and f32
+    serving."""
+    chip_smoke = _encoder_chip_smoke(monkeypatch)
+    dev = torch.device("cpu")
+    if part == "kernels":
+        out = chip_smoke.encoder_kernel_phase(dev, 2)
+        assert out["preactresnet18"]["sites"] == {
+            "fused": 13, "alone": 7, "identity": 3, "dense_block_fused": 0,
+            "dense_block_alone": 0}
+        assert out["densenet121"]["sites"] == {
+            "fused": 58, "alone": 62, "identity": 0,
+            "dense_block_fused": 58, "dense_block_alone": 58}
+        for name in ("preactresnet18", "densenet121"):
+            res = out[name]
+            assert set(res["bn_leaky_train"][1].values()) == {0.0}
+            for part_ in ("bn_act_inference", "bn_act_inference_f32",
+                          "fused_bn_act_conv_f32"):
+                assert res[part_][1] == 0.0
+            conv_rows = res["fused_bn_act_conv"][0]
+            assert sum(r["launches"] for r in conv_rows) == \
+                res["sites"]["fused"]
+        assert out["dense_bc_conv"][1] == 0.0
+    elif part == "train":
+        out = chip_smoke.encoder_train_phase(dev, 2, steps=1)
+        for name in chip_smoke.ENCODER_PATHS:
+            res = out[name]
+            assert set(res["launches"].values()) == {0}
+            assert all(np.isfinite(v) for v in res["last_metrics"].values())
+        for name in ("preactresnet18", "densenet121"):
+            vs_cpu = out[name]["vs_cpu"]
+            vs_cpu.pop("grad_one_ulp_spread_max")
+            vs_cpu.pop("grad_one_ulp_spread_median")
+            assert set(vs_cpu.values()) == {0.0}
+            assert out[name]["vs_cpu_bf16"]["worst_share_of_tol"] == 0.0
+        eff = out["efficient_vs_plain"]
+        assert eff["num_batches_tracked"] == [4]
+        assert eff["grad_max_abs_err"] == 0.0
+    elif part == "m2":
+        out = chip_smoke.encoder_m2_phase(dev, 2, str(tmp_path),
+                                          _ENCODER_LOOP_CPU, 2, 23, 1)
+        assert set(out["launches"].values()) == {0}
+        loop = out["loop"]
+        assert loop["train_steps"] == 2 and np.isfinite(loop["train_loss"])
+        assert os.listdir(tmp_path) == ["Cifar100-M2-VAE"]
+    else:
+        for name in chip_smoke.EXPECTED_ENCODER_SERVE:
+            out = chip_smoke.encoder_serve_phase(dev, 2, name)
+            assert set(out["launches"].values()) == {0}
+            assert set(out["vs_cpu_max_abs_err"].values()) == {0.0}
+
+
+def test_chip_smoke_encoder_conv_check_fails_a_wrong_slope(monkeypatch):
+    """Phase 11's fused conv rows hold the kernel with ReLU: a kernel that
+    applies LeakyReLU(0.01) where it is asked for slope 0 fails them."""
+    from shotvae_torch.ops.kernels import fused_conv
+
+    chip_smoke = _chip_smoke(monkeypatch)
+    forward = fused_conv._fused_conv_forward
+    monkeypatch.setattr(fused_conv, "_fused_conv_forward",
+                        lambda x, s, h, w, slope: forward(x, s, h, w,
+                                                          slope or 0.01))
+    with pytest.raises(RuntimeError, match="disagrees"):
+        chip_smoke.conv_phase(torch.device("cpu"), 2, torch.bfloat16,
+                              [(2, 64, 4, 4, 64, 1)], 0.0, [])
+
+
+def test_chip_smoke_efficient_check_fails_a_second_tracking(monkeypatch):
+    """The efficient-against-plain check fails a recompute that tracks the
+    running statistics again."""
+    from contextlib import nullcontext
+
+    from shotvae_torch.models import densenet
+
+    chip_smoke = _chip_smoke(monkeypatch)
+    monkeypatch.setattr(densenet, "_recompute_contexts",
+                        lambda: (nullcontext(), nullcontext()))
+    with pytest.raises(RuntimeError, match="running statistics"):
+        chip_smoke.efficient_vs_plain(torch.device("cpu"), 2)

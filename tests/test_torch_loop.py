@@ -177,9 +177,7 @@ def test_unported_settings_raise(tmp_path):
     for kw, item in (({"bn_per_replica": True}, "item 11"),
                      ({"global_mixup": True}, "item 11"),
                      ({"num_devices": 2}, "item 11"),
-                     ({"steps_per_call": 4}, "item 13a"),
-                     ({"efficient": True}, "item 9"),
-                     ({"net_name": "densenet-121"}, "item 9")):
+                     ({"steps_per_call": 4}, "item 13a")):
         with pytest.raises(NotImplementedError, match=item):
             run_shot_vae(_tiny_cfg(str(tmp_path), **kw), device="cpu")
     assert not os.listdir(tmp_path)  # refused before anything was written
