@@ -8,11 +8,14 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
 1. Print the card's name and power limit (nvidia-smi), then build every
    CUDA source of ``shotvae_torch/csrc`` with nvcc into ``build/kernels/``,
    and require warpgroup products (HGMMA) and TMA copies (UTMALDG or
-   UBLKCP) in the SASS of the bf16 fused conv.
+   UBLKCP) in the SASS of the bf16 fused conv, and asynchronous copies
+   (LDGSTS, or UTMALDG / UBLKCP) in that of the f32 fused conv, whose
+   registers and spills per kernel (``-Xptxas -v``) are printed.
 2. Each kernel against its plain PyTorch version on the card, at every
    distinct shape the serving forward gives it at batch 768, with its
    tolerance; each timed with CUDA events (kernel, plain version, and a
-   one-call library yardstick where there is one). The sampler
+   one-call library yardstick where there is one); the fused conv also
+   held at ``CONV_CHECK_SHAPES`` in f32 and bf16. The sampler
    (``csrc/fused_sample.cu``) is held to its plain version exactly where
    the draw cannot matter (a vanishing sigma, a decisive logit), by
    moments, in standard errors, against an independent draw, and draw for
@@ -103,8 +106,10 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    f32, the fused conv in bf16 and f32 (timed beside its bound and
    ``F.conv2d``; 4x4 maps and Cin 512 included) and the train-mode fused
    site's backward; the fused conv also held at DenseNet-BC's and
-   densenet161's narrow Cout (12 to 48). The bf16 SHOT-VAE step at 768 +
-   768 of preactresnet18, densenet121 and densenet121 with --efficient
+   densenet161's narrow Cout (12 to 48), and in f32 at
+   ``CONV_CHECK_SHAPES`` with ReLU and the identity. The bf16 SHOT-VAE
+   step at 768 + 768 of preactresnet18, densenet121 and densenet121 with
+   --efficient
    (``EXPECTED_ENCODER_LAUNCHES``, the recompute's launches included),
    their times, a profiled step, peak memory and the eval step; each
    family's step on the card against the CPU at 16 + 16 in f32 and bf16;
@@ -131,6 +136,7 @@ import glob
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -334,6 +340,14 @@ def _sync(dev) -> None:
         torch.cuda.synchronize()
 
 
+def _sms(dev) -> int:
+    """The card's SMs, which size the kernels' launch plans (132 where
+    the plain versions run on the CPU)."""
+    from shotvae_torch.ops.kernels import sm_count
+
+    return sm_count(dev.index or 0) if dev.type == "cuda" else 132
+
+
 def host_ms(dev, fn, reps: int = 5) -> float:
     """Mean wall time of ``fn()`` after one warm-up, ending in a device
     synchronise."""
@@ -449,14 +463,16 @@ def conv_phase(dev, batch: int, dtype=None, cases=None, slope: float = 0.01,
     weight and y in ``dtype`` (None: float32), the activation
     LeakyReLU(``slope``). In bf16 the kernel is held against the f32 conv
     (TF32 off) of the bf16-rounded activation and weight, within one bf16
-    ulp plus TOL_CONV, also at CONV_CHECK_SHAPES (held, not timed); the
-    plain version and the library call then convolve in bf16. ``cases``
-    (B, Cin, H, W, Cout, launches per forward) replace WRN-28-2's, and
-    ``check_shapes`` the shapes held but not timed (in both dtypes)."""
+    ulp plus TOL_CONV; the plain version and the library call then
+    convolve in bf16. Both dtypes are also held at CONV_CHECK_SHAPES (not
+    timed). ``cases`` (B, Cin, H, W, Cout, launches per forward) replace
+    WRN-28-2's, and ``check_shapes`` the shapes held but not timed. An
+    f32 row carries the kernel's launch plan (``bn``, ``runs``, ``grid``)."""
     import torch
     import torch.nn.functional as F
 
-    from shotvae_torch.ops.kernels.fused_conv import (fused_bn_act_conv,
+    from shotvae_torch.ops.kernels.fused_conv import (conv_f32_plan,
+                                                      fused_bn_act_conv,
                                                       fused_bn_act_conv_plain)
 
     dtype = dtype or torch.float32
@@ -500,7 +516,12 @@ def conv_phase(dev, batch: int, dtype=None, cases=None, slope: float = 0.01,
         flops = 2 * bb * h * w * 9 * cin * cout
         nbytes = (size * (bb * h * w * (cin + cout) + 9 * cin * cout)
                   + 8 * cin)
-        rows.append(dict(shape=[bb, cin, h, w, cout], launches=n,
+        plan = {}
+        if dtype == torch.float32:
+            p = conv_f32_plan(bb, h, w, cout, _sms(dev))
+            plan = dict(plan=dict(bn=p["bn"], runs=p["runs"],
+                                  grid=[p["grid_m"], p["grid_n"]]))
+        rows.append(dict(shape=[bb, cin, h, w, cout], launches=n, **plan,
                          max_abs_err=e, ms=time_ms(kernel),
                          plain_ms=time_ms(plain),
                          bound_ms=max(flops / peak,
@@ -508,9 +529,7 @@ def conv_phase(dev, batch: int, dtype=None, cases=None, slope: float = 0.01,
                          bound_by=("operations" if flops / peak
                                    > nbytes / HBM_BYTES_PER_S else "bytes"),
                          library_ms=time_ms(library)))
-    if check_shapes is None:
-        check_shapes = CONV_CHECK_SHAPES if dtype == torch.bfloat16 else []
-    for shape in check_shapes:
+    for shape in CONV_CHECK_SHAPES if check_shapes is None else check_shapes:
         err = max(err, held(*shape)[0])
     return rows, err
 
@@ -1840,6 +1859,10 @@ def encoder_kernel_phase(dev, batch: int) -> dict:
     out["dense_bc_conv"] = [conv_phase(dev, 1, dtype, [(1, 48, 8, 8, 12, 0)],
                                        0.0, DENSE_BC_CONV_SHAPES)[1]
                             for dtype in (bf16, None)]
+    # the f32 conv with ReLU and the identity at the ragged shapes
+    out["f32_conv_check"] = [conv_phase(dev, 1, None, [(1, 48, 8, 8, 12, 0)],
+                                        slope, CONV_CHECK_SHAPES)[1]
+                             for slope in (0.0, 1.0)]
     return out
 
 
@@ -2112,6 +2135,27 @@ def sass_count(name: str, op: str) -> int:
     return sum(op in line for line in out.splitlines())
 
 
+def ptxas_summary(log: str) -> list:
+    """Per kernel of an ``nvcc -Xptxas -v`` log: its registers and spill
+    bytes (stores, loads)."""
+    out, name = [], None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            name = found.group(1)
+            out.append(dict(kernel=name, registers=None, spill_stores=None,
+                            spill_loads=None))
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if found and out:
+            out[-1].update(spill_stores=int(found.group(1)),
+                           spill_loads=int(found.group(2)))
+        found = re.search(r"Used (\d+) registers", line)
+        if found and out:
+            out[-1]["registers"] = int(found.group(1))
+    return out
+
+
 def summarize(name, route, source, replaces, bound_by, rows, err, launches,
               per: str = f"reconstruct at batch {BATCH}"):
     """One kernel's entry: per-shape times weighted by the launches per
@@ -2161,6 +2205,8 @@ def encoder_phases(dev, batch: int, steps: int = TRAIN_STEPS,
               + json.dumps(weighted_rows(out["kernels"][name])))
     print("dense_bc_conv_max_abs_err_bf16_f32 "
           + json.dumps(out["kernels"]["dense_bc_conv"]))
+    print("conv_check_shapes_f32_max_abs_err_relu_identity "
+          + json.dumps(out["kernels"]["f32_conv_check"]))
     print(f"encoder kernel phase {time.perf_counter() - t0:.1f} s")
     out["train"] = encoder_train_phase(dev, batch, steps)
     check_encoder_rows(out["kernels"], out["train"], steps)
@@ -2285,6 +2331,16 @@ def main() -> int:
           "(wgmma) instruction")
     check(sass["UTMALDG"] + sass["UBLKCP"] > 0, "the bf16 fused conv's SASS "
           "has no TMA copy (UTMALDG or UBLKCP)")
+    # the f32 conv's asynchronous copies (cp.async: LDGSTS), and its
+    # registers and spills
+    sass = {op: sass_count("fused_conv", op)
+            for op in ("LDGSTS", "UTMALDG", "UBLKCP", "FFMA")}
+    print("sass_fused_conv_f32_lines " + json.dumps(sass))
+    check(sass["LDGSTS"] + sass["UTMALDG"] + sass["UBLKCP"] > 0,
+          "the f32 fused conv's SASS has no asynchronous copy (LDGSTS, "
+          "UTMALDG or UBLKCP)")
+    print("ptxas_fused_conv_f32 "
+          + json.dumps(ptxas_summary(logs["fused_conv"])))
 
     dev = torch.device("cuda")
     phases = {}

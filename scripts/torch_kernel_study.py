@@ -3,6 +3,7 @@
 reductions, on one CUDA card (PERF.md Findings names what it printed).
 
     python3 scripts/torch_kernel_study.py [conv] [plans] [reduce] [sample]
+                                          [f32 [PARENT]] [f32ablate]
 
 conv: the bf16 fused conv (csrc/fused_conv_bf16.cu) at the four encoder
 shapes at batch 768, as built and with phases compiled out (bits of
@@ -25,6 +26,21 @@ sample: the sampler (csrc/fused_sample.cu) at (768, 128, 10) and (768, 128,
 ``SAMPLE_ABLATIONS``: 1 the Gumbel rows, 2 the Gaussian pairs, 4 the Philox
 rounds, 8 the transcendentals), device ms per launch beside an empty
 kernel of one block and of the sampler's grid.
+
+f32: the f32 fused conv (csrc/fused_conv.cu) at every f32 serving shape of
+WRN-28-2, preactresnet18 and densenet121 at batch 768, under each (N
+slice, runs a thread) its launcher takes (``f32_swept_plans``), each held
+to the f32 conv of the activated tensor (TF32 off) within TOL_CONV, device
+ms per launch beside its bound and ``F.conv2d`` (TF32 off), and per
+forward; with PARENT, a directory holding an earlier checkout, also that
+checkout's csrc/fused_conv.cu (the launcher without a plan, as before the
+plan existed), built into build/study/, timed in the same call.
+
+f32ablate: the f32 fused conv at one shape of each slice width, as built
+and with parts compiled out (bits of ``F32_ABLATIONS``: 1 the products, 2
+the activation, 4 the x copies, 8 the weight copies; 16, a probe, caps
+registers for three blocks an SM), device ms per launch, with each
+variant's registers and spills.
 """
 
 from __future__ import annotations
@@ -82,6 +98,20 @@ SAMPLE_ABLATIONS = {
         ("expf(g.v[k] - m) / s", "/* no exp */ (g.v[k] - m) / s")],
 }
 SAMPLE_VARIANTS = (0, 1, 2, 4, 8, 12, 3, 0)  # in the order timed
+# the same for csrc/fused_conv.cu: 1 the products (and their fragment
+# loads), 2 the activation pass, 4 the x copies, 8 the weight copies; and
+# one design probe, not an ablation: 16 caps registers for 3 blocks an SM
+F32_ABLATIONS = {
+    1: [("for (int kk = 0; kk < CK; ++kk) {",
+         "for (int kk = 0; kk < 0; ++kk) {")],
+    2: [("    activate(k + 1);\n", "    (void)0;  // not activated\n")],
+    4: [("cp_async(xd + 4 * j * THREADS, src, ok ? 16 : 0);",
+         "(void)src;")],
+    8: [("cp_async(bd + 4 * j * THREADS, ok ? w + w_off[j] + step_off : w,\n"
+         "                 ok ? 16 : 0);", "(void)ok;")],
+    16: [("__launch_bounds__(THREADS, 2)", "__launch_bounds__(THREADS, 3)")],
+}
+F32_VARIANTS = (0, 1, 2, 4, 8, 6, 14, 16, 0)  # in the order timed
 
 
 def ablated_source(src: str, bits: int, ablations=ABLATIONS,
@@ -101,7 +131,8 @@ def ablated_source(src: str, bits: int, ablations=ABLATIONS,
 
 def _build_variant(bits: int, name: str = "fused_conv_bf16",
                    ablations=ABLATIONS):
-    """nvcc of the ablated source into build/study/; the loaded library."""
+    """nvcc of the ablated source into build/study/; the loaded library,
+    with nvcc's ``-Xptxas -v`` output as its ``ptxas_log``."""
     import ctypes
 
     from shotvae_torch.ops.kernels import _build
@@ -114,9 +145,12 @@ def _build_variant(bits: int, name: str = "fused_conv_bf16",
     with open(src, "w") as f:
         f.write(text)
     lib = src[:-3] + ".so"
-    subprocess.run([_build.cuda_tool("nvcc"), *_build.NVCC_FLAGS, "-o", lib,
-                    src], check=True, capture_output=True)
-    return ctypes.CDLL(lib)
+    done = subprocess.run([_build.cuda_tool("nvcc"), *_build.NVCC_FLAGS, "-o",
+                           lib, src], check=True, capture_output=True,
+                          text=True)
+    loaded = ctypes.CDLL(lib)
+    loaded.ptxas_log = done.stdout + done.stderr
+    return loaded
 
 
 def conv_study(cs) -> None:
@@ -319,6 +353,168 @@ def sample_study(cs) -> None:
         print("sample_ablate " + json.dumps(dict(ablate=variant, ms=ms)))
 
 
+# (B, Cin, H, W, Cout, launches per forward) of f32 serving at batch 768
+F32_SHAPES = {"wideresnet-28-2": [(768, 16, 32, 32, 32, 1),
+                                  (768, 32, 32, 32, 32, 7),
+                                  (768, 64, 16, 16, 64, 7),
+                                  (768, 128, 8, 8, 128, 7)],
+              "preactresnet18": [(768, 64, 32, 32, 64, 4),
+                                 (768, 128, 16, 16, 128, 3),
+                                 (768, 256, 8, 8, 256, 3),
+                                 (768, 512, 4, 4, 512, 3)],
+              "densenet121": [(768, 128, 32, 32, 32, 6),
+                              (768, 128, 16, 16, 32, 12),
+                              (768, 128, 8, 8, 32, 24),
+                              (768, 128, 4, 4, 32, 16)]}
+
+
+def f32_swept_plans(b: int, cin: int, h: int, w: int, cout: int,
+                    num_sms: int = 132):
+    """The f32 conv's launch plan at one shape under each (N slice, runs
+    a thread) its launcher takes, and the built plan."""
+    from shotvae_torch.ops.kernels import fused_conv as fc
+
+    built = fc.conv_f32_plan(b, h, w, cout, num_sms)
+    plans = [fc.conv_f32_plan_at(b, h, w, cout, *tile)
+             for tile in fc.F32_TILES]
+    return plans, built
+
+
+def _parent_f32(parent: str):
+    """The f32 conv launcher of an earlier checkout's
+    csrc/fused_conv.cu (x, scale, shift, w, y, B, H, W, Cin, Cout, slope,
+    stream), built into build/study/."""
+    import ctypes
+
+    from shotvae_torch.ops.kernels import _build
+
+    out = os.path.join(ROOT, "build", "study")
+    os.makedirs(out, exist_ok=True)
+    lib = os.path.join(out, "libfused_conv_parent.so")
+    subprocess.run([_build.cuda_tool("nvcc"), *_build.NVCC_FLAGS, "-o", lib,
+                    os.path.join(parent, "shotvae_torch", "csrc",
+                                 "fused_conv.cu")],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(lib).fused_bn_act_conv3x3_f32
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def f32_study(cs, parent=None) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from shotvae_torch.ops.kernels import fused_conv as fc
+
+    torch.backends.cudnn.allow_tf32 = False  # the yardstick, as compared
+    torch.backends.cuda.matmul.allow_tf32 = False
+    old = _parent_f32(parent) if parent else None
+    plan = fc.conv_f32_plan
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cl = dict(memory_format=torch.channels_last)
+    per_forward = {}
+    for net, shapes in F32_SHAPES.items():
+        for b, cin, h, w, cout, n in shapes:
+            x = torch.randn((b, cin, h, w), generator=gen,
+                            device="cuda").contiguous(**cl)
+            wt = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda")
+                  * (2.0 / (9 * cin)) ** 0.5).contiguous(**cl)
+            scale = torch.rand((cin,), generator=gen, device="cuda") + 0.5
+            shift = torch.randn((cin,), generator=gen, device="cuda") * 0.5
+            pre = x * scale[:, None, None] + shift[:, None, None]
+            act = torch.where(pre > 0, pre, 0.01 * pre).contiguous(**cl)
+            want = F.conv2d(act, wt, padding=1)
+            row = dict(net=net, shape=[b, cin, h, w, cout], launches=n,
+                       bound_ms=2 * b * h * w * 9 * cin * cout
+                       / cs.F32_FLOPS * 1e3,
+                       library_ms=cs.time_ms(
+                           lambda: F.conv2d(act, wt, padding=1)))
+            plans, built = f32_swept_plans(b, cin, h, w, cout)
+            row["built"] = "bn{bn}r{runs}".format(**built)
+            for p in plans:
+                fc.conv_f32_plan = lambda *a, p=p: p
+                try:
+                    run = lambda: fc.fused_bn_act_conv(  # noqa: E731
+                        x, scale, shift, wt)
+                    key = "bn{bn}r{runs}".format(**p)
+                    err = cs.max_err(run(), want, cs.TOL_CONV,
+                                     what=f"f32 conv at {row['shape']} {key}")
+                    row[f"{key}_ms"] = cs.time_ms(run)
+                    row[f"{key}_max_abs_err"] = err
+                finally:
+                    fc.conv_f32_plan = plan
+            if old is not None:
+                w2 = wt.permute(2, 3, 1, 0).reshape(9 * cin, cout) \
+                    .contiguous()
+                y = torch.empty_like(want)
+
+                def parent_run():
+                    check = old(x.data_ptr(), scale.data_ptr(),
+                                shift.data_ptr(), w2.data_ptr(), y.data_ptr(),
+                                b, h, w, cin, cout, 0.01,
+                                torch.cuda.current_stream().cuda_stream)
+                    assert check == 0, check
+                parent_run()
+                row["parent_max_abs_err"] = cs.max_err(y, want, cs.TOL_CONV,
+                                                       what="parent")
+                row["parent_ms"] = cs.time_ms(parent_run)
+            row["ms"] = row[f"{row['built']}_ms"]
+            print("conv_f32_study " + json.dumps(row))
+            tot = per_forward.setdefault(net, {})
+            for key in ("ms", "bound_ms", "library_ms", "parent_ms"):
+                if key in row:
+                    tot[key] = tot.get(key, 0.0) + row[key] * n
+    print("conv_f32_per_forward " + json.dumps(per_forward))
+
+
+def f32_ablation_study(cs) -> None:
+    """The f32 conv with phases compiled out (``F32_ABLATIONS``) at one
+    shape of each N slice width, device ms per launch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from shotvae_torch.ops.kernels import fused_conv as fc
+
+    shapes = [(768, 128, 32, 32, 32), (768, 64, 16, 16, 64),
+              (768, 128, 16, 16, 128)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cl = dict(memory_format=torch.channels_last)
+    inputs = []
+    for b, cin, h, w, cout in shapes:
+        inputs.append((torch.randn((b, cin, h, w), generator=gen,
+                                   device="cuda").contiguous(**cl),
+                       torch.rand((cin,), generator=gen, device="cuda"),
+                       torch.randn((cin,), generator=gen, device="cuda"),
+                       torch.randn((cout, cin, 3, 3), generator=gen,
+                                   device="cuda").contiguous(**cl)))
+    lib = fc._lib
+    built = lib(torch.float32)
+    variants = sorted(set(F32_VARIANTS) - {0})
+    with ThreadPoolExecutor(len(variants)) as pool:
+        libs = dict(zip(variants, pool.map(
+            lambda v: _build_variant(v, "fused_conv", F32_ABLATIONS),
+            variants)))
+    for variant in variants:
+        print(f"ptxas_fused_conv_f32_ablate{variant} " + json.dumps(
+            cs.ptxas_summary(libs[variant].ptxas_log)))
+    for variant in F32_VARIANTS:
+        fn = built
+        if variant:
+            fn = libs[variant].fused_bn_act_conv3x3_f32
+            fn.argtypes, fn.restype = built.argtypes, built.restype
+        fc._lib = lambda dtype, fn=fn: fn
+        try:
+            ms = [cs.time_ms(lambda a=a: fc.fused_bn_act_conv(*a))
+                  for a in inputs]
+        finally:
+            fc._lib = lib
+        print("conv_f32_ablate " + json.dumps(dict(
+            ablate=variant, shapes=shapes, ms=ms)))
+
+
 def main() -> int:
     import torch
 
@@ -330,7 +526,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     cs = _chip_smoke()
-    what = sys.argv[1:] or ["conv", "plans", "reduce", "sample"]
+    what = sys.argv[1:] or ["conv", "plans", "reduce", "sample", "f32ablate",
+                            "f32"]
     if "conv" in what:
         conv_study(cs)
     if "plans" in what:
@@ -339,6 +536,12 @@ def main() -> int:
         reduce_study(cs)
     if "sample" in what:
         sample_study(cs)
+    if "f32ablate" in what:
+        f32_ablation_study(cs)
+    if "f32" in what:
+        after = what[what.index("f32") + 1:]
+        f32_study(cs, after[0] if after and os.path.isdir(after[0])
+                  else None)
     return 0
 
 

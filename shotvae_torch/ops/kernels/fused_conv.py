@@ -6,8 +6,11 @@ Replaces the forward of ``fused_bn_act_conv``
 activated tensor never written to device memory. Two kernels, by x's
 dtype, each counted on its own counter:
 
-* float32: ``shotvae_torch/csrc/fused_conv.cu``, a direct conv on the CUDA
-  cores (``fused_bn_act_conv.launches``);
+* float32: ``shotvae_torch/csrc/fused_conv.cu``, an implicit GEMM over
+  tiles of whole packed image rows on the CUDA cores (FFMA, no TF32), each
+  step's x and weights brought in by ``cp.async`` through a 2-stage ring
+  and x activated once into padded rows whose zeros are SAME's padding
+  (``fused_bn_act_conv.launches``);
 * bfloat16: ``shotvae_torch/csrc/fused_conv_bf16.cu``, an implicit GEMM on
   the tensor cores (``fused_bn_act_conv.launches_bf16``). As the TPU kernel
   does in bf16, the activation is computed in f32 and rounded to bf16 before
@@ -20,8 +23,11 @@ flat-row shift-and-mask layout are not carried over.
 
 Tensors are NCHW in ``channels_last`` memory format, so the kernel sees the
 NHWC rows the TPU kernel saw. The f32 kernel reads the weight reordered once
-per call into a (9*Cin, Cout) matrix. The bf16 kernel reads it as it lies:
-a ``channels_last`` (Cout, Cin, 3, 3) weight is the K-major (Cout, 9*Cin)
+per call into a (9*Cin, Cout) matrix; its launch plan (``conv_f32_plan``:
+N slice, runs a thread, rows per tile, segment width, stages,
+shared-memory bytes, grid) is computed here and checked again by its
+launcher. The bf16 kernel reads the weight as it lies: a
+``channels_last`` (Cout, Cin, 3, 3) weight is the K-major (Cout, 9*Cin)
 matrix ``wgmma`` takes, so the wrapper copies it only where it is not
 ``channels_last`` or Cin is not a multiple of 16 (then its input channels
 are padded with zeros). The bf16 kernel's launch plan (``conv_plan``: N
@@ -100,15 +106,14 @@ def fused_bn_act_conv_plain(x, scale, shift, weight, *,
 
 
 # x's dtype -> (CUDA source, C entry point, the multiples of Cin and of Cout
-# it needs, int arguments after the 5 pointers: B, H, W, Cin, Cout and, in
-# bf16, the plan)
+# it needs, the plan's entries its launcher takes after B, H, W, Cin, Cout,
+# in its order)
 _KERNELS = {torch.float32: ("fused_conv", "fused_bn_act_conv3x3_f32", 4, 4,
-                            5),
+                            ("bn", "runs", "rows", "ws", "stages",
+                             "smem_bytes", "grid_m", "grid_n")),
             torch.bfloat16: ("fused_conv_bf16", "fused_bn_act_conv3x3_bf16",
-                             8, 1, 12)}
-# the plan's entries the bf16 launcher takes, in its order
-_PLAN_ARGS = ("cin_pad", "bn", "cc", "stages", "streamed", "smem_bytes",
-              "grid")
+                             8, 1, ("cin_pad", "bn", "cc", "stages",
+                                    "streamed", "smem_bytes", "grid"))}
 _PLAN_ERRORS = {-1: "the launcher refused the launch plan",
                 -2: "the driver has no cuTensorMapEncodeTiled",
                 -3: "a TMA tensor map was refused"}
@@ -173,11 +178,65 @@ def conv_plan(b: int, h: int, w: int, cin: int, cout: int,
                 grid=grid, n_slices=n_slices, tiles=tiles)
 
 
+# the f32 kernel (csrc/fused_conv.cu): input channels per step, ring
+# stages, threads, output channels a thread, widest row segment; the tiles
+# its launcher takes, as (N slice, runs of 4 pixels a thread)
+F32_CK, F32_STAGES, F32_THREADS, F32_TN, F32_MAX_WS = 8, 2, 256, 4, 124
+F32_TILES = ((32, 1), (32, 2), (64, 1), (64, 2))
+
+
+def conv_f32_plan_at(b: int, h: int, w: int, cout: int, bn: int,
+                     runs: int) -> dict:
+    """The f32 launch plan for x (b, Cin, h, w) and cout output channels
+    under one tile of ``F32_TILES`` (csrc/fused_conv.cu: Geometry). A
+    block holds ``bm`` output pixels as ``rows`` whole image rows of ``ws``
+    pixels (w rounded up to 4; wider rows cut into ``nseg`` segments) by
+    ``bn`` output channels: block (i, j) of the (grid_m, grid_n) grid
+    computes image rows [r * rows, (r + 1) * rows) of the flattened
+    (b * h, w) rows, columns [s * ws, (s + 1) * ws), for i = r * nseg + s,
+    and output channels [j * bn, (j + 1) * bn), clipped to the tensor. An
+    activated buffer has ``slots`` padded rows (the tile's rows, the row
+    above and below, and a zero row between images) of ws + 4 floats; a
+    step copies ``pieces`` 16-byte pieces of x. ``smem_bytes`` is
+    smem_floats(): a ring of weight steps (9 x CK x bn) and x rows
+    ((rows + 2) x (ws + 2) x CK), and two activated buffers."""
+    bm = 4 * runs * F32_THREADS // (bn // F32_TN)
+    ws = min(-(-w // 4) * 4, F32_MAX_WS, bm)
+    rows = bm // ws
+    nseg = -(-w // ws)
+    slots = rows + 2 + (rows + h) // h
+    smem = 4 * (F32_STAGES * (9 * F32_CK * bn
+                              + (rows + 2) * (ws + 2) * F32_CK)
+                + 2 * F32_CK * slots * (ws + 4))
+    return dict(bn=bn, runs=runs, rows=rows, ws=ws, stages=F32_STAGES,
+                smem_bytes=smem, grid_m=-(-(b * h) // rows) * nseg,
+                grid_n=-(-cout // bn), bm=bm, nseg=nseg, slots=slots,
+                pieces=(rows + 2) * (ws + 2) * F32_CK // 4)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_f32_plan(b: int, h: int, w: int, cout: int,
+                  num_sms: int = 132) -> dict:
+    """The f32 kernel's launch plan for x (b, Cin, h, w) and cout output
+    channels on a card with ``num_sms`` SMs: slices of 32 output channels
+    where Cout is at most 32, else of 64; each thread 4 channels by two
+    runs of 4 pixels, or one run where two would give the card fewer than
+    two blocks an SM (measured best at every f32 serving shape,
+    scripts/torch_kernel_study.py f32). Cached per shape, as the wrapper
+    asks on every call: read the plan, do not change it."""
+    bn = 32 if cout <= 32 else 64
+    plan = conv_f32_plan_at(b, h, w, cout, bn, 2)
+    if plan["grid_m"] * plan["grid_n"] < 2 * num_sms:
+        plan = conv_f32_plan_at(b, h, w, cout, bn, 1)
+    return plan
+
+
 def _lib(dtype):
-    source, entry, _, _, n_int = _KERNELS[dtype]
+    source, entry, _, _, plan_args = _KERNELS[dtype]
     fn = getattr(_build.load(source), entry)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * n_int
+        fn.argtypes = ([ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * (5 + len(plan_args))
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -225,10 +284,10 @@ def _fused_conv_forward(x, scale, shift, weight, slope: float):
     if x.dtype == torch.bfloat16:
         plan = conv_plan(b, h, w, cin, cout, sm_count(x.device.index))
         w2 = _kmajor_weight(weight, plan["cin_pad"])
-        args = [int(plan[k]) for k in _PLAN_ARGS]
     else:
+        plan = conv_f32_plan(b, h, w, cout, sm_count(x.device.index))
         w2 = weight.permute(2, 3, 1, 0).reshape(9 * cin, cout).contiguous()
-        args = []
+    args = [int(plan[k]) for k in _KERNELS[x.dtype][4]]
     scale, shift = scale.contiguous(), shift.contiguous()
     y = torch.empty((b, cout, h, w), device=x.device, dtype=x.dtype,
                     memory_format=torch.channels_last)

@@ -572,6 +572,50 @@ def test_chip_smoke_bf16_conv_check_fails_at_ragged_shapes(wrong,
         chip_smoke.conv_phase(torch.device("cpu"), 2, torch.bfloat16)
 
 
+@pytest.mark.parametrize("wrong", ["ragged edge dropped",
+                                   "channels past the last k16 dropped"])
+def test_chip_smoke_f32_conv_check_fails_at_ragged_shapes(wrong,
+                                                          monkeypatch):
+    """Phase 2 holds the f32 fused conv at the ragged CONV_CHECK_SHAPES
+    too: it fails a kernel that is right at every main-path shape but
+    drops the edge of a map that is not a multiple of 8, or the input
+    channels of a Cin that is not a multiple of 16."""
+    from shotvae_torch.ops.kernels import fused_conv
+
+    chip_smoke = _chip_smoke(monkeypatch)
+    wrap = {"ragged edge dropped": _drop_ragged_edge,
+            "channels past the last k16 dropped": _drop_odd_channels}[wrong]
+    forward = fused_conv._fused_conv_forward
+    monkeypatch.setattr(fused_conv, "_fused_conv_forward", wrap(forward))
+    monkeypatch.setattr(chip_smoke, "CONV_CHECK_SHAPES",
+                        [s for s in chip_smoke.CONV_CHECK_SHAPES
+                         if s[0] > 1 and s[1] % 16 == 0])
+    chip_smoke.conv_phase(torch.device("cpu"), 2)  # passes
+    monkeypatch.undo()
+    chip_smoke = _chip_smoke(monkeypatch)
+    monkeypatch.setattr(fused_conv, "_fused_conv_forward", wrap(forward))
+    with pytest.raises(RuntimeError, match="disagrees"):
+        chip_smoke.conv_phase(torch.device("cpu"), 2)
+
+
+def test_chip_smoke_f32_conv_rows_carry_the_plan(monkeypatch):
+    """Phase 2's f32 fused conv rows carry the kernel's launch plan at
+    each timed shape; the bf16 rows do not."""
+    from shotvae_torch.ops.kernels import fused_conv
+
+    chip_smoke = _chip_smoke(monkeypatch)
+    cases = [(2, 64, 4, 4, 64, 1), (2, 16, 8, 8, 32, 1)]
+    rows, _ = chip_smoke.conv_phase(torch.device("cpu"), 2, None, cases,
+                                    0.01, [])
+    for row, (b, cin, h, w, cout, _) in zip(rows, cases):
+        plan = fused_conv.conv_f32_plan(b, h, w, cout, 132)
+        assert row["plan"] == dict(bn=plan["bn"], runs=plan["runs"],
+                                   grid=[plan["grid_m"], plan["grid_n"]])
+    rows, _ = chip_smoke.conv_phase(torch.device("cpu"), 2, torch.bfloat16,
+                                    cases, 0.01, [])
+    assert all("plan" not in row for row in rows)
+
+
 @pytest.mark.parametrize("wrong", list(_WRONG_BN_GRADS))
 def test_chip_smoke_bf16_step_check_fails_a_wrong_gradient(wrong,
                                                            monkeypatch):
@@ -798,6 +842,7 @@ def test_chip_smoke_encoder_phase_runs_on_cpu(part, monkeypatch, tmp_path):
             assert sum(r["launches"] for r in conv_rows) == \
                 res["sites"]["fused"]
         assert out["dense_bc_conv"][1] == 0.0
+        assert out["f32_conv_check"] == [0.0, 0.0]  # ReLU, identity
     elif part == "train":
         out = chip_smoke.encoder_train_phase(dev, 2, steps=1)
         for name in chip_smoke.ENCODER_PATHS:

@@ -62,7 +62,12 @@ def test_bn_act_matches_pallas(c, slope):
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("shape", [(4, 16, 16, 64, 64), (6, 8, 8, 128, 64)])
+# (B, H, W, Cin, Cout): the JAX tests' shapes, then 4x4 and 2x2 maps (the
+# f32 kernel packs 8 and 32 of them into one 128-row tile) and a ragged
+# map with Cin not a multiple of the kernel's 16-channel chunk
+@pytest.mark.parametrize("shape", [(4, 16, 16, 64, 64), (6, 8, 8, 128, 64),
+                                   (3, 4, 4, 64, 32), (2, 2, 2, 32, 64),
+                                   (1, 13, 11, 24, 32)])
 def test_fused_conv_matches_pallas(shape):
     b, h, w, cin, cout = shape
     rng = np.random.default_rng(3)

@@ -1,12 +1,14 @@
 """The launch plans of the port's redesigned kernels, in plain Python: the
 bf16 fused conv's (N slices, chunk channels, ring stages, shared memory,
-grid) and the bn_leaky reductions' (row blocks, programs), at the shapes
-the main path, the JAX package's tests and the ragged checks give them.
-The kernels themselves run only on the card (chip_smoke.py)."""
+grid), the f32 fused conv's (row tiles, slices, grid; with a numpy model
+of its walk) and the bn_leaky reductions' (row blocks, programs), at the
+shapes the main path, the JAX package's tests and the ragged checks give
+them. The kernels themselves run only on the card (chip_smoke.py)."""
 
 import importlib.util
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -194,6 +196,37 @@ def test_kernel_study_sample_ablation_patches_the_current_source(bits):
     assert set(study.SAMPLE_VARIANTS) <= set(range(16))
 
 
+@pytest.mark.parametrize("bits", [1, 2, 4, 8, 14, 16])
+def test_kernel_study_f32_ablation_patches_the_current_source(bits):
+    """The study's f32 conv variants (scripts/torch_kernel_study.py
+    f32ablate) patch texts of csrc/fused_conv.cu that must each be found
+    once."""
+    study = _study()
+    with open(os.path.join(ROOT, "shotvae_torch", "csrc",
+                           "fused_conv.cu")) as f:
+        src = f.read()
+    patched = study.ablated_source(src, bits, study.F32_ABLATIONS,
+                                   "fused_conv")
+    for bit, patches in study.F32_ABLATIONS.items():
+        for old, new in patches:
+            assert (new in patched) == bool(bits & bit)
+            assert src.count(old) == 1
+    assert set(study.F32_VARIANTS) <= set(range(32))
+
+
+@pytest.mark.parametrize("net", ["wideresnet-28-2", "preactresnet18",
+                                 "densenet121"])
+def test_kernel_study_f32_sweep_uses_the_current_plans(net):
+    """The study's f32 sweep times every tile the launcher takes, the
+    built plan among them, at the serving shapes these tests hold."""
+    study = _study()
+    for b, cin, h, w, cout, _ in study.F32_SHAPES[net]:
+        assert (b, cin, h, w, cout) in F32_SERVING_SHAPES
+        plans, built = study.f32_swept_plans(b, cin, h, w, cout)
+        assert built in plans
+        assert [(p["bn"], p["runs"]) for p in plans] == list(fc.F32_TILES)
+
+
 @pytest.mark.parametrize("shape", CONV_SHAPES[:4])
 def test_kernel_study_sweeps_use_the_current_plans(shape):
     """The study's plan sweep holds the built plan among plans that fit,
@@ -209,3 +242,205 @@ def test_kernel_study_sweeps_use_the_current_plans(shape):
         p = study.scaled_reduce_plan(factor)(b * h * w, cin, 2)
         assert (p["programs"] - 1) * p["iters"] < p["row_blocks"] \
             <= p["programs"] * p["iters"]
+
+
+# ----------------------------------------------------------------- f32 conv
+# (B, Cin, H, W, Cout): the f32 serving shapes of WRN-28-2, preactresnet18
+# and densenet121 at batch 768, chip_smoke.py's ragged shapes, then maps
+# of 1x1 and 2x2 and B = 1
+F32_SERVING_SHAPES = [
+    (768, 16, 32, 32, 32), (768, 32, 32, 32, 32), (768, 64, 16, 16, 64),
+    (768, 128, 8, 8, 128),                                    # WRN-28-2
+    (768, 64, 32, 32, 64), (768, 128, 16, 16, 128), (768, 256, 8, 8, 256),
+    (768, 512, 4, 4, 512),                                    # preactresnet18
+    (768, 128, 32, 32, 32), (768, 128, 16, 16, 32), (768, 128, 8, 8, 32),
+    (768, 128, 4, 4, 32)]                                     # densenet121
+F32_SHAPES = [*F32_SERVING_SHAPES, *CHIP.CONV_CHECK_SHAPES,
+              (1, 16, 1, 1, 16), (3, 32, 1, 1, 64), (5, 8, 2, 2, 12),
+              (1, 4, 3, 3, 4)]
+
+
+def f32_thread_runs(bn: int, runs: int):
+    """Per thread of an f32 block, its runs of 4 pixels and its first
+    output channel, in the kernel's mapping (csrc/fused_conv.cu: a warp
+    spans 4 tm by 8 tn; runs tm + r * MT, channels tn * 4 + 0..3)."""
+    nt = bn // fc.F32_TN
+    mt, wn = fc.F32_THREADS // nt, nt // 8
+    out = []
+    for tid in range(fc.F32_THREADS):
+        warp, lane = divmod(tid, 32)
+        tn = (warp % wn) * 8 + lane % 8
+        tm = (warp // wn) * 4 + lane // 8
+        out.append(([tm + r * mt for r in range(runs)], 4 * tn))
+    return out
+
+
+def f32_stores(b: int, h: int, w: int, cout: int, plan: dict):
+    """How often the plan's blocks and threads store each output (pixel,
+    channel): block (i, j) holds image rows [r * rows, (r + 1) * rows) and
+    columns [s * ws, (s + 1) * ws) for i = r * nseg + s, its threads' runs
+    p at tile row p // (ws / 4), columns 4 * (p % (ws / 4)) + 0..3."""
+    rows, ws, bn = plan["rows"], plan["ws"], plan["bn"]
+    stores = np.zeros((b * h, w, cout), np.int32)
+    threads = f32_thread_runs(bn, plan["runs"])
+    for i in range(plan["grid_m"]):
+        g0, x0 = (i // plan["nseg"]) * rows, (i % plan["nseg"]) * ws
+        for j in range(plan["grid_n"]):
+            for runs, c in threads:
+                for p in runs:
+                    t, col = divmod(p, ws // 4)
+                    co = j * bn + c
+                    if t >= rows or g0 + t >= b * h or co >= cout:
+                        continue
+                    ox = x0 + 4 * col + np.arange(4)
+                    ox = ox[ox < w]
+                    stores[g0 + t, ox, co:co + 4] += 1
+    return stores
+
+
+@pytest.mark.parametrize("shape", F32_SHAPES)
+@pytest.mark.parametrize("num_sms", [132, 114])
+def test_conv_f32_plan_fits_and_covers_every_output_once(shape, num_sms):
+    b, cin, h, w, cout = shape
+    plan = fc.conv_f32_plan(b, h, w, cout, num_sms)
+    bn, rows, ws = plan["bn"], plan["rows"], plan["ws"]
+    assert (bn, plan["runs"]) in fc.F32_TILES and plan["stages"] == 2
+    assert plan["bm"] == 4 * plan["runs"] * fc.F32_THREADS // (bn // 4)
+    assert ws % 4 == 0 and ws <= min(fc.F32_MAX_WS, plan["bm"])
+    assert rows == plan["bm"] // ws and plan["nseg"] * ws >= w
+    assert plan["smem_bytes"] <= fc.SMEM_LIMIT
+    assert plan["pieces"] <= 4 * fc.F32_THREADS  # MAX_PIECES a thread
+    # the slots hold the tile's rows, the row above and below and a zero
+    # row at each image boundary among them, at any first row
+    for g0 in range(0, 3 * h + rows, rows):
+        first = (g0 - 1) // h
+        last_slot = (rows + 1) + (g0 + rows) // h - first
+        assert last_slot < plan["slots"]
+    # every (pixel, channel) of y is stored by exactly one thread
+    assert plan["grid_m"] == -(-(b * h) // rows) * plan["nseg"]
+    assert plan["grid_n"] == -(-cout // bn)
+    if b * h * w * cout <= 2_000_000:
+        assert (f32_stores(b, h, w, cout, plan) == 1).all()
+    else:  # one block's threads: each (run, channel group) of its tile once
+        held = sorted((p, c) for runs, c in f32_thread_runs(
+            bn, plan["runs"]) for p in runs)
+        assert held == [(p, c) for p in range(plan["bm"] // 4)
+                        for c in range(0, bn, 4)]
+
+
+def test_conv_f32_plan_at_the_serving_shapes():
+    """Slices of 32 where Cout is 32, else 64; two runs a thread, one
+    where two would leave an SM with fewer than two blocks (densenet121's
+    8x8 and 4x4 maps); 4x4 maps pack 8 images into a 128-pixel tile."""
+    plans = {s: fc.conv_f32_plan(s[0], s[2], s[3], s[4])
+             for s in F32_SERVING_SHAPES}
+    assert [(p["bn"], p["runs"]) for p in plans.values()] == [
+        (32, 2), (32, 2), (64, 2), (64, 2), (64, 2), (64, 2), (64, 2),
+        (64, 2), (32, 2), (32, 2), (32, 1), (32, 1)]
+    p = plans[(768, 512, 4, 4, 512)]
+    assert (p["rows"], p["ws"], p["grid_m"], p["grid_n"]) == (32, 4, 96, 8)
+    assert p["slots"] == 32 + 2 + (32 + 4) // 4 == 43
+    assert p["smem_bytes"] == 4 * (2 * (9 * 8 * 64 + 34 * 6 * 8)
+                                   + 2 * 8 * 43 * 8)
+    assert plans[(768, 128, 4, 4, 32)]["grid_m"] == 96
+    p = fc.conv_f32_plan(1, 2, 300, 8)  # rows wider than a segment
+    assert (p["ws"], p["nseg"], p["rows"]) == (124, 3, 1)
+
+
+def f32_kernel_model(x, scale, shift, weight, slope: float, plan: dict):
+    """The f32 kernel's walk in numpy. Per block: its rows image rows by
+    ws columns; per step of 8 input channels, the staged x rows (one row
+    and column of halo each side) activated once, 0 outside the image or
+    past Cin, laid out as padded rows (slots) with a zero row between
+    images; then each run of 4 pixels sums, over the step's channels and
+    the 9 taps, the activated inputs at its slot + dy - 1 and columns +
+    dx times the weights (0 past Cin or Cout), in f32; the sums stored by
+    the threads of the kernel's mapping. Returns y (B, Cout, H, W)."""
+    b, cin, h, w = x.shape
+    cout = weight.shape[0]
+    ck = fc.F32_CK
+    xr = x.permute(0, 2, 3, 1).reshape(b * h, w, cin).numpy()
+    w2 = weight.permute(2, 3, 1, 0).reshape(9, cin, cout).numpy()
+    sc, sh = scale.numpy(), shift.numpy()
+    rows, ws, bn = plan["rows"], plan["ws"], plan["bn"]
+    y = np.zeros((b * h, w, cout), np.float32)
+    threads = f32_thread_runs(bn, plan["runs"])
+    for i in range(plan["grid_m"]):
+        g0, x0 = (i // plan["nseg"]) * rows, (i % plan["nseg"]) * ws
+        first = (g0 - 1) // h
+        for j in range(plan["grid_n"]):
+            co = j * bn + np.arange(bn)
+            acc = np.zeros((rows, ws, bn), np.float32)
+            for c0 in range(0, cin, ck):
+                ci = c0 + np.arange(ck)
+                act = np.zeros((ck, plan["slots"], ws + 4), np.float32)
+                for r in range(rows + 2):
+                    g = g0 - 1 + r
+                    slot = r + (g // h) - first
+                    for col in range(ws + 2):
+                        ox = x0 - 1 + col
+                        for k in range(ck):
+                            if (0 <= g < b * h and 0 <= ox < w
+                                    and ci[k] < cin):
+                                pre = xr[g, ox, ci[k]] * sc[ci[k]] \
+                                    + sh[ci[k]]
+                                act[k, slot, col] = pre if pre > 0 \
+                                    else slope * pre
+                wk = np.zeros((9, ck, bn), np.float32)
+                ok = (ci < cin)[:, None] & (co < cout)[None, :]
+                for tap in range(9):
+                    wk[tap][ok] = w2[tap][np.ix_(np.minimum(ci, cin - 1),
+                                                 np.minimum(co, cout - 1))][ok]
+                for t in range(rows):
+                    slot = t + 1 + (g0 + t) // h - first
+                    for dy in range(3):
+                        for dx in range(3):
+                            win = act[:, slot + dy - 1, dx:dx + ws]
+                            acc[t] += win.T @ wk[dy * 3 + dx]
+            for runs, c in threads:
+                for p in runs:
+                    t, col = divmod(p, ws // 4)
+                    if t >= rows or g0 + t >= b * h or j * bn + c >= cout:
+                        continue
+                    for e in range(4):
+                        ox = x0 + 4 * col + e
+                        if ox < w:
+                            y[g0 + t, ox, j * bn + c:j * bn + c + 4] = \
+                                acc[t, 4 * col + e, c:c + 4]
+    return torch.from_numpy(y).reshape(b, h, w, cout).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("slope", [0.01, 0.0, 1.0])
+@pytest.mark.parametrize("shape", [(3, 64, 4, 4, 32), (2, 32, 2, 2, 64),
+                                   (1, 24, 13, 11, 32), (2, 40, 7, 5, 72),
+                                   (1, 8, 1, 1, 16), (2, 12, 3, 130, 8)])
+def test_conv_f32_tile_walk_matches_the_plain_version(shape, slope):
+    """The numpy model of the kernel's walk against
+    fused_bn_act_conv_plain within TOL_CONV: tiles that pack several
+    images (4x4, 2x2 and 1x1 maps) and so read the zero rows between
+    them, a ragged last tile, W not a multiple of 4, rows wider than a
+    segment, Cin not a multiple of the 8-channel step and Cout not of the
+    slice; at LeakyReLU, ReLU and identity. A shift that is not 0 makes
+    padding before the activation show."""
+    b, cin, h, w, cout = shape
+    rng = np.random.default_rng(cin + h)
+    x = torch.from_numpy(rng.normal(size=(b, cin, h, w)).astype(np.float32))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, cin).astype(np.float32))
+    shift = torch.from_numpy(rng.normal(size=cin).astype(np.float32) * 0.5)
+    weight = torch.from_numpy(
+        (rng.normal(size=(cout, cin, 3, 3)) * (2 / (9 * cin)) ** 0.5)
+        .astype(np.float32))
+    plan = fc.conv_f32_plan(b, h, w, cout)
+    assert (f32_stores(b, h, w, cout, plan) == 1).all()
+    got = f32_kernel_model(x, scale, shift, weight, slope, plan)
+    want = fc.fused_bn_act_conv_plain(x, scale, shift, weight, slope=slope)
+    tol = CHIP.TOL_CONV
+    assert torch.allclose(got, want, rtol=tol, atol=tol), \
+        float((got - want).abs().max())
+    # padding x with zeros before the activation is another function
+    # wherever the shift is not 0
+    pre = (torch.nn.functional.pad(x, (1, 1, 1, 1))
+           * scale[:, None, None] + shift[:, None, None])
+    unmasked = torch.nn.functional.conv2d(
+        torch.where(pre > 0, pre, slope * pre), weight)
+    assert not torch.allclose(unmasked, want, rtol=tol, atol=tol)
