@@ -120,6 +120,24 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    ``ShotVaeInference.from_checkpoint`` of both models at 768
    (``classify``, ``reconstruct``) with launches, times and 16 images
    against the CPU.
+12. The one-stage smooth-ELBO trainers (run after phase 11, before the
+   lines of phase 10), the paths of ``python -m
+   shotvae_torch.cli.main_smooth_elbo_mnist`` and ``..._svhn`` at their
+   CLI defaults, in f32: one MNIST epoch of ``run_smooth_elbo`` on seeded
+   idx files of 60,000 / 10,000 28x28 images written under ``build/``
+   (468 steps of 128 + 4 after the resize on the card, 10 eval batches of
+   1,000) and one SVHN epoch through the synthetic fallback (2,048 / 512
+   images, 8 steps of 256 + 512, the plateau scheduler on), each with a
+   finite loss, an accuracy in [0, 1], the JAX loop's log text and the
+   checkpoint strict-loading into a fresh ``SmoothVAE`` equal to the final
+   weights bit for bit; per configuration the step's median and range of
+   10 and unlabeled images/s, the idle share of one profiled step, the
+   eval step at its test batch and the epoch's train and eval seconds; one
+   step on the card against the CPU at the configuration's batches with
+   every draw injected (metrics, gradients, parameters and Adam moments;
+   Adam's tiny-gradient elements counted). Every hand kernel's launch
+   counter reads 0 over the phase: the smooth VAE has no BatchNorm, its
+   train draw needs a gradient and its eval forward draws nothing.
 10. Print the ``kernels`` JSON line (each kernel's launches on every path,
    the M2, classifier and encoder paths included), then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
@@ -362,7 +380,9 @@ def host_ms(dev, fn, reps: int = 5) -> float:
 
 def device_breakdown(fn, top: int = 8) -> dict:
     """One ``fn()`` under torch.profiler: wall time, device busy time and
-    the kernels that took the most device time."""
+    the kernels that took the most device time. User annotations on the
+    device's timeline (``Optimizer.step#Adam.step``, ``#SGD.step``) span
+    kernels that are counted themselves, so they are left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -376,7 +396,8 @@ def device_breakdown(fn, top: int = 8) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -1240,6 +1261,18 @@ def compare_train_step(dev, batch: int, kind: str = "shot", net: dict = WRN):
         for model in (dev_model, cpu_model, ulp_model)]
     metric_err = max(max_err(m_dev[k].cpu(), m_cpu[k], TOL_STEP,
                              what=f"train step metric {k}") for k in m_cpu)
+    return (metric_err, *check_gradients(g_dev, g_cpu, g_ulp),
+            _state_errors(sd_dev, sd_cpu, TOL_STEP))
+
+
+def check_gradients(g_dev, g_cpu, g_ulp) -> tuple:
+    """Each gradient of the card (``g_dev``) against the CPU's, norm-wise
+    within max(TOL_GRAD_STEP, ULP_FACTOR x the CPU's one-ulp spread, the
+    distance of ``g_ulp`` from it). Returns the largest and the median
+    error, the largest share of its tolerance an error used, and the
+    largest and the median spread."""
+    import torch
+
     errs, spreads, share = [], [], 0.0
     for n, want in g_cpu.items():
         spread = normwise_rel_err(g_ulp[n], want)
@@ -1252,9 +1285,8 @@ def compare_train_step(dev, batch: int, kind: str = "shot", net: dict = WRN):
         errs.append(e)
         spreads.append(spread)
         share = max(share, e / tol)
-    return (metric_err, max(errs), statistics.median(errs), share,
-            max(spreads), statistics.median(spreads),
-            _state_errors(sd_dev, sd_cpu, TOL_STEP))
+    return (max(errs), statistics.median(errs), share, max(spreads),
+            statistics.median(spreads))
 
 
 VS_CPU_KEYS = ("metrics_max_abs_err", "grad_max_rel_err",
@@ -2090,6 +2122,277 @@ def check_encoder_rows(kernels: dict, train: dict, steps: int) -> None:
                   f"launches per step; {steps} steps launched {got[kernel]}")
 
 
+# ---------------------------------------------------------------- phase 12
+
+# the one-stage smooth-ELBO trainers at their CLI defaults: MNIST on
+# written idx files of MNIST's sizes (60,000 / 10,000 28x28 images: 468
+# steps of 128 + 4, 10 eval batches of 1,000), SVHN through the synthetic
+# fallback (2,048 / 512 images: 8 steps of 256 + 512, 4 eval batches of
+# 128) with the plateau scheduler on
+SMOOTH_MNIST_SIZES = (60000, 10000)
+# shotvae_tpu/train/loop.py:790-800: three lines and a blank one an epoch
+SMOOTH_LOG_LINES = [
+    r"Epoch: \d+ Average loss: -?[\d.]+ Test Accuracy: [\d.]+",
+    r"u_recon_loss: -?[\d.]+, u_cont: -?[\d.]+, u_disc: -?[\d.]+",
+    r"l_recon_loss: -?[\d.]+, l_cont: -?[\d.]+, l_disc: -?[\d.]+, "
+    r"class: -?[\d.]+", ""]
+
+
+def write_mnist_idx(root: str, sizes, seed: int = SEED) -> None:
+    """Seeded class-structured 28x28 MNIST idx files (train and t10k) of
+    ``sizes`` images under ``root``, cut from one synthetic set, so both
+    splits share each class's mean image and the test accuracy means
+    something."""
+    import struct
+
+    from shotvae_torch.data.datasets import synthetic_dataset
+
+    os.makedirs(root, exist_ok=True)
+    ds = synthetic_dataset(sum(sizes), (28, 28, 1), 10, seed=seed)
+    start = 0
+    for prefix, n in zip(("train", "t10k"), sizes):
+        part = slice(start, start + n)
+        start += n
+        with open(os.path.join(root, f"{prefix}-images-idx3-ubyte"),
+                  "wb") as f:
+            f.write(struct.pack(">IIII", 2051, n, 28, 28)
+                    + ds.images[part].tobytes())
+        with open(os.path.join(root, f"{prefix}-labels-idx1-ubyte"),
+                  "wb") as f:
+            f.write(struct.pack(">II", 2049, n)
+                    + ds.labels[part].astype("uint8").tobytes())
+
+
+def smooth_config(base: str, dataset: str, argv=()):
+    """The config of ``python -m shotvae_torch.cli.main_smooth_elbo_<dataset>
+    -bp <base> <argv>``."""
+    from shotvae_torch.cli.main_smooth_elbo_mnist import (build_parser,
+                                                          config_from_args)
+
+    svhn = dataset == "svhn"
+    return config_from_args(build_parser(svhn).parse_args(
+        ["-bp", base, *argv]), svhn)
+
+
+def smooth_trainer(model, cfg):
+    """Adam at ``cfg``'s rate over ``model`` and the smooth-ELBO step of
+    ``cfg``."""
+    from shotvae_torch.train.state import TrainState, adam_torch
+    from shotvae_torch.train.steps import make_smooth_elbo_train_step
+
+    state = TrainState(model, adam_torch(model, cfg.learning_rate))
+    return state, make_smooth_elbo_train_step(
+        model, state.optimizer, alpha=cfg.alpha,
+        cont_capacity=tuple(cfg.cont_capacity),
+        disc_capacity=tuple(cfg.disc_capacity),
+        disc_dims=tuple(cfg.latent_spec_disc))
+
+
+def smooth_step_inputs(model, batch_u: int, batch_l: int):
+    """Seeded uint8 images of both streams, labels and every draw of one
+    smooth-ELBO step (the step's ``inject`` layout), on the host."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 30)
+    t = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
+    c = model.img_channels
+    inject = {s: {"eps": t(rng.standard_normal(
+        (n, model.latent_cont_dim), np.float32)),
+        "unif": [t(rng.uniform(1e-4, 1 - 1e-4, (n, k)).astype(np.float32))
+                 for k in model.disc_dims]}
+        for s, n in (("u", batch_u), ("l", batch_l))}
+    return (t(rng.integers(0, 256, (batch_u, 32, 32, c), dtype=np.uint8)),
+            t(rng.integers(0, 256, (batch_l, 32, 32, c), dtype=np.uint8)),
+            t(rng.integers(0, model.disc_dims[0], batch_l)), inject)
+
+
+def smooth_train_once(model, cfg, inputs):
+    """One smooth-ELBO step of ``model`` on ``inputs``: its metrics, and,
+    on the CPU, each parameter's gradient, the parameters and both Adam
+    moments after it."""
+    import torch
+
+    state, step = smooth_trainer(model, cfg)
+    metrics = step(state, *inputs[:3], torch.Generator().manual_seed(SEED),
+                   inputs[3])
+    params = dict(model.named_parameters())
+    check(all(p.grad is not None for p in params.values()),
+          "a parameter got no gradient")
+    adam = {n: state.optimizer.state[p] for n, p in params.items()}
+    return ({k: v.cpu() for k, v in metrics.items()},
+            {n: p.grad.cpu() for n, p in params.items()},
+            {n: p.detach().cpu() for n, p in params.items()},
+            {n: (s["exp_avg"].cpu(), s["exp_avg_sq"].cpu())
+             for n, s in adam.items()})
+
+
+def compare_smooth_step(dev, cfg, dataset: str, batch_u: int,
+                        batch_l: int) -> dict:
+    """One smooth-ELBO step of the same seeded model on ``dev`` and on the
+    CPU at ``batch_u`` + ``batch_l``, every draw injected: each metric
+    within TOL_STEP (abs + rel); each gradient norm-wise within
+    max(TOL_GRAD_STEP, ULP_FACTOR x the CPU's own one-ulp spread); the
+    parameters and both Adam moments after the update within TOL_STEP,
+    except Adam's tiny-gradient elements: after a step from zero moments
+    an element moves by lr * g / (|g| + eps), about +-lr whatever |g|, so
+    an element whose gradient is within rounding of 0, and whose sign the
+    card and the CPU round apart, lands 2 lr apart. Such elements (the
+    two gradients of other signs, or one within Adam's eps of 0) are held
+    by their gradient, which the norm-wise check covers, and counted."""
+    import torch
+
+    from shotvae_torch.train.loop import build_smooth_model
+
+    cpu_model = build_smooth_model(cfg, dataset, "cpu")
+    dev_model = copy.deepcopy(cpu_model).to(dev)
+    ulp_model = one_ulp_apart(cpu_model)
+    inputs = smooth_step_inputs(cpu_model, batch_u, batch_l)
+    (m_dev, g_dev, p_dev, a_dev), (m_cpu, g_cpu, p_cpu, a_cpu), \
+        (_, g_ulp, _, _) = [smooth_train_once(model, cfg, inputs)
+                            for model in (dev_model, cpu_model, ulp_model)]
+    check(set(m_dev) == set(m_cpu), "card and CPU metrics differ in keys")
+    metric_err = max(max_err(m_dev[k], m_cpu[k], TOL_STEP,
+                             what=f"smooth {dataset} step metric {k}")
+                     for k in m_cpu)
+    grads = check_gradients(g_dev, g_cpu, g_ulp)
+    eps = 1e-8  # adam_torch's
+    tiny, state_err, total = 0, 0.0, 0
+    for n, want in p_cpu.items():
+        diff = (p_dev[n] - want).abs()
+        bad = diff > TOL_STEP * (1.0 + want.abs())
+        flipped = (torch.sign(g_dev[n]) != torch.sign(g_cpu[n])) | (
+            torch.minimum(g_dev[n].abs(), g_cpu[n].abs()) <= eps)
+        left = bad & ~flipped
+        if bool(left.any()):
+            raise RuntimeError(
+                f"card and CPU disagree on {n} after the update: "
+                f"{int(left.sum())} elements beyond {TOL_STEP}, max "
+                f"{float(diff[left].max()):.3e}")
+        tiny += int((bad & flipped).sum())
+        total += want.numel()
+        state_err = max(state_err, float(diff[~bad].max()) if bool(
+            (~bad).any()) else 0.0)
+        for i, what in enumerate(("exp_avg", "exp_avg_sq")):
+            state_err = max(state_err, max_err(
+                a_dev[n][i], a_cpu[n][i], TOL_STEP,
+                what=f"smooth {dataset} Adam {what} of {n}"))
+    return {**dict(zip(VS_CPU_KEYS, (metric_err, *grads, state_err))),
+            "adam_tiny_gradient_elements": tiny, "parameters": total}
+
+
+def smooth_phase(dev, base: str, dataset: str, argv=(),
+                 mnist_sizes=SMOOTH_MNIST_SIZES) -> dict:
+    """Phase 12 for ``dataset`` under ``base``: one epoch of
+    ``run_smooth_elbo`` at the CLI's defaults (and ``argv``), MNIST on
+    written idx files of ``mnist_sizes`` images, SVHN through the synthetic
+    fallback; its loss, accuracy, log text and checkpoint checked; step,
+    eval and epoch times and the idle share of one profiled step; one step
+    on the card against the CPU at the configuration's batches. Every hand
+    kernel's launch counter must read 0 over the phase: the smooth VAE has
+    no BatchNorm and its train draw needs a gradient."""
+    import torch
+
+    from shotvae_torch.io.checkpoint import CheckpointManager
+    from shotvae_torch.train.loop import build_smooth_model, run_smooth_elbo
+    from shotvae_torch.train.steps import make_smooth_elbo_eval_step
+
+    log = lambda *a: print(f"  smooth {dataset}:", *a)  # noqa: E731
+    counters = kernel_counters()
+    zero_counts(counters)
+    cuda = dev.type == "cuda"
+    if dataset == "mnist":
+        cfg = smooth_config(base, dataset, argv)
+        write_mnist_idx(cfg.path_to_data, mnist_sizes)
+    else:
+        cfg = smooth_config(base, dataset, ("--synthetic-data", *argv))
+    out = run_smooth_elbo(cfg, dataset, max_epochs=1, log_fn=log, device=dev)
+    _sync(dev)
+    (h,) = out["history"]
+    check(math.isfinite(h["mean_loss"]) and 0.0 <= h["test_acc"] <= 1.0,
+          f"the smooth {dataset} epoch gave {h}")
+    lines = open(out["log_path"]).read().split("\n")
+    check(len(lines) == len(SMOOTH_LOG_LINES) + 1 and all(
+        re.fullmatch(p, line) for p, line in zip(SMOOTH_LOG_LINES, lines)),
+        f"the smooth {dataset} log is not the JAX loop's text: {lines}")
+    final = out["state"]
+    ckpt = CheckpointManager(cfg.base_path, dataset.upper(), cfg.train_time,
+                             tag="One-Stage-VAE")
+    payload = torch.load(ckpt.latest_path(), map_location="cpu",
+                         weights_only=True)
+    fresh = build_smooth_model(cfg, dataset, dev)
+    fresh.load_state_dict(payload["state_dict"], strict=True)
+    want = final.model.state_dict()
+    check(payload["step"] == final.step and all(
+        torch.equal(v, want[k]) for k, v in fresh.state_dict().items()),
+        f"the smooth {dataset} checkpoint differs from the final weights")
+    times = out["epoch_times"][0]
+    epoch = dict(epoch_s=times["train_s"] + times["eval_s"],
+                 train_s=times["train_s"], eval_s=times["eval_s"],
+                 train_steps=final.step,
+                 unlabeled_images_per_s=final.step * cfg.unlabeled_batch_size
+                 / times["train_s"], mean_loss=h["mean_loss"],
+                 test_acc=h["test_acc"], lr_scale=h["lr_scale"],
+                 checkpoint_bit_identical=True, log_lines=len(lines) - 1)
+
+    # the step alone at the configuration's batches, on seeded data
+    model = build_smooth_model(cfg, dataset, dev)
+    state, step = smooth_trainer(model, cfg)
+    img_u, img_l, lab_l, _ = smooth_step_inputs(
+        model, cfg.unlabeled_batch_size, cfg.labeled_batch_size)
+    img_u, img_l, lab_l = img_u.to(dev), img_l.to(dev), lab_l.to(dev)
+    g = torch.Generator().manual_seed(SEED + 31)
+    run = lambda: step(state, img_u, img_l, lab_l, g)  # noqa: E731
+    timing = step_times(dev, run, cfg.unlabeled_batch_size, "")
+    profile = device_breakdown(run, top=8) if cuda else None
+    evaluate = make_smooth_elbo_eval_step(model)
+    n = cfg.test_batch_size
+    test_img = torch.randint(0, 256, (n, 32, 32, model.img_channels),
+                             generator=g, dtype=torch.uint8).to(dev)
+    test_lab = torch.randint(0, 10, (n,), generator=g).to(dev)
+    weight = torch.ones(n, device=dev)
+    timing["eval_step_ms"] = host_ms(dev, lambda: evaluate(test_img,
+                                                           test_lab, weight))
+    vs_cpu = compare_smooth_step(dev, cfg, dataset, cfg.unlabeled_batch_size,
+                                 cfg.labeled_batch_size)
+    launches = read_counts(counters, torch.float32)
+    launches.update({f"{k}_bf16": v for k, v in read_counts(
+        counters, torch.bfloat16).items()})
+    check(set(launches.values()) == {0}, f"the smooth {dataset} path "
+          f"launched hand kernels: {launches}")
+    return dict(epoch=epoch, timing=timing, profile=profile, vs_cpu=vs_cpu,
+                hand_kernel_launches=launches)
+
+
+def smooth_phases(dev) -> dict:
+    """Phase 12: ``smooth_phase`` for MNIST and SVHN under a folder of
+    ``build/`` removed after; each part's lines printed as it ends."""
+    out = {}
+    root = os.path.join(ROOT, "build")
+    os.makedirs(root, exist_ok=True)
+    for dataset in ("mnist", "svhn"):
+        t0 = time.perf_counter()
+        base = tempfile.mkdtemp(prefix=f"smooth_{dataset}_", dir=root)
+        try:
+            res = out[dataset] = smooth_phase(dev, base, dataset)
+        finally:
+            shutil.rmtree(base, ignore_errors=True)
+        cfg = smooth_config(".", dataset)
+        batch = f"{cfg.unlabeled_batch_size}+{cfg.labeled_batch_size}"
+        print(f"smooth_{dataset}_epoch_at_batch_{batch} "
+              + json.dumps(res["epoch"]))
+        print(f"smooth_{dataset}_step_at_batch_{batch} "
+              + json.dumps(res["timing"]))
+        print(f"smooth_{dataset}_step_profile_at_batch_{batch} "
+              + json.dumps(res["profile"]))
+        print(f"smooth_{dataset}_step_vs_cpu_at_batch_{batch} "
+              + json.dumps(res["vs_cpu"]))
+        print(f"smooth_{dataset}_hand_kernel_launches "
+              + json.dumps(res["hand_kernel_launches"]))
+        print(f"smooth {dataset} phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -2431,6 +2734,7 @@ def main() -> int:
               + json.dumps(out["loop"]))
         print(f"{kind} phase {time.perf_counter() - t0:.1f} s")
     encoders = encoder_phases(dev, BATCH)
+    smooth_phases(dev)  # phase 12: no hand kernel on this path
     conv_train = sum(r["launches"] for r in conv_bwd_rows)
     check(conv_train * TRAIN_STEPS == train["launches"]["fused_bn_act_conv"],
           f"the fused conv backward rows weigh {conv_train} launches per "

@@ -1,15 +1,15 @@
-"""Configuration of the SHOT-VAE, M2 and classifier trainers.
+"""Configuration of the SHOT-VAE, M2, classifier and smooth-ELBO trainers.
 
-The port's own copy of shotvae_tpu/config.py:17-132 (``ShotVaeConfig``,
-``DatasetSpec``, ``apply_dataset_overrides``, ``ClassifierConfig``): every
+The port's own copy of shotvae_tpu/config.py:17-169 (``ShotVaeConfig``,
+``DatasetSpec``, ``apply_dataset_overrides``, ``ClassifierConfig``,
+``SmoothElboConfig``, ``svhn_smooth_defaults``): every
 field, with the JAX package's names and defaults, which follow the
 reference's flag names (main_shot_vae.py:30-106), and
 ``apply_dataset_overrides``, the per-dataset values the reference sets
 inside ``main()``. ``compute_dtype`` is the model's trunk dtype, as
 shotvae_tpu/train/loop.py:223 picks it from ``bf16``. Fields that drive a
-part the port does not have yet (data parallelism, multi-step dispatch,
-the DenseNet) are refused by the loop
-(``shotvae_torch.train.loop``), never ignored.
+part the port does not have yet (data parallelism, multi-step dispatch)
+are refused by the loop (``shotvae_torch.train.loop``), never ignored.
 """
 
 from __future__ import annotations
@@ -139,3 +139,42 @@ class ClassifierConfig(ShotVaeConfig):
 
     epochs: int = 500
     adjust_lr: List[int] = field(default_factory=lambda: [300, 350, 400])
+
+
+@dataclass
+class SmoothElboConfig:
+    """The one-stage smooth-ELBO trainers' surface
+    (main_smooth_ELBO_{mnist,svhn}.py), MNIST's defaults."""
+
+    base_path: str = "."
+    latent_spec_cont: int = 10
+    latent_spec_disc: Tuple[int, ...] = (10,)
+    disc_capacity: Tuple[float, float, int, float] = (0.0, 17.0, 25000, 30.0)
+    cont_capacity: Tuple[float, float, int, float] = (0.0, 17.5, 25000, 30.0)
+    learning_rate: float = 5e-4
+    alpha: float = 50.0
+    epochs: int = 300
+    size_labeled_data: int = 100
+    labeled_batch_size: int = 4
+    unlabeled_batch_size: int = 128
+    test_batch_size: int = 1000
+    path_to_data: str = ""
+    gpu: str = ""                 # accepted for CLI parity; one card
+    train_time: int = 1
+    # --- extensions of the JAX package ---
+    seed: int = 1
+    synthetic_data: bool = False
+    use_plateau_scheduler: bool = False  # SVHN's ReduceLROnPlateau
+
+    def asdict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def svhn_smooth_defaults() -> SmoothElboConfig:
+    """main_smooth_ELBO_svhn.py:16-30's defaults."""
+    return SmoothElboConfig(
+        latent_spec_cont=32, disc_capacity=(0.0, 50.0, 50000, 1.0),
+        cont_capacity=(0.0, 50.0, 50000, 1.0), learning_rate=1e-3,
+        alpha=1500.0, epochs=500, size_labeled_data=1000,
+        labeled_batch_size=512, unlabeled_batch_size=256, test_batch_size=128,
+        use_plateau_scheduler=True)

@@ -1,5 +1,6 @@
-"""The resident dataset, input conversion, train-time augmentation and
-the host's index streams. Port of shotvae_tpu/data/pipeline.py:23-148.
+"""The resident dataset, input conversion, train-time augmentation, the
+one-stage loaders' resize and the host's index streams. Port of
+shotvae_tpu/data/pipeline.py:23-148.
 
 The whole dataset lives on the card as uint8 NHWC (CIFAR-10's train set is
 153.6 MB), and each step gathers its batch there from one host index array:
@@ -85,6 +86,19 @@ def augment_batch(images: torch.Tensor, *, pad: int = 4, crop: int = 32,
     cols = off_x.long()[:, None] + cols
     batch = torch.arange(b, device=images.device)[:, None, None]
     return padded[batch, rows[:, :, None], cols[:, None, :]]
+
+
+def resize_batch(images: torch.Tensor, size: int = 32) -> torch.Tensor:
+    """Bilinear resize of (B, H, W, C) float images to (B, size, size, C)
+    (the one-stage loaders' ``transforms.Resize``): ``F.interpolate`` with
+    half-pixel centres, no antialiasing, on the images' device. For an
+    upsample, JAX's edge renormalisation and torch's clamped source index
+    both give the edge pixel; at 28 -> 32 every tap is a multiple of 1/16,
+    so on uint8 values both are exact in float32."""
+    x = images.to(torch.float32).permute(0, 3, 1, 2)
+    out = F.interpolate(x, size=(size, size), mode="bilinear",
+                        align_corners=False, antialias=False)
+    return out.permute(0, 2, 3, 1)
 
 
 def epoch_batches(rng: np.random.Generator, indices: np.ndarray,

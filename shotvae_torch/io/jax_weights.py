@@ -1,21 +1,24 @@
 """JAX (flax) parameter trees -> the port's state_dict.
 
 The port's own copy of the VAE (with a WideResNet, PreActResNet or DenseNet
-trunk), WideResNet classifier and MLP paths of
-shotvae_tpu/io/torch_export.py:39-235, 143-153 and 295-315 (the port
-imports nothing of the JAX package). Input: the ``params`` and
+trunk), WideResNet classifier, smooth-ELBO VAE and MLP paths of
+shotvae_tpu/io/torch_export.py:39-235, 143-153, 243-293 and 295-315 (the
+port imports nothing of the JAX package). Input: the ``params`` and
 ``batch_stats`` trees as nested dicts of numpy arrays. Output: a state_dict
 with the reference key names, which the port's ``VariationalAutoEncoder``,
-``WideResNetClassifier`` and ``MLPClassifier`` load with ``strict=True``.
+``WideResNetClassifier``, ``SmoothVAE`` and ``MLPClassifier`` load with
+``strict=True``.
 The WideResNet and PreActResNet trees name their units alike, so a VAE's
 trunk family is given (``encoder_kind``), not sniffed from its paths.
 
 Layouts: Conv HWIO -> OIHW; ConvTranspose (kh, kw, I, O) flipped in space,
 then (I, O, kh, kw); Dense (I, O) -> (O, I); BatchNorm
 ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var`` plus a
-``num_batches_tracked`` of 0. The MLP's first Dense reads the flattened
-conv features, which JAX flattens in (H, W, C) order and torch in
-(C, H, W): its input rows are permuted back.
+``num_batches_tracked`` of 0. The MLP's and the smooth VAE's first Dense
+reads the flattened conv features, which JAX flattens in (H, W, C) order
+and torch in (C, H, W): its input rows are permuted back; the smooth VAE's
+``hidden_to_features`` feeds the decoder's reshape, so its output columns
+and its bias are permuted the same way.
 """
 
 from __future__ import annotations
@@ -228,3 +231,47 @@ def mlp_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     flat = _flatten(params)
     flat["fc0"] = dict(flat["fc0"], kernel=flat["fc0"]["kernel"][inv, :])
     return _convert(flat, {}, stem)
+
+
+def smooth_vae_state_dict_from_jax(params: Mapping, *,
+                                   encoder_channels=(32, 64, 64),
+                                   reshape_channels: int = 64,
+                                   spatial: int = 4
+                                   ) -> Dict[str, torch.Tensor]:
+    """A ``SmoothVAE``'s params -> the port's state_dict (CPU tensors), as
+    ``export_smooth_vae_state_dict`` gives it: the convs at
+    ``img_to_features.{0,2,4}``, the ConvTransposes at
+    ``features_to_img.{0,2,4}``, the Dense layers at
+    ``features_to_hidden.0``, ``fc_mean``, ``fc_log_var``, ``fc_alphas.{i}``
+    and ``latent_to_features.{0,2}``; ``features_to_hidden``'s input rows
+    and ``hidden_to_features``'s output columns and bias from (H, W, C)
+    back to (C, H, W) order, at ``spatial`` x ``spatial`` maps of
+    ``encoder_channels[-1]`` and ``reshape_channels`` channels."""
+    inv_enc = np.argsort(_chw_to_hwc_perm(encoder_channels[-1], spatial,
+                                          spatial))
+    inv_dec = np.argsort(_chw_to_hwc_perm(reshape_channels, spatial, spatial))
+    out: Dict[str, torch.Tensor] = {}
+    for name, leaves in _flatten(params).items():
+        k, b = leaves["kernel"], leaves["bias"]
+        m = re.match(r"(enc_conv|dec_convt|fc_alpha)(\d+)$", name)
+        if m and m.group(1) == "enc_conv":
+            stem, w = f"img_to_features.{int(m.group(2)) * 2}", \
+                k.transpose(3, 2, 0, 1)
+        elif m and m.group(1) == "dec_convt":
+            stem, w = f"features_to_img.{int(m.group(2)) * 2}", \
+                k[::-1, ::-1].transpose(2, 3, 0, 1)
+        elif m:
+            stem, w = f"fc_alphas.{m.group(2)}", k.T
+        elif name == "features_to_hidden":
+            stem, w = "features_to_hidden.0", k[inv_enc, :].T
+        elif name in ("fc_mean", "fc_log_var"):
+            stem, w = name, k.T
+        elif name == "latent_to_hidden":
+            stem, w = "latent_to_features.0", k.T
+        elif name == "hidden_to_features":
+            stem, w, b = "latent_to_features.2", k[:, inv_dec].T, b[inv_dec]
+        else:
+            raise KeyError(f"unknown smooth-vae path: {name}")
+        out[f"{stem}.weight"] = torch.from_numpy(np.array(w))
+        out[f"{stem}.bias"] = torch.from_numpy(np.array(b))
+    return out

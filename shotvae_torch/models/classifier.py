@@ -38,7 +38,8 @@ from torch import nn
 
 from shotvae_torch.device import DeviceLike, resolve_device
 from shotvae_torch.models.layers import (BatchNorm, channels_last, conv,
-                                         global_avg_pool, zero_biases_)
+                                         global_avg_pool, linear,
+                                         zero_biases_)
 from shotvae_torch.models.wideresnet import (parse_wideresnet_name,
                                              run_units, wrn_units)
 
@@ -95,11 +96,8 @@ class MLPClassifier(nn.Module):
         Dense in ``dtype``, the last in f32 (as the JAX module)."""
         for layer in self.encoder[::2]:
             x = F.relu(conv(layer, x, self.dtype))
-        fc0, fc1 = self.classifier[0], self.classifier[2]
-        dtype = self.dtype or fc0.weight.dtype
-        h = F.relu(F.linear(x.flatten(1).to(dtype), fc0.weight.to(dtype),
-                            fc0.bias.to(dtype)))
-        return fc1(h.to(torch.float32))
+        h = F.relu(linear(self.classifier[0], x.flatten(1), self.dtype))
+        return self.classifier[2](h.to(torch.float32))
 
 
 def build_classifier(net_name: str, num_classes: int, *,

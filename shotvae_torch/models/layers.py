@@ -93,6 +93,15 @@ def conv(module: nn.Module, x: torch.Tensor,
                     module.groups)
 
 
+def linear(module: nn.Linear, x: torch.Tensor,
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``module`` on ``x`` with the input, weight and bias cast to
+    ``dtype`` (default: the weight's), as ``conv``."""
+    dtype = dtype or module.weight.dtype
+    return F.linear(x.to(dtype), module.weight.to(dtype),
+                    module.bias.to(dtype))
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """flax's train-mode ``Dropout``: each element is kept where a uniform

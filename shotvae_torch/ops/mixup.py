@@ -1,8 +1,11 @@
-"""Mixup and label-smoothing interpolation for the SHOT-VAE.
+"""Mixup and label-smoothing interpolation for the SHOT-VAE, and the
+classic input mixup helpers.
 
-Port of shotvae_tpu/ops/mixup.py:19-168 (the parts the SHOT-VAE step runs).
-The optimal-match partner comes from the vectorised pairwise Gaussian KL
-with the diagonal masked, as in the JAX package.
+Port of shotvae_tpu/ops/mixup.py:19-168. The optimal-match partner comes
+from the vectorised pairwise Gaussian KL with the diagonal masked, as in
+the JAX package. ``mixup_data``, ``mixup_raw_labeled_data`` and
+``mixup_criterion`` are the reference's classic input mixup (its
+lib/utils/mixup.py, unused by its drivers but part of its surface).
 
 Randomness: ``generator`` is a host (CPU) ``torch.Generator``. The
 interpolation weight is drawn on the host, as the reference did
@@ -101,6 +104,43 @@ def label_smoothing(image, z_mean, z_log_sigma, disc_log_alpha, labels, *,
         index = _permutation(generator, image.shape[0], image.device)
     return _interpolate(image, z_mean, z_log_sigma, disc_log_alpha, index,
                         lam, labels=labels)
+
+
+def _classic_mix(image, alpha: float, lam, index, generator):
+    """lam ~ Beta(alpha, alpha) (1 where ``alpha`` is 0) and one partner
+    permutation, each unless given; the mixed images."""
+    if lam is None:
+        lam = draw_beta(generator, alpha, alpha) if alpha > 0 else 1.0
+    if index is None:
+        index = _permutation(generator, image.shape[0], image.device)
+    lam = float(lam)
+    index = torch.as_tensor(index, device=image.device).long()
+    return lam * image + (1.0 - lam) * image[index], index, lam
+
+
+def mixup_data(image, label, alpha: float = 1.0, *, lam=None, index=None,
+               generator: Optional[torch.Generator] = None):
+    """Classic input mixup: (mixed image, label_a, label_b, lam)."""
+    mixed, index, lam = _classic_mix(image, alpha, lam, index, generator)
+    return mixed, label, label[index.to(label.device)], lam
+
+
+def mixup_raw_labeled_data(image, label, label_weight, alpha: float = 1.0, *,
+                           lam=None, index=None,
+                           generator: Optional[torch.Generator] = None):
+    """Input mixup carrying per-item label weights, one permutation for
+    the labels and the weights: (mixed image, label_a, label_b, weight_a,
+    weight_b, lam)."""
+    mixed, index, lam = _classic_mix(image, alpha, lam, index, generator)
+    return (mixed, label, label[index.to(label.device)], label_weight,
+            label_weight[index.to(label_weight.device)], lam)
+
+
+def mixup_criterion(criterion, prediction, label_a, label_b, lam):
+    """lam * criterion(label_a, pred) + (1 - lam) * criterion(label_b,
+    pred), labels first, in the reference's argument order."""
+    return lam * criterion(label_a, prediction) + (1.0 - lam) * criterion(
+        label_b, prediction)
 
 
 def _interpolate(image, z_mean, z_log_sigma, disc_log_alpha, index, lam, *,

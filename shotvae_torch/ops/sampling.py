@@ -40,6 +40,16 @@ def sample_gaussian(mean, log_sigma, *, eps=None,
     return mean + torch.exp(log_sigma) * eps.to(mean.dtype)
 
 
+def sample_gaussian_logvar(mean, logvar, *, eps=None,
+                           generator: Optional[torch.Generator] = None):
+    """z = mu + exp(0.5 * logvar) * eps, the smooth VAEs' log-variance
+    convention; ``eps`` overrides the draw."""
+    if eps is None:
+        eps = torch.randn(mean.shape, generator=generator,
+                          device=mean.device, dtype=mean.dtype)
+    return mean + torch.exp(0.5 * logvar) * eps.to(mean.dtype)
+
+
 def gumbel_softmax_from_uniform(log_alpha, unif, temperature):
     """softmax((log_alpha + g) / T), g = -log(-log(u + EPS) + EPS): the
     reference's exact construction (shotvae_tpu/ops/sampling.py:39-50)."""
@@ -56,6 +66,14 @@ def sample_gumbel_softmax(log_alpha, temperature, *, unif=None,
         unif = torch.rand(log_alpha.shape, generator=generator,
                           device=log_alpha.device, dtype=log_alpha.dtype)
     return gumbel_softmax_from_uniform(log_alpha, unif, temperature)
+
+
+def sample_gumbel_softmax_probs(alpha, temperature, *, unif=None,
+                                generator: Optional[torch.Generator] = None):
+    """Gumbel-softmax sample from probabilities, the Gumbel-softmax of
+    ``log(alpha + 1e-12)`` (the smooth VAEs' convention)."""
+    return sample_gumbel_softmax(torch.log(alpha + GUMBEL_EPS), temperature,
+                                 unif=unif, generator=generator)
 
 
 def label_onehot(labels, num_classes: int, dtype=torch.float32):

@@ -1,4 +1,4 @@
-"""Epoch and step schedules. Port of shotvae_tpu/ops/schedules.py:19-73.
+"""Epoch and step schedules. Port of shotvae_tpu/ops/schedules.py:19-82.
 
 Plain Python functions of the epoch or the global step: the port updates
 its optimizer's learning rate on the host before each step.
@@ -7,7 +7,9 @@ its optimizer's learning rate on the host before each step.
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
+
+import numpy as np
 
 
 def alpha_schedule(epoch, max_epoch, alpha_max):
@@ -60,3 +62,17 @@ def multistep_lr(base_lr: float, milestones: Sequence[int],
         return value
 
     return lr
+
+
+def linear_capacity(step, cap_min, cap_max, num_iters,
+                    theoretical_max: Optional[float] = None) -> float:
+    """The JointVAE capacity C(step) = (cap_max - cap_min) * step /
+    num_iters + cap_min, clamped at ``cap_max`` (and ``theoretical_max``
+    where given). Computed in float32, as the JAX package computes it
+    inside its step, and returned as the Python float of that value."""
+    f32 = np.float32
+    cap = f32(cap_max - cap_min) * f32(step) / f32(num_iters) + f32(cap_min)
+    cap = min(cap, f32(cap_max))
+    if theoretical_max is not None:
+        cap = min(cap, f32(theoretical_max))
+    return float(cap)

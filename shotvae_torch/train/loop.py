@@ -1,8 +1,11 @@
 """The epoch loops. Port of shotvae_tpu/train/loop.py:151-178, 191-498
-(``run_shot_vae``, with ``m2=True`` the M2 baseline) and 501-635
-(``run_classifier``, the supervised baseline), the counterparts of the
-reference's ``main()/train()/valid()/test()`` (main_shot_vae.py:120-510,
-main_M2_vae.py:104-240, main_classifier.py:82-278).
+(``run_shot_vae``, with ``m2=True`` the M2 baseline), 501-635
+(``run_classifier``, the supervised baseline) and 638-818
+(``run_smooth_elbo``, the one-stage MNIST and SVHN trainers, with
+``ReduceLROnPlateau``), the counterparts of the reference's
+``main()/train()/valid()/test()`` (main_shot_vae.py:120-510,
+main_M2_vae.py:104-240, main_classifier.py:82-278,
+main_smooth_ELBO_mnist.py:36-225, main_smooth_ELBO_svhn.py).
 
 The datasets lie on the device as uint8 (``DeviceDataset``); per step the
 host sends one index array and the step gathers, augments, runs the four
@@ -30,6 +33,13 @@ The classifier trains on the labeled split alone, ``min(batch_size,
 drawn from one endless stream seeded by ``seed`` (as in JAX); its step i of
 an epoch draws its crops, flips and dropout from the same
 (seed + 1000, epoch, i) generators. It saves no checkpoint.
+
+The smooth-ELBO trainer takes the JAX loop's streams as they are: the
+unlabeled order from one numpy generator seeded ``seed + 1`` and the
+labeled batches from one endless stream seeded ``seed + 2``, both running
+on across epochs (so it does not resume), and its step i of an epoch draws
+from the (seed + 1000, epoch, i) generator. It writes its log file, no
+TensorBoard run, and one checkpoint at the end.
 """
 
 from __future__ import annotations
@@ -42,24 +52,32 @@ from typing import Optional
 import numpy as np
 import torch
 
-from shotvae_torch.config import ClassifierConfig, DatasetSpec, ShotVaeConfig
-from shotvae_torch.data.datasets import load_dataset
+from shotvae_torch.config import (ClassifierConfig, DatasetSpec,
+                                  ShotVaeConfig, SmoothElboConfig)
+from shotvae_torch.data.datasets import (ArrayDataset, load_dataset,
+                                         load_mnist, load_svhn,
+                                         synthetic_dataset)
 from shotvae_torch.data.pipeline import (DeviceDataset, epoch_batches,
-                                         infinite_batches, num_batches)
-from shotvae_torch.data.splits import ssl_split
+                                         infinite_batches, num_batches,
+                                         resize_batch)
+from shotvae_torch.data.splits import labeled_subset_per_class, ssl_split
 from shotvae_torch.device import DeviceLike, resolve_device
 from shotvae_torch.io.checkpoint import CheckpointManager
 from shotvae_torch.io.tb import TBWriter
 from shotvae_torch.models.classifier import (WideResNetClassifier,
                                              apply_classifier_init,
                                              build_classifier)
+from shotvae_torch.models.smooth_vae import (SmoothVAE, mnist_vae_config,
+                                             svhn_vae_config)
 from shotvae_torch.models.vae import VariationalAutoEncoder
 from shotvae_torch.ops.schedules import multistep_lr, shot_vae_epoch_schedules
-from shotvae_torch.train.state import TrainState, sgd_torch
+from shotvae_torch.train.state import TrainState, adam_torch, sgd_torch
 from shotvae_torch.train.steps import (make_classifier_eval_step,
                                        make_classifier_train_step,
                                        make_m2_train_step,
                                        make_shot_vae_train_step,
+                                       make_smooth_elbo_eval_step,
+                                       make_smooth_elbo_train_step,
                                        make_vae_eval_step)
 from shotvae_torch.utils.meters import AverageMeter, MetricAccumulator
 
@@ -457,6 +475,170 @@ def run_classifier(cfg: ClassifierConfig, *, max_epochs: Optional[int] = None,
     writer.close()
     return {"history": history, "train_losses": train_losses,
             "state": state, "epoch_times": epoch_times}
+
+
+class ReduceLROnPlateau:
+    """torch's ReduceLROnPlateau (mode min, factor 0.1, patience 10,
+    relative threshold 1e-4) on the host, as a scale of the base rate
+    (main_smooth_ELBO_svhn.py:429,130): an improvement counts only where
+    ``metric < best * (1 - threshold)``."""
+
+    def __init__(self, factor: float = 0.1, patience: int = 10,
+                 threshold: float = 1e-4):
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.best = float("inf")
+        self.bad_epochs = 0
+        self.scale = 1.0
+
+    def step(self, metric: float) -> float:
+        if metric < self.best * (1.0 - self.threshold):
+            self.best = metric
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+            if self.bad_epochs > self.patience:
+                self.scale *= self.factor
+                self.bad_epochs = 0
+        return self.scale
+
+
+def _smooth_datasets(cfg: SmoothElboConfig, dataset: str, dev):
+    """(train set, test set) of the one-stage trainer: MNIST idx or SVHN
+    mat files under ``cfg.path_to_data`` (default
+    ``<base_path>/dataset/<dataset>``), else, with ``synthetic_data``,
+    2,048 / 512 synthetic 32x32 images (seeds 0 and 1); 28x28 MNIST is
+    resized to 32x32 on ``dev``, rounded half to even and clipped to
+    uint8."""
+    data_dir = cfg.path_to_data or os.path.join(cfg.base_path, "dataset",
+                                                dataset)
+    load = load_mnist if dataset == "mnist" else load_svhn
+    try:
+        train, test = load(data_dir, train=True), load(data_dir, train=False)
+    except FileNotFoundError:
+        if not cfg.synthetic_data:
+            raise
+        shape = (32, 32, 1) if dataset == "mnist" else (32, 32, 3)
+        train = synthetic_dataset(2048, shape, 10, seed=0)
+        test = synthetic_dataset(512, shape, 10, seed=1)
+    if train.images.shape[1] != 32:
+        def _resize(ds: ArrayDataset) -> ArrayDataset:
+            r = resize_batch(torch.tensor(ds.images, device=dev), 32)
+            return ArrayDataset(torch.clamp(torch.round(r), 0, 255).to(
+                torch.uint8).cpu().numpy(), ds.labels)
+        train, test = _resize(train), _resize(test)
+    return train, test
+
+
+def build_smooth_model(cfg: SmoothElboConfig, dataset: str,
+                       device: DeviceLike = None) -> SmoothVAE:
+    """The one-stage trainer's ``SmoothVAE`` (MNIST's or SVHN's widths,
+    the latent sizes of ``cfg``), initialised from ``cfg.seed``."""
+    mcfg = mnist_vae_config() if dataset == "mnist" else svhn_vae_config()
+    mcfg.update(latent_cont_dim=cfg.latent_spec_cont,
+                disc_dims=tuple(cfg.latent_spec_disc))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        return SmoothVAE(**mcfg, device=device)
+
+
+def run_smooth_elbo(cfg: SmoothElboConfig, dataset: str = "mnist", *,
+                    max_epochs: Optional[int] = None, log_fn=print,
+                    device: DeviceLike = None) -> dict:
+    """Train the one-stage smooth-ELBO VAE on ``dataset`` ('mnist' or
+    'svhn') on ``device`` (None: ``cuda``; the CPU only where the caller
+    passes ``device="cpu"``), in float32, with Adam and, with
+    ``use_plateau_scheduler``, the plateau scale applied from the next
+    epoch. Writes ``<DATASET>-One-Stage-VAE/<DATASET>-One-Stage-VAE.txt``
+    and, at the end, one checkpoint under the tag ``One-Stage-VAE``.
+    Returns ``{"history", "state", "log_path", "epoch_times"}``:
+    ``history`` as the JAX loop's, ``epoch_times`` each epoch's ``train_s``
+    (up to the train metrics' read) and ``eval_s``."""
+    dev = resolve_device(device)
+    if dataset not in ("mnist", "svhn"):
+        raise ValueError(f"dataset {dataset!r}: 'mnist' or 'svhn'")
+    train, test = _smooth_datasets(cfg, dataset, dev)
+    labeled_idx = labeled_subset_per_class(train.labels,
+                                           cfg.size_labeled_data, 10,
+                                           seed=cfg.seed)
+    unlabeled_idx = np.arange(len(train.labels))
+    log_fn(f"labeled size {len(labeled_idx)} unlabeled size "
+           f"{len(unlabeled_idx)} dev size {len(test.labels)}")
+    train_ds = DeviceDataset(train, device=dev)
+    test_ds = DeviceDataset(test, device=dev)
+
+    model = build_smooth_model(cfg, dataset, dev)
+    state = TrainState(model, adam_torch(model, cfg.learning_rate))
+    plateau = ReduceLROnPlateau() if cfg.use_plateau_scheduler else None
+    step = make_smooth_elbo_train_step(
+        model, state.optimizer, alpha=cfg.alpha,
+        cont_capacity=tuple(cfg.cont_capacity),
+        disc_capacity=tuple(cfg.disc_capacity),
+        disc_dims=tuple(cfg.latent_spec_disc))
+    evaluate = make_smooth_elbo_eval_step(model)
+
+    name = f"{dataset.upper()}-One-Stage-VAE"
+    save_dir = os.path.join(cfg.base_path, name)
+    os.makedirs(save_dir, exist_ok=True)
+    log_path = os.path.join(save_dir, f"{name}.txt")
+    rng_u = np.random.default_rng(cfg.seed + 1)
+    labeled_iter = infinite_batches(np.random.default_rng(cfg.seed + 2),
+                                    labeled_idx, cfg.labeled_batch_size)
+    history, epoch_times = [], []
+    total_epochs = max_epochs if max_epochs is not None else cfg.epochs
+    lr_scale = 1.0
+    with open(log_path, "w") as logf:
+        for epoch in range(total_epochs):
+            epoch_t0 = time.time()
+            for group in state.optimizer.param_groups:
+                group["lr"] = cfg.learning_rate * lr_scale
+            step_metrics = []
+            for i, idx_u in enumerate(epoch_batches(
+                    rng_u, unlabeled_idx, cfg.unlabeled_batch_size)):
+                img_u, _ = train_ds.gather(idx_u)
+                img_l, lab_l = train_ds.gather(next(labeled_iter))
+                metrics = step(state, img_u, img_l, lab_l,
+                               step_generator(cfg.seed, epoch, i))
+                step_metrics.append({k: v for k, v in metrics.items()
+                                     if v.dim() == 0})
+            nb = len(step_metrics)
+            # the epoch's one read
+            sums = ({k: float(v) for k, v in _summed(step_metrics).items()}
+                    if nb else {})
+            train_s = time.time() - epoch_t0
+            test_acc = _split_results(
+                evaluate, test_ds, np.arange(len(test.labels)),
+                cfg.test_batch_size, dev)["correct_rate"]
+            mean_loss = sums.get("loss", 0.0) / max(nb, 1)
+            mean = lambda k: sums.get(k, 0) / nb  # noqa: E731
+            tmp = (f"Epoch: {epoch} Average loss: {mean_loss:.2f} "
+                   f"Test Accuracy: {test_acc}\n")
+            tmp += (f"u_recon_loss: {mean('u_recon'):.2f}, "
+                    f"u_cont: {mean('u_cont_cap'):.2f}, "
+                    f"u_disc: {mean('u_disc_cap'):.2f}\n")
+            tmp += (f"l_recon_loss: {mean('l_recon'):.2f}, "
+                    f"l_cont: {mean('l_cont_cap'):.2f}, "
+                    f"l_disc: {mean('l_disc_cap'):.2f}, "
+                    f"class: {mean('classification'):.2f}\n")
+            log_fn(tmp)
+            logf.write(tmp + "\n")
+            history.append({"epoch": epoch, "test_acc": float(test_acc),
+                            "mean_loss": mean_loss,
+                            "train_terms": {k: v / max(nb, 1)
+                                            for k, v in sums.items()},
+                            "lr_scale": float(lr_scale)})
+            epoch_times.append({"train_s": train_s,
+                                "eval_s": time.time() - epoch_t0 - train_s})
+            if plateau is not None:
+                lr_scale = plateau.step(mean_loss)
+
+    ckpt = CheckpointManager(cfg.base_path, dataset.upper(), cfg.train_time,
+                             tag="One-Stage-VAE")
+    ckpt.save(state, epoch=total_epochs, config=cfg.asdict())
+    ckpt.wait_until_finished()  # the write lands before the return
+    return {"history": history, "state": state, "log_path": log_path,
+            "epoch_times": epoch_times}
 
 
 def _start_profile(dev: torch.device):

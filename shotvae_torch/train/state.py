@@ -1,11 +1,12 @@
-"""Train state and the torch-semantics optimizer.
+"""Train state and the torch-semantics optimizers.
 
-Port of shotvae_tpu/train/state.py:22-63. The reference trains with
+Port of shotvae_tpu/train/state.py:22-69. The reference trains with
 ``torch.optim.SGD(lr, momentum=0.9, weight_decay=5e-4)`` over every
-parameter, BN affines included; the JAX package's ``sgd_torch`` copies it
-with optax's ``add_decayed_weights`` + ``sgd`` chain, and here it is that
-optimizer itself. The learning-rate schedule is a function of the global
-step, applied to the optimizer before each update.
+parameter, BN affines included, and its smooth-ELBO scripts with
+``torch.optim.Adam`` at its defaults; the JAX package's ``sgd_torch`` and
+``adam_torch`` copy them with optax chains, and here they are those
+optimizers themselves. The learning-rate schedule is a function of the
+global step, applied to the optimizer before each update.
 """
 
 from __future__ import annotations
@@ -23,6 +24,14 @@ def sgd_torch(model: nn.Module, lr: float = 0.1, momentum: float = 0.9,
     g += wd * p, then momentum, then lr."""
     return torch.optim.SGD(model.parameters(), lr=lr, momentum=momentum,
                            weight_decay=weight_decay)
+
+
+def adam_torch(model: nn.Module, lr: float, b1: float = 0.9,
+               b2: float = 0.999, eps: float = 1e-8) -> torch.optim.Adam:
+    """Adam at torch's defaults (main_smooth_ELBO_mnist.py:424) over every
+    parameter."""
+    return torch.optim.Adam(model.parameters(), lr=lr, betas=(b1, b2),
+                            eps=eps)
 
 
 @dataclass

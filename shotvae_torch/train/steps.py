@@ -1,8 +1,8 @@
-"""The SHOT-VAE and M2 train steps, the VAE eval step and the classifier's
-train and eval steps.
+"""The SHOT-VAE and M2 train steps, the VAE eval step, the classifier's
+train and eval steps and the smooth-ELBO train and eval steps.
 
-Port of shotvae_tpu/train/steps.py:30-44, 108-124, 261-462, 470-528 and
-536-596. The SHOT-VAE step keeps the reference's four forwards (labeled,
+Port of shotvae_tpu/train/steps.py:30-44, 108-124, 261-462, 470-528,
+536-596 and 597-689. The SHOT-VAE step keeps the reference's four forwards (labeled,
 label-smoothed labeled, unlabeled, mixed unlabeled) with one backward over
 ``loss_supervised + loss_unsupervised`` (the gradient of the sum equals the
 reference's two accumulated ``.backward()`` calls) and one SGD update.
@@ -23,6 +23,12 @@ with its labels' one-hots in place of the discrete draw, and no mixup; its
 draws replay under ``eps_1``, ``eps_2``, ``unif_2``, ``aug_l`` and
 ``aug_u``. The classifier step takes one forward of the labeled images and
 the softmax cross entropy; its crops and flips replay under ``aug``.
+
+The smooth-ELBO step (the one-stage MNIST and SVHN trainers) takes one
+forward of each stream on images normalised to [-1, 1], without
+augmentation, one backward over the unlabeled plus the labeled loss and one
+Adam update; its draws replay under the JAX step's own layout,
+``{"u": {"eps", "unif": [...]}, "l": {"eps", "unif": [...]}}``.
 """
 
 from __future__ import annotations
@@ -45,10 +51,11 @@ def _device(model) -> torch.device:
 
 
 def _prepare(images_u8, device, *, augment: bool, generator=None,
-             offsets=None) -> torch.Tensor:
-    """uint8 NHWC -> float NCHW (channels_last) on ``device``; ``augment``:
-    the train-time pad 4, 32x32 crop and flip of ``augment_batch``."""
-    x = to_float(torch.as_tensor(images_u8).to(device))
+             offsets=None, normalize: bool = False) -> torch.Tensor:
+    """uint8 NHWC -> float NCHW (channels_last) on ``device``, in [0, 1]
+    or, with ``normalize``, [-1, 1]; ``augment``: the train-time pad 4,
+    32x32 crop and flip of ``augment_batch``."""
+    x = to_float(torch.as_tensor(images_u8).to(device), normalize=normalize)
     if augment:
         gen = None if offsets is not None else device_generator(generator,
                                                                  device)
@@ -351,5 +358,101 @@ def make_classifier_eval_step(model, *, num_classes: int):
                 "top1_count": (top1_per * w).sum(),
                 "top5_count": (top5_per * w).sum(),
                 "count": w.sum()}
+
+    return step
+
+
+def _smooth_noise(inject, device):
+    """One forward's injected draws: ``{"eps", "unif": [...]}`` as
+    tensors on ``device``."""
+    if not inject:
+        return None
+    out = {}
+    if inject.get("eps") is not None:
+        out["eps"] = torch.as_tensor(inject["eps"]).to(device)
+    if inject.get("unif") is not None:
+        out["unif"] = [torch.as_tensor(u).to(device) for u in inject["unif"]]
+    return out
+
+
+def make_smooth_elbo_train_step(model, optimizer, *, alpha: float,
+                                cont_capacity, disc_capacity, disc_dims):
+    """The smooth-ELBO step: ``step(state, img_u, img_l, lab_l,
+    generator=None, inject=None) -> metrics``.
+
+    Per stream: the per-sample squared error, gamma_c |C_c(t) - KL_c| and
+    gamma_d |C_d(t) - KL_d| with the capacities annealed over the global
+    step t = ``state.step + 1`` (``cont_capacity`` / ``disc_capacity``:
+    (min, max, num_iters, gamma)), the discrete one capped at sum(log K_i);
+    the labeled stream adds ``alpha * BCE(q(y|x), one-hot)``. One backward
+    of the sum, one update of ``state``'s optimizer. Returns the JAX
+    step's metrics as tensors on the model's device, 0-d but for
+    ``kl_cont_per_dim`` (the unlabeled stream's per-dimension KL)."""
+    theoretical_max = float(sum(math.log(d) for d in disc_dims))
+
+    def one_loss(x, labels, step_t, generator, noise):
+        recon, dist, _, _ = model(x, labels=labels, noise=noise,
+                                  generator=generator)
+        r = losses.smooth_recon_loss(x, recon)
+        mean, logvar = dist["cont"]
+        kl_cont, kl_cont_per_dim = losses.kl_normal_loss(mean, logvar)
+        cont_cap = losses.capacity_loss(kl_cont, step_t, *cont_capacity)
+        kl_disc = losses.kl_multiple_discrete_loss(dist["disc"])
+        disc_cap = losses.capacity_loss(kl_disc, step_t, *disc_capacity,
+                                        theoretical_max=theoretical_max)
+        loss = r + cont_cap + disc_cap
+        cls = torch.zeros((), device=x.device)
+        if labels is not None:
+            cls = alpha * losses.bce_probs_mean(
+                dist["disc"][0], label_onehot(labels, disc_dims[0]))
+            loss = loss + cls
+        return loss, (r, cont_cap, disc_cap, cls, kl_cont, kl_cont_per_dim,
+                      kl_disc)
+
+    def step(state: TrainState, img_u, img_l, lab_l,
+             generator: Optional[torch.Generator] = None, inject=None):
+        _check_state(state, model, optimizer)
+        inj = inject or {}
+        dev = _device(model)
+        model.train()
+        x_u = _prepare(img_u, dev, augment=False, normalize=True)
+        x_l = _prepare(img_l, dev, augment=False, normalize=True)
+        lab_l = torch.as_tensor(lab_l).to(dev).long()
+        step_t = state.step + 1
+        loss_u, (r_u, cc_u, dc_u, _, klc_u, klc_dim_u, kld_u) = one_loss(
+            x_u, None, step_t, generator, _smooth_noise(inj.get("u"), dev))
+        loss_l, (r_l, cc_l, dc_l, cls, _, _, _) = one_loss(
+            x_l, lab_l, step_t, generator, _smooth_noise(inj.get("l"), dev))
+        total = loss_u + loss_l
+        _update(state, total)
+        metrics = {
+            "loss": total,
+            "u_recon": r_u, "u_cont_cap": cc_u, "u_disc_cap": dc_u,
+            "l_recon": r_l, "l_cont_cap": cc_l, "l_disc_cap": dc_l,
+            "classification": cls,
+            "kl_cont": klc_u, "kl_disc": kld_u,
+            "kl_cont_per_dim": klc_dim_u,
+        }
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def make_smooth_elbo_eval_step(model):
+    """The smooth-ELBO eval pass: ``step(img, lab, weight) ->
+    {"correct_count", "count"}``, the argmax of q(y|x)'s first head against
+    the labels, summed with the per-sample 0/1 ``weight``; eval mode draws
+    nothing."""
+
+    @torch.inference_mode()
+    def step(img, lab, weight):
+        dev = _device(model)
+        model.eval()
+        _, dist, _, _ = model(_prepare(img, dev, augment=False,
+                                       normalize=True))
+        w = torch.as_tensor(weight).to(dev).to(torch.float32)
+        lab = torch.as_tensor(lab).to(dev).long()
+        pred = torch.argmax(dist["disc"][0], dim=1)
+        return {"correct_count": ((pred == lab) * w).sum(), "count": w.sum()}
 
     return step

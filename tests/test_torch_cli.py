@@ -1,7 +1,8 @@
 """The port's CLIs against the JAX package's: the same argv lists give the
-same config, flag for flag (through each command's ``main`` for the M2 and
-classifier commands, the classifier's own defaults included); one epoch
-runs through each ``main`` on the CPU; the flags of parts not ported yet
+same config, flag for flag (through each command's ``main`` for the M2,
+classifier and smooth-ELBO commands, the classifier's own defaults and
+SVHN's plateau included); one epoch runs through each ``main`` on the
+CPU; the flags of parts not ported yet
 parse, then raise, naming their ROADMAP.md item; every encoder family and
 ``--efficient`` reach the trainer, an encoder name the JAX dispatch does
 not know raises, and so does any but a WideResNet for the classifier; a
@@ -223,3 +224,82 @@ def test_new_clis_refuse_unported_flags(cli, flags, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         NEW_CLIS[cli][0].main([*argv, *flags], device="cpu")
     assert not os.listdir(tmp_path)
+
+
+# ------------------------------------------------- the smooth-ELBO commands
+
+SMOOTH_ARGVS = [
+    [],
+    ["--synthetic-data", "--max-epochs", "2"],
+    ["-bp", "/data", "--latent-spec", "{'cont': 8, 'disc': [10, 4]}",
+     "--disc-capacity", "[0.0, 5.0, 100, 2.0]", "--cont-capacity",
+     "[1.0, 6.0, 200, 3.0]", "--learning-rate", "0.002", "--alpha", "7",
+     "--epochs", "3", "--size-labeled-data", "40", "--labeled-batch-size",
+     "8", "--unlabeled-batch-size", "16", "--test-batch-size", "32",
+     "--path-to-data", "/elsewhere", "--gpu", "0,1", "--train-time", "2",
+     "--seed", "5", "--synthetic-data", "--max-epochs", "1"],
+]
+
+
+def _surface(parser):
+    return {tuple(a.option_strings): (a.dest, a.default, a.nargs,
+                                      type(a).__name__)
+            for a in parser._actions}
+
+
+@pytest.mark.parametrize("svhn", [False, True], ids=["mnist", "svhn"])
+def test_smooth_parser_surface_matches_jax(svhn):
+    """Both commands' parsers: the same options, destinations, defaults
+    (``--gpu`` included) and actions as the JAX package's."""
+    from shotvae_tpu.cli import main_smooth_elbo_mnist as jax_smooth
+    from shotvae_torch.cli import main_smooth_elbo_mnist as smooth
+
+    assert _surface(smooth.build_parser(svhn)) \
+        == _surface(jax_smooth.build_parser(svhn))
+
+
+@pytest.mark.parametrize("svhn", [False, True], ids=["mnist", "svhn"])
+@pytest.mark.parametrize("argv", SMOOTH_ARGVS,
+                         ids=lambda a: " ".join(a)[:40])
+def test_smooth_cli_configs_match_jax(svhn, argv, monkeypatch):
+    """Each argv gives the port's command the config, dataset and
+    ``max_epochs`` the JAX command hands its trainer (the plateau on for
+    SVHN only), and the caller's device."""
+    from shotvae_tpu.cli import main_smooth_elbo_mnist as jax_mnist
+    from shotvae_tpu.cli import main_smooth_elbo_svhn as jax_svhn
+    from shotvae_tpu.train import loop as jax_loop
+    from shotvae_torch.cli import main_smooth_elbo_mnist as mnist
+    from shotvae_torch.cli import main_smooth_elbo_svhn as svhn_cli
+
+    capture = lambda cfg, dataset, **kw: (cfg, dataset, kw)  # noqa: E731
+    monkeypatch.setattr(mnist, "run_smooth_elbo", capture)
+    monkeypatch.setattr(jax_loop, "run_smooth_elbo", capture)
+    port_main = (svhn_cli if svhn else mnist).main
+    jax_main = (jax_svhn if svhn else jax_mnist).main
+    got, got_ds, got_kw = port_main(argv, device="cpu")
+    want, want_ds, want_kw = jax_main(argv)
+    assert type(got).__name__ == type(want).__name__ == "SmoothElboConfig"
+    assert got.asdict() == want.asdict()
+    assert got_ds == want_ds == ("svhn" if svhn else "mnist")
+    assert got_kw == dict(want_kw, device="cpu")
+    assert got.use_plateau_scheduler == svhn
+
+
+@pytest.mark.parametrize("svhn", [False, True], ids=["mnist", "svhn"])
+def test_one_smooth_cli_epoch(svhn, tmp_path):
+    """One epoch through each command's ``main`` on the CPU, through the
+    synthetic fallback: the log and checkpoint under the dataset's
+    One-Stage-VAE folder and nothing else."""
+    from shotvae_torch.cli import main_smooth_elbo_mnist, main_smooth_elbo_svhn
+
+    module = main_smooth_elbo_svhn if svhn else main_smooth_elbo_mnist
+    argv = ["-bp", str(tmp_path), "--synthetic-data", "--max-epochs", "1",
+            "--unlabeled-batch-size", "256", "--labeled-batch-size", "16",
+            "--test-batch-size", "256"]
+    out = module.main(argv, device="cpu")
+    assert len(out["history"]) == 1 and out["state"].step == 8
+    assert 0.0 <= out["history"][0]["test_acc"] <= 1.0
+    name = "SVHN-One-Stage-VAE" if svhn else "MNIST-One-Stage-VAE"
+    assert os.listdir(tmp_path) == [name]
+    assert os.path.isfile(open(tmp_path / name / "parameter" /
+                               "train_time_1" / "checkpoint.current").read())

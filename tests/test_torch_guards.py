@@ -1,6 +1,7 @@
 """Guards of the port: no JAX inside it, no silent CPU fall-through, no
-launch counted on the CPU, chip_smoke.py refusing to run off the card, and
-its sampler check failing a wrong sampler."""
+launch counted on the CPU, chip_smoke.py refusing to run off the card, its
+checks failing a wrong kernel, gradient or launch count, and its phases
+running on the CPU at a tiny size."""
 
 import importlib.util
 import math
@@ -899,3 +900,127 @@ def test_chip_smoke_efficient_check_fails_a_second_tracking(monkeypatch):
                         lambda: (nullcontext(), nullcontext()))
     with pytest.raises(RuntimeError, match="running statistics"):
         chip_smoke.efficient_vs_plain(torch.device("cpu"), 2)
+
+
+# ---------------------------------------------------------------- phase 12
+
+_SMOOTH_ENTRY_POINTS = ["run_smooth_elbo mnist", "run_smooth_elbo svhn",
+                        "main_smooth_elbo_mnist", "main_smooth_elbo_svhn",
+                        "SmoothVAE"]
+
+
+@pytest.mark.parametrize("entry", _SMOOTH_ENTRY_POINTS)
+def test_smooth_entry_points_need_an_explicit_cpu(entry, monkeypatch,
+                                                  tmp_path):
+    """With no card, the smooth-ELBO trainer, both commands and the model
+    raise unless the caller names the CPU, before they write anything."""
+    from shotvae_torch.cli import main_smooth_elbo_mnist, main_smooth_elbo_svhn
+    from shotvae_torch.config import SmoothElboConfig
+    from shotvae_torch.models.smooth_vae import SmoothVAE
+    from shotvae_torch.train.loop import run_smooth_elbo
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    base = str(tmp_path / "runs")
+    argv = ["-bp", base, "--synthetic-data"]
+    calls = {
+        "run_smooth_elbo mnist": lambda: run_smooth_elbo(
+            SmoothElboConfig(base_path=base, synthetic_data=True), "mnist"),
+        "run_smooth_elbo svhn": lambda: run_smooth_elbo(
+            SmoothElboConfig(base_path=base, synthetic_data=True), "svhn"),
+        "main_smooth_elbo_mnist": lambda: main_smooth_elbo_mnist.main(argv),
+        "main_smooth_elbo_svhn": lambda: main_smooth_elbo_svhn.main(argv),
+        "SmoothVAE": SmoothVAE,
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+    assert not os.path.exists(base)
+
+
+# phase 12 at a tiny size on the CPU: MNIST on 300 / 120 written idx images
+# (4 steps of 64 + 4, 3 eval batches of 50), SVHN through its synthetic
+# fallback at 256 + 16 (8 steps, 4 eval batches of 128)
+_SMOOTH_CPU = {"mnist": (["--unlabeled-batch-size", "64",
+                          "--test-batch-size", "50",
+                          "--size-labeled-data", "50"], 4),
+               "svhn": (["--labeled-batch-size", "16",
+                         "--size-labeled-data", "100"], 8)}
+
+
+def _smooth_phase(chip_smoke, base, dataset):
+    argv, _ = _SMOOTH_CPU[dataset]
+    return chip_smoke.smooth_phase(torch.device("cpu"), base, dataset, argv,
+                                   mnist_sizes=(300, 120))
+
+
+@pytest.mark.parametrize("dataset", ["mnist", "svhn"])
+def test_chip_smoke_smooth_phase_runs_on_cpu(dataset, monkeypatch, tmp_path):
+    """chip_smoke.py's phase 12 at a tiny size on the CPU: one epoch of
+    each trainer with a finite loss, the JAX log text and the checkpoint
+    equal to the final weights; no hand kernel launched; the
+    card-against-CPU step exact when both sides are the CPU."""
+    chip_smoke = _encoder_chip_smoke(monkeypatch)
+    out = _smooth_phase(chip_smoke, str(tmp_path), dataset)
+    assert set(out["hand_kernel_launches"].values()) == {0}
+    assert len(out["hand_kernel_launches"]) == 14  # 7 kernels, 2 dtypes
+    epoch = out["epoch"]
+    assert epoch["train_steps"] == _SMOOTH_CPU[dataset][1]
+    assert epoch["checkpoint_bit_identical"] and epoch["log_lines"] == 4
+    assert math.isfinite(epoch["mean_loss"])
+    vs_cpu = out["vs_cpu"]
+    assert 0.0 < vs_cpu.pop("grad_one_ulp_spread_max") < math.inf
+    vs_cpu.pop("grad_one_ulp_spread_median")
+    assert vs_cpu.pop("parameters") > 0
+    assert set(vs_cpu.values()) == {0}
+
+
+_WRONG_SMOOTH_GRADS = {
+    "q(y|x) head scaled": ("fc_alphas.0.weight", lambda g: g * 1.5),
+    "decoder conv zeroed": ("features_to_img.4.weight", torch.zeros_like),
+}
+
+
+@pytest.mark.parametrize("wrong", list(_WRONG_SMOOTH_GRADS))
+def test_chip_smoke_smooth_step_check_fails_a_wrong_gradient(wrong,
+                                                             monkeypatch):
+    """Phase 12's card-against-CPU step at 8 + 4 on the CPU, with one
+    parameter's gradient made wrong in the first (card-side) step only:
+    the gradient check fails it, naming the parameter."""
+    chip_smoke = _chip_smoke(monkeypatch)
+    name, hook = _WRONG_SMOOTH_GRADS[wrong]
+    trainer, made = chip_smoke.smooth_trainer, []
+
+    def planted(model, cfg):
+        if not made:
+            dict(model.named_parameters())[name].register_hook(hook)
+        made.append(model)
+        return trainer(model, cfg)
+
+    monkeypatch.setattr(chip_smoke, "smooth_trainer", planted)
+    for dataset in ("mnist", "svhn"):
+        made.clear()
+        cfg = chip_smoke.smooth_config("unused", dataset)
+        with pytest.raises(RuntimeError,
+                           match=f"disagree on the gradient of {name}"):
+            chip_smoke.compare_smooth_step(torch.device("cpu"), cfg, dataset,
+                                           8, 4)
+        assert len(made) == 3
+
+
+def test_chip_smoke_smooth_phase_fails_a_hand_kernel_launch(monkeypatch,
+                                                           tmp_path):
+    """Phase 12 fails where the smooth path counts a launch of a hand
+    kernel (here a sampler launch planted in the train draw)."""
+    from shotvae_torch.models import smooth_vae
+    from shotvae_torch.ops.kernels.fused_sample import fused_joint_sample
+
+    draw = smooth_vae.sampling.sample_gaussian_logvar
+
+    def counted(*args, **kwargs):
+        fused_joint_sample.launches += 1
+        return draw(*args, **kwargs)
+
+    chip_smoke = _encoder_chip_smoke(monkeypatch)
+    monkeypatch.setattr(smooth_vae.sampling, "sample_gaussian_logvar",
+                        counted)
+    with pytest.raises(RuntimeError, match="launched hand kernels"):
+        _smooth_phase(chip_smoke, str(tmp_path), "mnist")
