@@ -28,10 +28,11 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    on ``cuda``: ``classify``, ``encode``, ``reconstruct`` and ``generate`` on
    768 seeded uint8 images, with the kernel launch counts of each endpoint
    checked, and ``classify`` / ``encode`` / ``decode`` / ``reconstruct``
-   on 16 images held against the same model on the CPU (plain path).
-   Endpoint latencies are printed with TF32 off (as compared) and with
-   cuDNN's TF32 on (PyTorch's default), and one ``reconstruct`` is
-   profiled.
+   on 16 images held against the same model on the CPU (plain path). The
+   endpoints run under PyTorch's default float32 settings (cuDNN may use
+   TF32): they pin exact float32 themselves (``device.exact_f32``), and
+   the comparison with the CPU shows it. Endpoint latencies are printed,
+   and one ``reconstruct`` is profiled.
 4. The ``bn_leaky_train`` kernels (statistics, apply, backward reduce,
    backward apply) against their plain versions at every (M, C, slope) of a
    WRN-28-2 train step at batch 768, timed beside their bytes bound; the
@@ -42,7 +43,8 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    headline configuration (CIFAR-10 shape, WRN-28-2, BCE reconstruction,
    optimal-match mixup) at 768 labeled + 768 unlabeled, seeded random
    weights and data: a few steps with every kernel's launch count checked
-   and the loss finite; step ms with TF32 off and with cuDNN TF32 on,
+   and the loss finite; step ms in exact float32 (as the entry points run
+   it) and, a study of the bare step function, with cuDNN's TF32 on,
    unlabeled images/s and one profiled step; the eval step's latency at
    768; one step on the card against the same step on the CPU at 16 + 16
    with every draw injected, the crops and flips replayed: metrics, each
@@ -123,14 +125,18 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
 12. The one-stage smooth-ELBO trainers (run after phase 11, before the
    lines of phase 10), the paths of ``python -m
    shotvae_torch.cli.main_smooth_elbo_mnist`` and ``..._svhn`` at their
-   CLI defaults, in f32: one MNIST epoch of ``run_smooth_elbo`` on seeded
+   CLI defaults, in f32 under PyTorch's default settings (the entry point
+   pins exact float32): two MNIST epochs of ``run_smooth_elbo`` on seeded
    idx files of 60,000 / 10,000 28x28 images written under ``build/``
-   (468 steps of 128 + 4 after the resize on the card, 10 eval batches of
-   1,000) and one SVHN epoch through the synthetic fallback (2,048 / 512
-   images, 8 steps of 256 + 512, the plateau scheduler on), each with a
-   finite loss, an accuracy in [0, 1], the JAX loop's log text and the
-   checkpoint strict-loading into a fresh ``SmoothVAE`` equal to the final
-   weights bit for bit; per configuration the step's median and range of
+   (468 steps of 128 + 4 an epoch after the resize on the card, 10 eval
+   batches of 1,000) and two SVHN epochs through the synthetic fallback
+   (2,048 / 512 images, 8 steps of 256 + 512 an epoch, the plateau
+   scheduler on), each with finite losses, accuracies in [0, 1], the
+   epoch-1 average loss inside the band of the CPU's runs at seeds 1 to 5
+   widened by its width (``SMOOTH_BANDS``), the JAX loop's log text and
+   the checkpoint strict-loading into a fresh ``SmoothVAE`` equal to the
+   final weights bit for bit; per configuration the step's median and
+   range of
    10 and unlabeled images/s, the idle share of one profiled step, the
    eval step at its test batch and the epoch's train and eval seconds; one
    step on the card against the CPU at the configuration's batches with
@@ -138,6 +144,26 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    Adam's tiny-gradient elements counted). Every hand kernel's launch
    counter reads 0 over the phase: the smooth VAE has no BatchNorm, its
    train draw needs a gradient and its eval forward draws nothing.
+13. Data parallelism (``shotvae_torch.parallel``; run after phase 12).
+   The group path at world size 1 over NCCL in this process: the bf16
+   sync-BN SHOT-VAE step at 768 + 768 with every collective issued
+   (between the ``bn_leaky`` and fused conv kernels, the mixup gathers,
+   the gradient and metric means), its launches counted, against today's
+   step (no group) on the same inputs and draws, at the calibrated bf16
+   bound of the two f32 steps. Then two ranks on the one card over gloo
+   (``spawn_ranks``; the card has one GPU and NCCL takes one rank per
+   GPU), a global 768 + 768 (384 + 384 a rank): the sync-BN step in f32
+   (metrics and state at TOL_STEP, gradients as phase 5 holds them) and
+   in bf16, and the per-replica bf16 step (rank 0's running statistics)
+   against one process's steps on the same draws, at the calibrated bf16
+   bound, every kernel's launches counted on each rank; each rank's bf16
+   step time, two processes sharing one card with host-staged
+   collectives (not a multi-GPU speed); one epoch of ``run_shot_vae`` on
+   12,000 synthetic images on both ranks (9 steps, 12 eval forwards on
+   rank 0 and 11 on rank 1), the same history on both, rank
+   0's checkpoint restored on each equal to its final state bit for bit,
+   and files written by rank 0 only. A rank that fails or outlasts
+   DP_TIMEOUT_S fails the phase.
 10. Print the ``kernels`` JSON line (each kernel's launches on every path,
    the M2, classifier and encoder paths included), then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
@@ -766,6 +792,7 @@ def end_to_end(batch: int, kernels):
     import torch
 
     from shotvae_torch.api import ShotVaeInference
+    from shotvae_torch.device import exact_f32
     from shotvae_torch.ops.kernels.fused_sample import fused_joint_sample
 
     cpu_model = random_model("cpu")
@@ -824,7 +851,7 @@ def end_to_end(batch: int, kernels):
         e2e_err[name] = max_err(got[:n].cpu(), want, TOL_E2E)
     latent = torch.cat([torch.randn((n, 128), generator=g),
                         torch.eye(10)[torch.arange(n) % 10]], dim=1)
-    with torch.inference_mode():
+    with torch.inference_mode(), exact_f32():  # the bare model: no entry
         e2e_err["decode"] = max_err(gpu.model.decode(latent.to(gpu.device)).cpu(),
                                     cpu.model.decode(latent), TOL_E2E)
         # reconstruct = sigmoid(decode(sample(encode(x)))): the kernel's draw
@@ -840,12 +867,7 @@ def end_to_end(batch: int, kernels):
     dev = gpu.device
     timing = {name: host_ms(dev, fn) for name, fn in endpoints.items()}
     breakdown = device_breakdown(endpoints["reconstruct"])
-    # PyTorch's default lets cuDNN convolve in TF32; the library convs (not
-    # the hand kernels) then run on the tensor cores
-    torch.backends.cudnn.allow_tf32 = True
-    timing_tf32 = {name: host_ms(dev, fn) for name, fn in endpoints.items()}
-    torch.backends.cudnn.allow_tf32 = False
-    return launches, e2e_err, timing, timing_tf32, breakdown
+    return launches, e2e_err, timing, breakdown
 
 
 # ----------------------------------------------------------------- phase 4
@@ -1102,11 +1124,13 @@ def _sgd_state(model, cfg, steps_per_epoch: int):
                                                steps_per_epoch))
 
 
-def trainer(model, m2: bool = False):
+def trainer(model, m2: bool = False, **ranks):
     """The headline configuration's train step over ``model`` (CIFAR-10,
     or CIFAR-100 for a model of 100 classes, ``--br --om``, SGD with the
     multistep LR at 45,000 train images per epoch, the epoch-0 loss
-    weights); with ``m2`` the M2 baseline's step (no mixup, M2's cmi)."""
+    weights); with ``m2`` the M2 baseline's step (no mixup, M2's cmi);
+    ``ranks``: the step's data-parallel arguments (``dp``,
+    ``bn_per_replica``, ``bn_stats``)."""
     from shotvae_torch.config import ShotVaeConfig
     from shotvae_torch.ops.schedules import shot_vae_epoch_schedules
     from shotvae_torch.train.steps import (make_m2_train_step,
@@ -1117,7 +1141,8 @@ def trainer(model, m2: bool = False):
     spec = cfg.apply_dataset_overrides(m2=m2)
     state = _sgd_state(model, cfg, (50000 - spec.valid_per_class
                                     * spec.num_classes) // cfg.batch_size)
-    kw = dict(num_classes=spec.num_classes, bce=cfg.br, x_sigma=cfg.x_sigma)
+    kw = dict(num_classes=spec.num_classes, bce=cfg.br, x_sigma=cfg.x_sigma,
+              **ranks)
     step = (make_m2_train_step(model, state.optimizer, **kw) if m2 else
             make_shot_vae_train_step(model, state.optimizer,
                                      epsilon=cfg.epsilon,
@@ -1265,7 +1290,8 @@ def compare_train_step(dev, batch: int, kind: str = "shot", net: dict = WRN):
             _state_errors(sd_dev, sd_cpu, TOL_STEP))
 
 
-def check_gradients(g_dev, g_cpu, g_ulp) -> tuple:
+def check_gradients(g_dev, g_cpu, g_ulp, what: str = "card and CPU"
+                    ) -> tuple:
     """Each gradient of the card (``g_dev``) against the CPU's, norm-wise
     within max(TOL_GRAD_STEP, ULP_FACTOR x the CPU's one-ulp spread, the
     distance of ``g_ulp`` from it). Returns the largest and the median
@@ -1279,7 +1305,7 @@ def check_gradients(g_dev, g_cpu, g_ulp) -> tuple:
         tol = max(TOL_GRAD_STEP, ULP_FACTOR * spread)
         e = normwise_rel_err(g_dev[n], want)
         check(bool(torch.isfinite(g_dev[n]).all()) and e <= tol,
-              f"card and CPU disagree on the gradient of {n}: {e:.3e} "
+              f"{what} disagree on the gradient of {n}: {e:.3e} "
               f"norm-wise, beyond tol {tol:.3e} (one-ulp spread "
               f"{spread:.3e})")
         errs.append(e)
@@ -1417,11 +1443,12 @@ def train_phase(dev, batch: int, steps: int = TRAIN_STEPS, dtype=None,
     profile = device_breakdown(run, top=12) if cuda else None
     profile_tf32 = None
     if cuda and not bf16:
-        # PyTorch's default lets cuDNN convolve in TF32: the library convs
-        # (dgrad, wgrad, the decoder) then run on the tensor cores; the
+        # a study of the bare step function, which no entry point runs: the
+        # entry points pin exact float32. With cuDNN's TF32 on, the library
+        # convs (dgrad, wgrad, the decoder) run on the tensor cores; the
         # profile names the cuDNN kernels it chose
         torch.backends.cudnn.allow_tf32 = True
-        timing.update(step_times(dev, run, batch, "_cudnn_tf32"))
+        timing.update(step_times(dev, run, batch, "_bare_step_cudnn_tf32"))
         profile_tf32 = device_breakdown(run, top=12)
         torch.backends.cudnn.allow_tf32 = False
 
@@ -1446,7 +1473,7 @@ def train_phase(dev, batch: int, steps: int = TRAIN_STEPS, dtype=None,
     timing["peak_memory_gb"] = peak_gb
     out = dict(launches=launches, eval_launches=eval_launches,
                last_metrics=last, timing=timing, profile=profile,
-               profile_cudnn_tf32=profile_tf32)
+               profile_bare_step_cudnn_tf32=profile_tf32)
     if not vs_cpu:
         return out
     if kind == "shot" and net is WRN:
@@ -1492,18 +1519,7 @@ def compare_train_step_bf16(dev, batch: int, kind: str = "shot",
     cpu32 = _model(kind, net)("cpu")
     before = {n: p.detach().clone() for n, p in cpu16.named_parameters()}
     inputs = step_inputs(batch, kind, classes=classes)
-
-    def flat(run):
-        metrics, grads, sd = run
-        out = {f"metric {k}": v for k, v in metrics.items()}
-        out.update({f"grad {k}": v for k, v in grads.items()})
-        out.update({f"update {k}": sd[k].cpu() - v
-                    for k, v in before.items()})
-        out.update({f"state {k}": v for k, v in sd.items()
-                    if k not in before
-                    and not k.endswith("num_batches_tracked")})
-        return out
-
+    flat = functools.partial(flat_step, before=before)
     got, want, f32 = [flat(train_once(m, inputs, kind))
                       for m in (dev16, cpu16, cpu32)]
     spread = {k: _dist(w, f32[k]) for k, w in want.items()}
@@ -1512,23 +1528,52 @@ def compare_train_step_bf16(dev, batch: int, kind: str = "shot",
         a, b = [flat(train_once(_model(kind, net)("cpu", dtype), more, kind))
                 for dtype in (torch.bfloat16, None)]
         spread = {k: max(v, _dist(a[k], b[k])) for k, v in spread.items()}
+    return dict(calibration_draws=draws,
+                **hold_bf16(got, want, spread, "bf16 card and CPU", "CPU"))
+
+
+def flat_step(run, before: dict) -> dict:
+    """{name: tensor} of one step's (metrics, gradients, state dict): each
+    metric, gradient, parameter update from ``before`` and running
+    statistic."""
+    metrics, grads, sd = run
+    out = {f"metric {k}": v for k, v in metrics.items()}
+    out.update({f"grad {k}": v for k, v in grads.items()})
+    out.update({f"update {k}": sd[k].cpu() - v.cpu()
+                for k, v in before.items()})
+    out.update({f"state {k}": v for k, v in sd.items()
+                if k not in before and not k.endswith("num_batches_tracked")})
+    return out
+
+
+def hold_bf16(got: dict, want: dict, spread: dict, what: str,
+              reference: str) -> dict:
+    """Each tensor of a bf16 step ``got`` against ``want`` within
+    max(BF16_FLOOR x its largest value, BF16_FACTOR x ``spread``, the
+    reference's own distance between its bf16 and its f32 step), max abs.
+    Returns the worst share of its tolerance that a tensor used, which
+    tensor, and the two distances relative to each tensor's largest
+    value."""
+    import torch
+
     worst, worst_key, errs, own = 0.0, "", [], []
     for k, w in want.items():
         e, d = _dist(got[k], w), spread[k]
         tol = max(BF16_FLOOR * float(w.detach().abs().max()), BF16_FACTOR * d)
         check(bool(torch.isfinite(got[k]).all()) and e <= tol,
-              f"bf16 card and CPU disagree on {k}: {e:.3e} max abs, beyond "
-              f"tol {tol:.3e} (the CPU's bf16-vs-f32 distance {d:.3e})")
+              f"{what} disagree on {k}: {e:.3e} max abs, beyond tol "
+              f"{tol:.3e} (the {reference}'s bf16-vs-f32 distance {d:.3e})")
         share = e / tol if tol else 0.0
         if share >= worst:
             worst, worst_key = share, k
         errs.append(e / max(float(w.detach().abs().max()), 1e-30))
         own.append(d / max(float(w.detach().abs().max()), 1e-30))
-    return dict(tensors=len(want), calibration_draws=draws,
-                worst_share_of_tol=worst, worst_tensor=worst_key,
-                rel_err_max=max(errs), rel_err_median=statistics.median(errs),
-                cpu_bf16_vs_f32_rel_max=max(own),
-                cpu_bf16_vs_f32_rel_median=statistics.median(own))
+    return {"tensors": len(want), "worst_share_of_tol": worst,
+            "worst_tensor": worst_key, "rel_err_max": max(errs),
+            "rel_err_median": statistics.median(errs),
+            f"{reference.lower()}_bf16_vs_f32_rel_max": max(own),
+            f"{reference.lower()}_bf16_vs_f32_rel_median":
+            statistics.median(own)}
 
 
 # ----------------------------------------------------------------- phase 7
@@ -2130,6 +2175,14 @@ def check_encoder_rows(kernels: dict, train: dict, steps: int) -> None:
 # fallback (2,048 / 512 images: 8 steps of 256 + 512, 4 eval batches of
 # 128) with the plateau scheduler on
 SMOOTH_MNIST_SIZES = (60000, 10000)
+SMOOTH_EPOCHS = 2
+# phase 12's epoch-1 average loss at each configuration (seed 1): the band
+# of the CPU's runs of the same configuration at seeds 1 to 5
+# (``python3 scripts/torch_smooth_epochs.py band``), widened by its own
+# width on each side (one run on the card is one more draw of a chaotic
+# spread); a run that leaves it, as a divergence by a factor does, fails
+SMOOTH_BANDS = {"mnist": (124.66153363284901, 126.62589687771268),
+                "svhn": (2002.8082427978516, 2014.1643829345703)}
 # shotvae_tpu/train/loop.py:790-800: three lines and a blank one an epoch
 SMOOTH_LOG_LINES = [
     r"Epoch: \d+ Average loss: -?[\d.]+ Test Accuracy: [\d.]+",
@@ -2282,17 +2335,22 @@ def compare_smooth_step(dev, cfg, dataset: str, batch_u: int,
 
 
 def smooth_phase(dev, base: str, dataset: str, argv=(),
-                 mnist_sizes=SMOOTH_MNIST_SIZES) -> dict:
-    """Phase 12 for ``dataset`` under ``base``: one epoch of
+                 mnist_sizes=SMOOTH_MNIST_SIZES, epochs: int = SMOOTH_EPOCHS,
+                 band=None) -> dict:
+    """Phase 12 for ``dataset`` under ``base``: ``epochs`` epochs of
     ``run_smooth_elbo`` at the CLI's defaults (and ``argv``), MNIST on
     written idx files of ``mnist_sizes`` images, SVHN through the synthetic
-    fallback; its loss, accuracy, log text and checkpoint checked; step,
-    eval and epoch times and the idle share of one profiled step; one step
-    on the card against the CPU at the configuration's batches. Every hand
-    kernel's launch counter must read 0 over the phase: the smooth VAE has
-    no BatchNorm and its train draw needs a gradient."""
+    fallback, under PyTorch's default float32 settings (the entry point
+    pins exact float32); its losses, accuracies, log text and checkpoint
+    checked, and with ``band`` (lo, hi) the epoch-1 average loss within
+    [lo - (hi - lo), hi + (hi - lo)]; step, eval and epoch times and the
+    idle share of one profiled step; one step on the card against the CPU
+    at the configuration's batches. Every hand kernel's launch counter must
+    read 0 over the phase: the smooth VAE has no BatchNorm and its train
+    draw needs a gradient."""
     import torch
 
+    from shotvae_torch.device import exact_f32
     from shotvae_torch.io.checkpoint import CheckpointManager
     from shotvae_torch.train.loop import build_smooth_model, run_smooth_elbo
     from shotvae_torch.train.steps import make_smooth_elbo_eval_step
@@ -2306,14 +2364,25 @@ def smooth_phase(dev, base: str, dataset: str, argv=(),
         write_mnist_idx(cfg.path_to_data, mnist_sizes)
     else:
         cfg = smooth_config(base, dataset, ("--synthetic-data", *argv))
-    out = run_smooth_elbo(cfg, dataset, max_epochs=1, log_fn=log, device=dev)
+    out = run_smooth_elbo(cfg, dataset, max_epochs=epochs, log_fn=log,
+                          device=dev)
     _sync(dev)
-    (h,) = out["history"]
-    check(math.isfinite(h["mean_loss"]) and 0.0 <= h["test_acc"] <= 1.0,
-          f"the smooth {dataset} epoch gave {h}")
+    history = out["history"]
+    check(len(history) == epochs and all(
+        math.isfinite(h["mean_loss"]) and 0.0 <= h["test_acc"] <= 1.0
+        for h in history), f"the smooth {dataset} epochs gave {history}")
+    h = history[-1]
+    if band is not None:
+        lo, hi = band
+        loss = history[1]["mean_loss"]
+        check(lo - (hi - lo) <= loss <= hi + (hi - lo),
+              f"the smooth {dataset} epoch 1's average loss {loss} lies "
+              f"outside the CPU seeds' band [{lo}, {hi}] widened by its "
+              f"width {hi - lo}")
     lines = open(out["log_path"]).read().split("\n")
-    check(len(lines) == len(SMOOTH_LOG_LINES) + 1 and all(
-        re.fullmatch(p, line) for p, line in zip(SMOOTH_LOG_LINES, lines)),
+    patterns = SMOOTH_LOG_LINES * epochs
+    check(len(lines) == len(patterns) + 1 and all(
+        re.fullmatch(p, line) for p, line in zip(patterns, lines)),
         f"the smooth {dataset} log is not the JAX loop's text: {lines}")
     final = out["state"]
     ckpt = CheckpointManager(cfg.base_path, dataset.upper(), cfg.train_time,
@@ -2326,35 +2395,41 @@ def smooth_phase(dev, base: str, dataset: str, argv=(),
     check(payload["step"] == final.step and all(
         torch.equal(v, want[k]) for k, v in fresh.state_dict().items()),
         f"the smooth {dataset} checkpoint differs from the final weights")
-    times = out["epoch_times"][0]
+    times = out["epoch_times"][-1]  # the last epoch's: the first compiles
     epoch = dict(epoch_s=times["train_s"] + times["eval_s"],
                  train_s=times["train_s"], eval_s=times["eval_s"],
-                 train_steps=final.step,
-                 unlabeled_images_per_s=final.step * cfg.unlabeled_batch_size
-                 / times["train_s"], mean_loss=h["mean_loss"],
+                 epochs=epochs, train_steps=final.step,
+                 unlabeled_images_per_s=final.step // epochs
+                 * cfg.unlabeled_batch_size / times["train_s"],
+                 mean_loss=h["mean_loss"],
+                 mean_loss_by_epoch=[e["mean_loss"] for e in history],
                  test_acc=h["test_acc"], lr_scale=h["lr_scale"],
-                 checkpoint_bit_identical=True, log_lines=len(lines) - 1)
+                 band=band, checkpoint_bit_identical=True,
+                 log_lines=len(lines) - 1)
 
-    # the step alone at the configuration's batches, on seeded data
-    model = build_smooth_model(cfg, dataset, dev)
-    state, step = smooth_trainer(model, cfg)
-    img_u, img_l, lab_l, _ = smooth_step_inputs(
-        model, cfg.unlabeled_batch_size, cfg.labeled_batch_size)
-    img_u, img_l, lab_l = img_u.to(dev), img_l.to(dev), lab_l.to(dev)
-    g = torch.Generator().manual_seed(SEED + 31)
-    run = lambda: step(state, img_u, img_l, lab_l, g)  # noqa: E731
-    timing = step_times(dev, run, cfg.unlabeled_batch_size, "")
-    profile = device_breakdown(run, top=8) if cuda else None
-    evaluate = make_smooth_elbo_eval_step(model)
-    n = cfg.test_batch_size
-    test_img = torch.randint(0, 256, (n, 32, 32, model.img_channels),
-                             generator=g, dtype=torch.uint8).to(dev)
-    test_lab = torch.randint(0, 10, (n,), generator=g).to(dev)
-    weight = torch.ones(n, device=dev)
-    timing["eval_step_ms"] = host_ms(dev, lambda: evaluate(test_img,
-                                                           test_lab, weight))
-    vs_cpu = compare_smooth_step(dev, cfg, dataset, cfg.unlabeled_batch_size,
-                                 cfg.labeled_batch_size)
+    # the bare step alone at the configuration's batches, on seeded data,
+    # in exact float32 as the entry point runs it
+    with exact_f32():
+        model = build_smooth_model(cfg, dataset, dev)
+        state, step = smooth_trainer(model, cfg)
+        img_u, img_l, lab_l, _ = smooth_step_inputs(
+            model, cfg.unlabeled_batch_size, cfg.labeled_batch_size)
+        img_u, img_l, lab_l = img_u.to(dev), img_l.to(dev), lab_l.to(dev)
+        g = torch.Generator().manual_seed(SEED + 31)
+        run = lambda: step(state, img_u, img_l, lab_l, g)  # noqa: E731
+        timing = step_times(dev, run, cfg.unlabeled_batch_size, "")
+        profile = device_breakdown(run, top=8) if cuda else None
+        evaluate = make_smooth_elbo_eval_step(model)
+        n = cfg.test_batch_size
+        test_img = torch.randint(0, 256, (n, 32, 32, model.img_channels),
+                                 generator=g, dtype=torch.uint8).to(dev)
+        test_lab = torch.randint(0, 10, (n,), generator=g).to(dev)
+        weight = torch.ones(n, device=dev)
+        timing["eval_step_ms"] = host_ms(
+            dev, lambda: evaluate(test_img, test_lab, weight))
+        vs_cpu = compare_smooth_step(dev, cfg, dataset,
+                                     cfg.unlabeled_batch_size,
+                                     cfg.labeled_batch_size)
     launches = read_counts(counters, torch.float32)
     launches.update({f"{k}_bf16": v for k, v in read_counts(
         counters, torch.bfloat16).items()})
@@ -2374,7 +2449,8 @@ def smooth_phases(dev) -> dict:
         t0 = time.perf_counter()
         base = tempfile.mkdtemp(prefix=f"smooth_{dataset}_", dir=root)
         try:
-            res = out[dataset] = smooth_phase(dev, base, dataset)
+            res = out[dataset] = smooth_phase(dev, base, dataset,
+                                              band=SMOOTH_BANDS[dataset])
         finally:
             shutil.rmtree(base, ignore_errors=True)
         cfg = smooth_config(".", dataset)
@@ -2390,6 +2466,375 @@ def smooth_phases(dev) -> dict:
         print(f"smooth_{dataset}_hand_kernel_launches "
               + json.dumps(res["hand_kernel_launches"]))
         print(f"smooth {dataset} phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------- phase 13
+
+DP_WORLD = 2
+DP_TIMEOUT_S = 900  # the two ranks' part (they build nothing)
+# the two ranks' epoch: the loop's configuration on 12,000 synthetic images
+# (cut from 50,000 to keep the phase near a minute): 7,000 unlabeled, so 9
+# steps of 768 + 768; 7 valid and ceil(3,000 / 768) = 4 test batches, and
+# rank 0's grid
+DP_LOOP_CONFIG = dict(LOOP_CONFIG, synthetic_size=12_000)
+DP_LOOP_STEPS = 9
+DP_LOOP_EVAL_FORWARDS = 12
+# the per-replica step's running statistics policy (the CLI's)
+DP_BN_STATS = "replica0"
+
+
+def dp_train_once(model, inputs, dp=None, **ranks):
+    """One headline SHOT-VAE step of ``model`` on ``step_inputs``, each
+    rank of ``dp`` on its rows (None: one process on all of them), with
+    the step's data-parallel ``ranks`` arguments; the mixup draws every
+    rank shares come from one seed. Returns the metrics, each parameter's
+    gradient (after the mean over the ranks) and the state after it, on
+    the host."""
+    import torch
+
+    state, step, sched = trainer(model, dp=dp, **ranks)
+    *data, inject = inputs
+    if dp is not None:
+        data = [dp.shard(t) for t in data]
+    metrics = step(state, *data, sched, torch.Generator().manual_seed(
+        SEED + (dp.rank if dp else 0)), inject,
+        shared_generator=torch.Generator().manual_seed(SEED + 1))
+    params = dict(model.named_parameters())
+    check(all(p.grad is not None for p in params.values()),
+          "a parameter got no gradient")
+    return ({k: v.cpu() for k, v in metrics.items()},
+            {n: p.grad.cpu() for n, p in params.items()},
+            {k: v.cpu() for k, v in model.state_dict().items()})
+
+
+def per_replica_inputs(inputs, world: int):
+    """``step_inputs`` for the per-replica step over ``world`` ranks: the
+    same rows and per-row draws, and each rank's own mixup (its partners
+    among its rows in its rows of ``perm_*``, its own weight in
+    ``lam_*``)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 40)
+    *data, inject = inputs
+    n = len(data[0]) // world
+    inj = dict(inject)
+    for k in ("perm_sm", "perm_mx"):
+        inj[k] = torch.from_numpy(np.concatenate(
+            [rng.permutation(n) for _ in range(world)]))
+    inj["lam_sm"] = np.array([inject["lam_sm"], *rng.beta(
+        0.1, 0.1, world - 1)], np.float32)
+    inj["lam_mx"] = np.array([inject["lam_mx"], *rng.beta(
+        2.0, 2.0, world - 1)], np.float32)
+    return (*data, inj)
+
+
+def rank_rows(inputs, rank: int, world: int):
+    """Rank ``rank``'s part of ``per_replica_inputs``, as one process
+    takes it: its rows, its per-row draws, its partners and weight."""
+    *data, inject = inputs
+    n = len(data[0]) // world
+    rows = slice(rank * n, (rank + 1) * n)
+    inj = {k: (v[rank] if k.startswith("lam") else
+               tuple(a[rows] for a in v) if isinstance(v, tuple) else v[rows])
+           for k, v in inject.items()}
+    return (*[t[rows] for t in data], inj)
+
+
+def per_replica_reference(dev, dtype, inputs, world: int):
+    """What the per-replica step must give, from one process: a step on
+    each rank's rows with its own draws, then the mean of their
+    gradients applied as one SGD update, rank 0's running statistics
+    (``replica0``) and the mean of the metrics."""
+    import torch
+
+    local = [dp_train_once(random_model(dev.type, dtype),
+                           rank_rows(inputs, r, world))
+             for r in range(world)]
+    model = random_model(dev.type, dtype)
+    state, _, _ = trainer(model)
+    grads = {n: sum(lr[1][n] for lr in local) / world for n in local[0][1]}
+    for n, p in model.named_parameters():
+        p.grad = grads[n].to(dev)
+    state.apply_gradients()
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    sd.update({k: v for k, v in local[0][2].items() if "running" in k})
+    metrics = {k: sum(lr[0][k] for lr in local) / world for k in local[0][0]}
+    return metrics, grads, sd
+
+
+def dp_loop_counts(steps: int, eval_forwards: int, rank: int) -> dict:
+    """The launches of a rank's loop epoch: every rank runs every train
+    step and its rows of every eval batch; the reconstruction grid is rank
+    0's alone."""
+    forwards = eval_forwards - (rank != 0)
+    return {name: steps * n + forwards * EXPECTED_EVAL_LAUNCHES[name]
+            for name, n in EXPECTED_TRAIN_LAUNCHES.items()}
+
+
+def dp_rank(rank: int, world: int, folder: str) -> None:
+    """One rank of phase 13's two (``parallel.spawn_ranks``), on the card
+    every rank shares (or the CPU, as ``<folder>/job.pt`` says): the
+    sync-BN step in f32 and bf16 and the per-replica bf16 step, each on
+    its rows of the global batch with its launches counted; the bf16
+    step's time on this rank; then one epoch of ``run_shot_vae`` under
+    its own base path and rank 0's checkpoint restored. Writes
+    ``<folder>/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from shotvae_torch.config import ShotVaeConfig
+    from shotvae_torch.device import exact_f32
+    from shotvae_torch.io.checkpoint import CheckpointManager
+    from shotvae_torch.parallel import DataParallel
+    from shotvae_torch.train.loop import build_model, build_state, run_shot_vae
+
+    job = torch.load(os.path.join(folder, "job.pt"), weights_only=False)
+    dev = torch.device(job["device"])
+    cuda = dev.type == "cuda"
+    if not cuda:
+        torch.set_num_threads(1)
+    dp = DataParallel(dist.group.WORLD)
+    counters = kernel_counters()
+    inputs = step_inputs(job["batch"])
+    out = {}
+    with exact_f32():  # the bare step, held as the entry points run it
+        for name, dtype, ranks in (
+                ("sync_f32", None, {}),
+                ("sync_bf16", torch.bfloat16, {}),
+                ("per_replica_bf16", torch.bfloat16,
+                 {"bn_per_replica": True, "bn_stats": DP_BN_STATS})):
+            run_inputs = (per_replica_inputs(inputs, world) if ranks
+                          else inputs)
+            zero_counts(counters)
+            res = dp_train_once(random_model(dev.type, dtype), run_inputs,
+                                dp, **ranks)
+            _sync(dev)
+            launches = check_counts(
+                counters, dtype, {k: n if cuda else 0 for k, n in
+                                  EXPECTED_TRAIN_LAUNCHES.items()},
+                f"rank {rank}'s {name} step")
+            out[name] = dict(zip(("metrics", "grads", "state"), res),
+                             launches=launches)
+        if cuda:  # this rank's step time, the two sharing the card
+            model = random_model(dev.type, torch.bfloat16)
+            state, step, sched = trainer(model, dp=dp)
+            data = [dp.shard(t).to(dev) for t in inputs[:-1]]
+            g = torch.Generator().manual_seed(SEED + 9 + rank)
+            shared = torch.Generator().manual_seed(SEED + 9)
+            out["timing"] = step_times(
+                dev, lambda: step(state, *data, sched, g,
+                                  shared_generator=shared),
+                len(data[2]), "")
+    if job["loop_config"] is None:
+        torch.save(out, os.path.join(folder, f"rank{rank}.pt"))
+        return
+    base = os.path.join(folder, f"rank{rank}_base")
+    os.makedirs(base)
+    cfg = ShotVaeConfig(base_path=base, **job["loop_config"])
+    zero_counts(counters)
+    loop = run_shot_vae(cfg, max_epochs=1, log_fn=lambda *a: None,
+                        device=dev)
+    _sync(dev)
+    launches = check_counts(
+        counters, torch.bfloat16, {k: n if cuda else 0 for k, n in
+                                   dp_loop_counts(*job["loop_size"],
+                                                  rank).items()},
+        f"rank {rank}'s loop epoch")
+    launches["fused_joint_sample"] = read_counts(  # f32 under a bf16 trunk
+        counters, torch.float32)["fused_joint_sample"]
+    spec = cfg.apply_dataset_overrides()
+    ckpt = CheckpointManager(os.path.join(folder, "rank0_base"), spec.name,
+                             cfg.train_time)
+    fresh = build_state(build_model(cfg, spec, dev), cfg, job["loop_size"][0])
+    _, epoch, _ = ckpt.restore(fresh)
+    diff = state_mismatches(fresh, loop["state"])
+    check(epoch == 1 and not diff, f"rank {rank}: rank 0's checkpoint "
+          f"differs from this rank's final state: {diff[:5]}")
+    out["loop"] = dict(history=_no_seconds(loop["history"]),
+                       launches=launches, restored_bit_identical=True,
+                       epoch_times=loop["epoch_times"],
+                       files=sorted(os.path.relpath(os.path.join(d, f), base)
+                                    for d, _, fs in os.walk(base)
+                                    for f in fs))
+    torch.save(out, os.path.join(folder, f"rank{rank}.pt"))
+
+
+def dp_world1_phase(dev, batch: int) -> dict:
+    """The group path at world size 1 in this process (NCCL on the card,
+    gloo on the CPU): the bf16 sync-BN step with every collective issued,
+    its launches counted, against today's step (no group) on the same
+    inputs and draws, at the calibrated bf16 bound of the two steps'
+    f32 counterparts; on the card each step's median of 10 twice, in
+    turns."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from shotvae_torch.device import exact_f32
+    from shotvae_torch.parallel import DataParallel
+    from shotvae_torch.parallel.mesh import COLLECTIVE_TIMEOUT_S, free_port
+
+    cuda = dev.type == "cuda"
+    backend = "nccl" if cuda else "gloo"
+    counters = kernel_counters()
+    inputs = step_inputs(batch)
+    dist.init_process_group(
+        backend, init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+    try:
+        with exact_f32():
+            zero_counts(counters)
+            model = random_model(dev.type, torch.bfloat16)
+            before = {n: p.detach().clone()
+                      for n, p in model.named_parameters()}
+            got = dp_train_once(model, inputs, DataParallel(dist.group.WORLD))
+            _sync(dev)
+            launches = check_counts(
+                counters, torch.bfloat16, {k: n if cuda else 0 for k, n in
+                                           EXPECTED_TRAIN_LAUNCHES.items()},
+                f"the world-1 {backend} step")
+            want, f32 = [dp_train_once(random_model(dev.type, dtype), inputs)
+                         for dtype in (torch.bfloat16, None)]
+            timing = {}
+            if cuda:  # the step through the group and without, in turns
+                runs = {}
+                for name, dp in (("group", DataParallel(dist.group.WORLD)),
+                                 ("no_group", None)):
+                    state, step, sched = trainer(
+                        random_model(dev.type, torch.bfloat16), dp=dp)
+                    data = [t.to(dev) for t in inputs[:-1]]
+                    g = torch.Generator().manual_seed(SEED + 9)
+                    runs[name] = functools.partial(
+                        step, state, *data, sched, g,
+                        shared_generator=torch.Generator().manual_seed(
+                            SEED + 9))
+                for name in ("group", "no_group", "group", "no_group"):
+                    timing.setdefault(name, []).append(
+                        step_times(dev, runs[name], batch, "")["step_ms"])
+    finally:
+        dist.destroy_process_group()
+    flat = functools.partial(flat_step, before=before)
+    got, want, f32 = flat(got), flat(want), flat(f32)
+    held = hold_bf16(got, want, {k: _dist(w, f32[k]) for k, w in
+                                 want.items()},
+                     f"the world-1 {backend} step and today's step",
+                     "step")
+    return dict(backend=backend, launches=launches, vs_today=held,
+                bit_identical_tensors=sum(
+                    bool(torch.equal(got[k], w)) for k, w in want.items()),
+                step_ms_medians=timing)
+
+
+def dp_two_rank_phase(dev, batch: int, folder: str, loop_config: dict,
+                      loop_size: tuple, rank_fn=None) -> dict:
+    """Two ranks over gloo on this one card (or the CPU) through
+    ``spawn_ranks`` (``rank_fn``, default ``dp_rank``), held against one
+    process here on the same global batch and draws: the sync-BN step in
+    f32 (metrics and state at TOL_STEP, gradients as phase 5 holds them)
+    and in bf16, and the per-replica bf16 step against two one-process
+    steps on each rank's rows, at the calibrated bf16 bound; the loop's
+    epoch of ``loop_config`` (None: none) on both ranks with the same
+    history, rank 0's checkpoint restored bit for bit on each, and only
+    rank 0 writing files."""
+    import torch
+
+    from shotvae_torch.device import exact_f32
+    from shotvae_torch.parallel import spawn_ranks
+
+    cuda = dev.type == "cuda"
+    torch.save({"device": dev.type, "batch": batch,
+                "loop_config": loop_config, "loop_size": loop_size},
+               os.path.join(folder, "job.pt"))
+    t0 = time.perf_counter()
+    spawn_ranks(rank_fn or dp_rank, DP_WORLD, folder, backend="gloo",
+                timeout_s=DP_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(folder, f"rank{r}.pt"),
+                        weights_only=False) for r in range(DP_WORLD)]
+    inputs = step_inputs(batch)
+    out = {"ranks_s": ranks_s}
+    with exact_f32():
+        model32 = random_model(dev.type)
+        before = {n: p.detach().cpu().clone()
+                  for n, p in model32.named_parameters()}
+        ref32 = dp_train_once(model32, inputs)
+        ulp = dp_train_once(one_ulp_apart(random_model("cpu")).to(dev),
+                            inputs)
+        ref16 = dp_train_once(random_model(dev.type, torch.bfloat16), inputs)
+        pr_inputs = per_replica_inputs(inputs, DP_WORLD)
+        pr16, pr32 = [per_replica_reference(dev, dtype, pr_inputs, DP_WORLD)
+                      for dtype in (torch.bfloat16, None)]
+    flat = functools.partial(flat_step, before=before)
+    for r, res in enumerate(ranks):
+        what = f"rank {r} of {DP_WORLD}"
+        f32 = res["sync_f32"]
+        metric_err = max(max_err(f32["metrics"][k], ref32[0][k], TOL_STEP,
+                                 what=f"{what}: sync f32 metric {k}")
+                         for k in ref32[0])
+        grads = check_gradients(f32["grads"], ref32[1], ulp[1],
+                                f"{what}'s sync f32 step and one process")
+        out[f"rank{r}_sync_f32_vs_one_process"] = dict(zip(
+            VS_CPU_KEYS, (metric_err, *grads,
+                          _state_errors(f32["state"], ref32[2], TOL_STEP))))
+        for name, want, want32 in (("sync_bf16", ref16, ref32),
+                                   ("per_replica_bf16", pr16, pr32)):
+            got = res[name]
+            w = flat(want)
+            out[f"rank{r}_{name}_vs_one_process"] = hold_bf16(
+                flat((got["metrics"], got["grads"], got["state"])), w,
+                {k: _dist(v, flat(want32)[k]) for k, v in w.items()},
+                f"{what}'s {name} step and one process's", "one process")
+        out[f"rank{r}_launches"] = {name: res[name]["launches"] for name in
+                                    ("sync_f32", "sync_bf16",
+                                     "per_replica_bf16")}
+        if cuda:
+            out[f"rank{r}_bf16_step"] = res["timing"]
+        if loop_config is not None:
+            out[f"rank{r}_loop_launches"] = res["loop"]["launches"]
+            out[f"rank{r}_loop_epoch_times"] = res["loop"]["epoch_times"]
+    if loop_config is None:
+        return out
+    check(ranks[0]["loop"]["history"] == ranks[1]["loop"]["history"],
+          "the two ranks' loop histories differ")
+    (h,) = ranks[0]["loop"]["history"]
+    check(math.isfinite(h["train_loss"]) and 0 <= h["valid_top1"] <= 1,
+          f"the two-rank loop's epoch gave {h}")
+    check(any(f.endswith("checkpoint.current")
+              for f in ranks[0]["loop"]["files"])
+          and ranks[1]["loop"]["files"] == [],
+          f"rank 0 wrote {ranks[0]['loop']['files'][:4]}..., rank 1 "
+          f"{ranks[1]['loop']['files'][:4]}: only rank 0 writes")
+    out["loop"] = dict(history=h, restored_bit_identical=True,
+                       rank0_files=len(ranks[0]["loop"]["files"]),
+                       rank1_files=0)
+    return out
+
+
+def dp_phases(dev) -> dict:
+    """Phase 13: the group path at world 1, then two ranks on the one
+    card over gloo, under a folder of ``build/`` removed after."""
+    t0 = time.perf_counter()
+    out = {"world1": dp_world1_phase(dev, BATCH)}
+    print(f"dp_world1_{out['world1']['backend']}_bf16_step_at_batch_{BATCH}+"
+          f"{BATCH} " + json.dumps(out["world1"]))
+    print("dp_two_ranks_backend gloo: two processes share the one card, "
+          "their collectives staged through the host; not a multi-GPU speed")
+    root = os.path.join(ROOT, "build")
+    os.makedirs(root, exist_ok=True)
+    folder = tempfile.mkdtemp(prefix="dp_", dir=root)
+    try:
+        out["two"] = dp_two_rank_phase(dev, BATCH, folder, DP_LOOP_CONFIG,
+                                       (DP_LOOP_STEPS,
+                                        DP_LOOP_EVAL_FORWARDS))
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    for key, value in out["two"].items():
+        print(f"dp_two_ranks_{key}_at_batch_{BATCH}+{BATCH} "
+              + json.dumps(value))
+    print(f"dp phase {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -2489,9 +2934,12 @@ def encoder_phases(dev, batch: int, steps: int = TRAIN_STEPS,
     eval steps (``steps`` counted), the M2 step and epoch of ``loop``
     (config, steps, eval forwards) under a folder of ``build/`` removed
     after, and f32 serving; each part's lines printed as it ends."""
+    from shotvae_torch.device import exact_f32
+
     out = {}
     t0 = time.perf_counter()
-    out["kernels"] = encoder_kernel_phase(dev, batch)
+    with exact_f32():  # the kernels and bare steps; serving pins its own
+        out["kernels"] = encoder_kernel_phase(dev, batch)
     for name in ("preactresnet18", "densenet121"):
         res = out["kernels"][name]
         print(f"{name}_sites " + json.dumps(res["sites"]))
@@ -2511,14 +2959,16 @@ def encoder_phases(dev, batch: int, steps: int = TRAIN_STEPS,
     print("conv_check_shapes_f32_max_abs_err_relu_identity "
           + json.dumps(out["kernels"]["f32_conv_check"]))
     print(f"encoder kernel phase {time.perf_counter() - t0:.1f} s")
-    out["train"] = encoder_train_phase(dev, batch, steps)
+    with exact_f32():
+        out["train"] = encoder_train_phase(dev, batch, steps)
     check_encoder_rows(out["kernels"], out["train"], steps)
     t0 = time.perf_counter()
     root = os.path.join(ROOT, "build")
     os.makedirs(root, exist_ok=True)
     base = tempfile.mkdtemp(prefix="encoder_m2_", dir=root)
     try:
-        out["m2"] = encoder_m2_phase(dev, batch, base, *loop, steps)
+        with exact_f32():
+            out["m2"] = encoder_m2_phase(dev, batch, base, *loop, steps)
     finally:
         shutil.rmtree(base, ignore_errors=True)
     for key in ("launches", "eval_launches", "last_metrics", "timing",
@@ -2533,6 +2983,23 @@ def encoder_phases(dev, batch: int, steps: int = TRAIN_STEPS,
         print(f"{name}_serve_f32_at_batch_{batch} " + json.dumps(res))
     print(f"encoder serve phase {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# the kernels of the f32 entries of the kernels line, in their order
+F32_ENTRY_KERNELS = ("bn_act_inference", "fused_bn_act_conv",
+                     "fused_joint_sample", "bn_stats", "bn_apply",
+                     "bn_bwd_reduce", "bn_bwd_apply")
+
+
+def dp_paths(dp: dict) -> dict:
+    """{path: the bf16 launches of each kernel}: phase 13's world-1 step
+    and rank 0's steps and loop epoch."""
+    two = dp["two"]
+    return {"dp_world1_bf16": dp["world1"]["launches"],
+            "dp_rank0_sync_bf16": two["rank0_launches"]["sync_bf16"],
+            "dp_rank0_per_replica_bf16":
+                two["rank0_launches"]["per_replica_bf16"],
+            "dp_rank0_loop_bf16": two["rank0_loop_launches"]}
 
 
 def baseline_paths(baselines: dict) -> dict:
@@ -2607,9 +3074,8 @@ def main() -> int:
         print("chip_smoke.py: torch sees no CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
 
+    from shotvae_torch.device import exact_f32
     from shotvae_torch.ops.kernels import _build
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2651,43 +3117,47 @@ def main() -> int:
                      ("fused_bn_act_conv", conv_phase),
                      ("fused_joint_sample", sample_phase)):
         t0 = time.perf_counter()
-        phases[name] = fn(dev, BATCH)
+        with exact_f32():  # the kernels and their library yardsticks
+            phases[name] = fn(dev, BATCH)
         for row in phases[name][0]:
             print(f"{name} {json.dumps(row)}")
         print(f"{name} phase {time.perf_counter() - t0:.1f} s")
 
     serving = ("fused_bn_act_conv", "bn_act_inference", "fused_joint_sample")
     counters = tuple(kernel_counters()[name] for name in serving)
-    launches, e2e_err, timing, timing_tf32, breakdown = end_to_end(BATCH,
-                                                                   counters)
+    # the endpoints under PyTorch's default flags: they pin exact float32
+    launches, e2e_err, timing, breakdown = end_to_end(BATCH, counters)
     print("e2e_vs_cpu_max_abs_err " + json.dumps(e2e_err))
     print(f"e2e_ms_at_batch_{BATCH} " + json.dumps(timing))
-    print(f"e2e_ms_at_batch_{BATCH}_cudnn_tf32 " + json.dumps(timing_tf32))
     print(f"reconstruct_profile_at_batch_{BATCH} " + json.dumps(breakdown))
     serve = dict(zip(serving, launches))
 
     t0 = time.perf_counter()
-    bn_rows, bn_err = bn_leaky_phase(dev, BATCH)
+    with exact_f32():
+        bn_rows, bn_err = bn_leaky_phase(dev, BATCH)
     for name, rows in bn_rows.items():
         for row in rows:
             print(f"{name} {json.dumps(row)}")
     print(f"bn_leaky_train phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    conv_bwd_rows, conv_bwd_err = conv_bwd_phase(dev, BATCH)
+    with exact_f32():
+        conv_bwd_rows, conv_bwd_err = conv_bwd_phase(dev, BATCH)
     for row in conv_bwd_rows:
         print(f"fused_bn_act_conv_train {json.dumps(row)}")
     print(f"fused conv backward phase {time.perf_counter() - t0:.1f} s, "
           f"max abs err {conv_bwd_err:.3e}")
     t0 = time.perf_counter()
-    train = train_phase(dev, BATCH)
+    with exact_f32():  # the bare step functions, held as the entry points
+        train = train_phase(dev, BATCH)
     for key in ("launches", "eval_launches", "last_metrics", "timing",
-                "profile", "profile_cudnn_tf32"):
+                "profile", "profile_bare_step_cudnn_tf32"):
         print(f"train_{key}_at_batch_{BATCH}+{BATCH} "
               + json.dumps(train[key]))
     print(f"train_step_vs_cpu_at_{COMPARE_BATCH}+{COMPARE_BATCH} "
           + json.dumps(train["vs_cpu"]))
     print(f"train phase {time.perf_counter() - t0:.1f} s")
-    bf16 = bf16_phases(dev, BATCH)
+    with exact_f32():
+        bf16 = bf16_phases(dev, BATCH)
     for key in ("launches", "eval_launches", "last_metrics", "timing",
                 "profile"):
         print(f"train_bf16_{key}_at_batch_{BATCH}+{BATCH} "
@@ -2713,8 +3183,10 @@ def main() -> int:
                                   ("classifier", CLS_LOOP_STEPS,
                                    CLS_LOOP_EVAL_FORWARDS)):
         t0 = time.perf_counter()
-        out = baselines[kind] = train_phase(dev, BATCH, dtype=torch.bfloat16,
-                                            kind=kind)
+        with exact_f32():
+            out = baselines[kind] = train_phase(dev, BATCH,
+                                                dtype=torch.bfloat16,
+                                                kind=kind)
         for key in ("launches", "eval_launches", "last_metrics", "timing",
                     "profile"):
             print(f"{kind}_train_bf16_{key}_at_batch_{BATCH} "
@@ -2735,6 +3207,7 @@ def main() -> int:
         print(f"{kind} phase {time.perf_counter() - t0:.1f} s")
     encoders = encoder_phases(dev, BATCH)
     smooth_phases(dev)  # phase 12: no hand kernel on this path
+    dp = dp_phases(dev)  # phase 13
     conv_train = sum(r["launches"] for r in conv_bwd_rows)
     check(conv_train * TRAIN_STEPS == train["launches"]["fused_bn_act_conv"],
           f"the fused conv backward rows weigh {conv_train} launches per "
@@ -2765,10 +3238,7 @@ def main() -> int:
                                  ("backward apply", "bn_bwd_apply", 217))]
     # launches: every main-path run (serving, TRAIN_STEPS train steps, one
     # eval step), each counted from 0
-    for entry, name in zip(entries, ("bn_act_inference", "fused_bn_act_conv",
-                                     "fused_joint_sample", "bn_stats",
-                                     "bn_apply", "bn_bwd_reduce",
-                                     "bn_bwd_apply")):
+    for entry, name in zip(entries, F32_ENTRY_KERNELS):
         by_path = {"serve": serve.get(name, 0),
                    "train": train["launches"][name],
                    "eval": train["eval_launches"][name]}
@@ -2793,6 +3263,7 @@ def main() -> int:
         loop["epoch"]["launches"]["fused_joint_sample"]
     paths = baseline_paths(baselines)
     paths.update(encoder_paths(encoders))
+    paths.update(dp_paths(dp))
     for path, counts in paths.items():
         if counts["fused_joint_sample"]:
             sampler["launches_by_path"][path] = counts["fused_joint_sample"]
@@ -2801,6 +3272,10 @@ def main() -> int:
         for net, res in encoders["serve"].items():
             entry["launches_by_path"][f"{net}_serve"] = \
                 res["launches"][entry["name"]]
+    # and in phase 13's f32 sync-BN step on rank 0
+    for entry, name in zip(entries, F32_ENTRY_KERNELS):
+        entry["launches_by_path"]["dp_rank0_sync_f32"] = \
+            dp["two"]["rank0_launches"]["sync_f32"][name]
         entry["launches"] = sum(entry["launches_by_path"].values())
     entries += bf16_entries(bf16, loop["epoch"]["launches"], paths)
     print(smi)

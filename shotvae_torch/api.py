@@ -10,7 +10,8 @@ Images go in as uint8 NHWC batches and reconstructions come out NHWC, as in
 the JAX package. Randomness comes from the caller's ``torch.Generator``;
 without one, a generator seeded with 0 keeps an endpoint deterministic, as
 the JAX endpoints' default ``jax.random.key(0)`` does. The endpoints run on
-``cuda`` unless the caller passes ``device="cpu"``.
+``cuda`` unless the caller passes ``device="cpu"``, in full float32
+(``device.exact_f32``: no TF32 in cuDNN or cuBLAS).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Optional, Union
 import torch
 
 from shotvae_torch.data.pipeline import to_float
-from shotvae_torch.device import DeviceLike, resolve_device
+from shotvae_torch.device import DeviceLike, exact_f32, resolve_device
 from shotvae_torch.io.checkpoint import (CheckpointManager,
                                          resolve_checkpoint_path)
 from shotvae_torch.models.vae import VariationalAutoEncoder
@@ -83,17 +84,20 @@ class ShotVaeInference:
         x = torch.as_tensor(images_u8).to(self.device)
         return to_float(x).permute(0, 3, 1, 2)
 
+    @exact_f32()
     @torch.inference_mode()
     def classify(self, images_u8) -> torch.Tensor:
         """(B, H, W, C) uint8 -> (B, K) class probabilities."""
         _, _, log_alpha = self.model.encode(self._images(images_u8))
         return torch.exp(log_alpha)
 
+    @exact_f32()
     @torch.inference_mode()
     def encode(self, images_u8):
         """(B, H, W, C) uint8 -> (mean, log_sigma, log_alpha)."""
         return self.model.encode(self._images(images_u8))
 
+    @exact_f32()
     @torch.inference_mode()
     def reconstruct(self, images_u8,
                     generator: Optional[torch.Generator] = None):
@@ -102,6 +106,7 @@ class ShotVaeInference:
                                     generator=_default_generator(generator))
         return torch.sigmoid(recon).permute(0, 2, 3, 1)
 
+    @exact_f32()
     @torch.inference_mode()
     def generate(self, labels, generator: Optional[torch.Generator] = None):
         """(B,) class labels -> (B, H, W, C) class-conditional samples."""

@@ -5,10 +5,15 @@ Flag names, shorthands, defaults and help strings are the JAX package's,
 which match the reference (main_shot_vae.py:30-106) flag for flag,
 including the quirky ``--dp`` (store_false: passing it *disables* data
 parallelism), the parsed-but-unused ``-ei`` / ``--resume-arg`` and the
-extensions grouped at the end. Flags of parts the port does not have yet
-parse, then raise ``NotImplementedError`` naming their ROADMAP.md item
-(``shotvae_torch.train.loop.refuse_unported``; ``--multihost`` in
-``parse_args``).
+extensions grouped at the end. Data parallelism runs one process per card
+under torchrun (``shotvae_torch.parallel``):
+
+  torchrun --nproc-per-node N -m shotvae_torch.cli.main_shot_vae \
+      --num-devices N ...
+
+Flags of parts the port does not have yet parse, then raise
+``NotImplementedError`` naming their ROADMAP.md item
+(``shotvae_torch.train.loop.refuse_unported``).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import argparse
 import ast
 
 from shotvae_torch.config import ShotVaeConfig
+from shotvae_torch.parallel.mesh import check_multihost
 
 
 def arg_as_list(s):
@@ -133,7 +139,7 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                         help="the label smoothing epsilon for labeled data")
     parser.add_argument("--om", action="store_true",
                         help="the optimal match for unlabeled data mixup")
-    # GPU Parameters (accepted for parity; the port runs on one card)
+    # GPU Parameters (accepted for parity; torchrun places the ranks)
     parser.add_argument("--gpu", default="0,1", type=str,
                         metavar="GPU plans to use",
                         help="The GPU id plans to use")
@@ -142,7 +148,8 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     parser.add_argument("--no-bf16", action="store_true",
                         help="disable bfloat16 trunk compute")
     parser.add_argument("--num-devices", default=None, type=int,
-                        help="restrict the data mesh to N devices")
+                        help="the number of ranks (cards) of the run; it "
+                             "must equal torchrun's world size")
     parser.add_argument("--synthetic-data", action="store_true",
                         help="use synthetic data when datasets are missing")
     parser.add_argument("--synthetic-size", default=2048, type=int,
@@ -166,29 +173,31 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     parser.add_argument("--profile-dir", default="", type=str,
                         help="write a torch.profiler trace of one epoch "
                              "(the second) here")
-    # flags of parts not ported yet: they parse, then raise
     parser.add_argument("--multihost", action="store_true",
-                        help="span the data mesh over all hosts (not ported "
-                             "yet: raises)")
+                        help="the ranks span several hosts (torchrun "
+                             "--nnodes M): one process group over them; "
+                             "every host runs the same command")
     parser.add_argument("--bn-per-replica", action="store_true",
                         help="DataParallel-faithful per-replica BatchNorm "
-                             "statistics (not ported yet: raises)")
+                             "statistics (each rank's own rows); default is "
+                             "sync-BN")
     parser.add_argument("--steps-per-call", default=1, type=int,
                         help="run N train steps per host dispatch (not "
                              "ported yet: N > 1 raises)")
     parser.add_argument("--global-mixup", action="store_true",
                         help="with --bn-per-replica: draw mixup/"
                              "label-smoothing partners over the GLOBAL batch "
-                             "(not ported yet: raises)")
+                             "(gathered over the ranks), matching "
+                             "DataParallel's gathered-device-0 mixup; "
+                             "default draws within each rank's rows")
     return parser
 
 
 def parse_args(parser: argparse.ArgumentParser, argv=None):
-    """``parser.parse_args(argv)``, refusing ``--multihost``."""
+    """``parser.parse_args(argv)``; ``--multihost`` is checked against the
+    launch (``parallel.mesh.check_multihost``)."""
     args = parser.parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost is not ported yet (ROADMAP.md queue 1 item 11)")
+    check_multihost(args.multihost)
     return args
 
 

@@ -10,7 +10,7 @@ the labeled split only. Runs on the CUDA card:
 from shotvae_torch.cli.common import (build_parser, config_from_args,
                                       parse_args)
 from shotvae_torch.config import ClassifierConfig
-from shotvae_torch.device import DeviceLike
+from shotvae_torch.device import DeviceLike, exact_f32
 from shotvae_torch.train.loop import run_classifier
 
 
@@ -21,6 +21,7 @@ def build_classifier_parser():
     return parser
 
 
+@exact_f32()
 def main(argv=None, *, device: DeviceLike = None):
     """Parse ``argv`` and train the classifier on ``device`` (None:
     ``cuda``); returns ``run_classifier``'s summary."""

@@ -7,10 +7,11 @@ shotvae_tpu/cli/main_shot_vae.py; the same flags
 
 from shotvae_torch.cli.common import (build_parser, config_from_args,
                                       parse_args)
-from shotvae_torch.device import DeviceLike
+from shotvae_torch.device import DeviceLike, exact_f32
 from shotvae_torch.train.loop import run_shot_vae
 
 
+@exact_f32()
 def main(argv=None, *, device: DeviceLike = None):
     """Parse ``argv`` and train on ``device`` (None: ``cuda``); returns
     ``run_shot_vae``'s summary."""

@@ -14,7 +14,7 @@ import ast
 import os
 
 from shotvae_torch.config import SmoothElboConfig
-from shotvae_torch.device import DeviceLike
+from shotvae_torch.device import DeviceLike, exact_f32
 from shotvae_torch.train.loop import run_smooth_elbo
 
 
@@ -90,6 +90,7 @@ def config_from_args(args, svhn: bool) -> SmoothElboConfig:
         use_plateau_scheduler=svhn)
 
 
+@exact_f32()
 def run(svhn: bool, argv=None, *, device: DeviceLike = None):
     """Parse ``argv`` and train on ``device`` (None: ``cuda``); returns
     ``run_smooth_elbo``'s summary."""

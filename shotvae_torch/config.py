@@ -7,9 +7,11 @@ field, with the JAX package's names and defaults, which follow the
 reference's flag names (main_shot_vae.py:30-106), and
 ``apply_dataset_overrides``, the per-dataset values the reference sets
 inside ``main()``. ``compute_dtype`` is the model's trunk dtype, as
-shotvae_tpu/train/loop.py:223 picks it from ``bf16``. Fields that drive a
-part the port does not have yet (data parallelism, multi-step dispatch)
-are refused by the loop (``shotvae_torch.train.loop``), never ignored.
+shotvae_tpu/train/loop.py:223 picks it from ``bf16``. The data-parallel
+fields (``dp``, ``num_devices``, ``bn_per_replica``, ``global_mixup``) are
+read by ``shotvae_torch.parallel.setup`` and the steps; a field that drives
+a part the port does not have yet (multi-step dispatch) is refused by the
+loop (``shotvae_torch.train.loop``), never ignored.
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ class ShotVaeConfig:
     # Optimal transport estimation
     epsilon: float = 0.1
     om: bool = False
-    gpu: str = ""                 # accepted for CLI parity; one card
+    gpu: str = ""                 # accepted for CLI parity; torchrun places
     # --- extensions of the JAX package (not in the reference surface) ---
     seed: int = 1
     bf16: bool = True             # bfloat16 trunk compute

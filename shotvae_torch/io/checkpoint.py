@@ -18,7 +18,9 @@ leaves the previous checkpoint in place.
 Saves are asynchronous: ``save`` copies the state to the host at once (the
 model and the optimizer update their tensors in place, so the writer must
 not read the live ones), and one background writer writes the file and the
-pointer. The next call joins it first and raises any error it hit.
+pointer. The next call joins it first and raises any error it hit. The
+folder is made by the first save, so a manager that only restores (a
+data-parallel run's ranks but the first) writes nothing.
 """
 
 from __future__ import annotations
@@ -78,7 +80,6 @@ class CheckpointManager:
                  tag: str = "SHOT-VAE"):
         self.folder = os.path.join(base_path, f"{dataset}-{tag}", "parameter",
                                    f"train_time_{train_time}")
-        os.makedirs(self.folder, exist_ok=True)
         self._next_slot = {name: 0 for name in NAMES}
         self._write_thread: Optional[threading.Thread] = None
         self._write_error: Optional[BaseException] = None
@@ -114,6 +115,7 @@ class CheckpointManager:
                    "args": dict(config or {})}
         # one writer at a time, in order: the pointer follows the writes
         self.wait_until_finished()
+        os.makedirs(self.folder, exist_ok=True)
         name = self._name(best)
         slot = self._next_slot[name]
         self._next_slot[name] = 1 - slot

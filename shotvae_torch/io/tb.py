@@ -4,7 +4,8 @@ shotvae_tpu/io/tb.py:16-63.
 The scalar tags and the 2x2 ``Raw_Image`` / ``Reconstruct_Image`` grids of
 the SHOT-VAE trainer (shotvae_tpu/train/loop.py:398-458) go through
 torch's ``SummaryWriter``; where the ``tensorboard`` package is missing,
-the writer is a no-op (``live`` is False).
+the writer is a no-op (``live`` is False), as it is where it is not
+``enabled`` (a data-parallel run's ranks but the first).
 """
 
 from __future__ import annotations
@@ -31,11 +32,13 @@ def make_image_grid(images: np.ndarray, nrow: int = 2) -> np.ndarray:
 
 
 class TBWriter:
-    def __init__(self, log_dir: str):
-        try:
-            from torch.utils.tensorboard import SummaryWriter
-        except ImportError:  # tensorboard is not installed
-            SummaryWriter = None
+    def __init__(self, log_dir: str, enabled: bool = True):
+        SummaryWriter = None
+        if enabled:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:  # tensorboard is not installed
+                pass
         self._w = None if SummaryWriter is None else SummaryWriter(
             log_dir=log_dir)
         self.log_dir = log_dir

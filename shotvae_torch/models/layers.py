@@ -15,7 +15,9 @@
   fused conv site, and updates its running statistics in place with
   momentum 0.1 from the BIASED batch variance, which is what flax tracks
   (the JAX package's README "Parity and documented deviations" 7; torch's
-  own BatchNorm2d tracks the unbiased one).
+  own BatchNorm2d tracks the unbiased one). With a process group
+  (``parallel.set_bn_group``) the train-mode statistics, and so the
+  running statistics, are the global batch's (sync-BN).
 * Activations are NCHW tensors in ``channels_last`` memory format, whose
   memory is the (N*H*W, C) rows the kernels take.
 * Precision follows flax's ``dtype`` (not autocast): a module's ``dtype``
@@ -144,6 +146,9 @@ class BatchNorm(nn.BatchNorm2d):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.slope = slope
         self.dtype = dtype or torch.float32
+        # sync-BN's process group (``parallel.set_bn_group``); None: the
+        # statistics of this process's rows
+        self.process_group = None
 
     def scale_shift(self):
         """The eval-mode affine, folded from the running statistics."""
@@ -170,7 +175,8 @@ class BatchNorm(nn.BatchNorm2d):
         rows = to_rows(x)
         if self.training:
             y, mean, var = bn_leaky_train(rows, self.weight, self.bias,
-                                          self.eps, self.slope)
+                                          self.eps, self.slope,
+                                          self.process_group)
             self._track(mean, var)
         else:
             y = bn_act_inference(rows, self.weight, self.bias,
@@ -190,7 +196,7 @@ class BatchNorm(nn.BatchNorm2d):
         if self.training:
             y, mean, var = fused_bn_act_conv_train(
                 x, self.weight, self.bias, conv.weight, eps=self.eps,
-                slope=self.slope)
+                slope=self.slope, group=self.process_group)
             self._track(mean, var)
             return y
         scale, shift = self.scale_shift()

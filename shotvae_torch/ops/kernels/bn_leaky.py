@@ -60,7 +60,10 @@ Each kernel's plain version sits beside it (torch ops of the same formula);
 on the CPU a wrapper runs it, on a CUDA tensor it launches the kernel or
 raises. ``bn_leaky_train`` joins the four under one
 ``torch.autograd.Function`` returning ``(y, mean, var)``, as the
-``custom_vjp`` does; the mean/var cotangents are dropped (:196).
+``custom_vjp`` does; the mean/var cotangents are dropped (:196). With a
+process group it is sync-BN: the statistics and the backward's sums are
+all-reduced between the kernels (``global_stats``, ``global_sums``), as the
+JAX package's GSPMD step pools BatchNorm over the global batch.
 """
 
 from __future__ import annotations
@@ -115,10 +118,11 @@ def bn_bwd_reduce_plain(g, xhat, gamma, beta, slope: float = LEAKY_SLOPE):
 
 
 def bn_bwd_apply_plain(g, xhat, gamma, beta, stats, sums,
-                       slope: float = LEAKY_SLOPE):
-    """dx = gamma * invstd * (g' - (sum g' + xhat * sum g' xhat) / M)."""
+                       slope: float = LEAKY_SLOPE, count=None):
+    """dx = gamma * invstd * (g' - (sum g' + xhat * sum g' xhat) / M), M
+    the rows the statistics were taken over (``count``; default g's)."""
     gp = _grad_through_leaky(g, xhat, gamma, beta, slope)
-    inv_m = 1.0 / g.shape[0]
+    inv_m = 1.0 / (count or g.shape[0])
     dx = (gamma * stats[2]) * (gp - inv_m * (sums[0] + xhat * sums[1]))
     return dx.to(g.dtype)
 
@@ -403,18 +407,20 @@ def bn_bwd_reduce(g, xhat, gamma, beta, slope: float = LEAKY_SLOPE):
 
 
 def bn_bwd_apply(g, xhat, gamma, beta, stats, sums,
-                 slope: float = LEAKY_SLOPE):
+                 slope: float = LEAKY_SLOPE, count=None):
     """dx of the (M, C) rows, in g's dtype, from ``bn_stats``'s and
-    ``bn_bwd_reduce``'s outputs."""
+    ``bn_bwd_reduce``'s outputs; ``count``: the rows the statistics and
+    sums were taken over, where they span more than g's (sync-BN)."""
     if g.device.type == "cpu":
-        return bn_bwd_apply_plain(g, xhat, gamma, beta, stats, sums, slope)
+        return bn_bwd_apply_plain(g, xhat, gamma, beta, stats, sums, slope,
+                                  count)
     m, c = g.shape
     _check(g, xhat, gamma, beta, stats, sums, c=c)
     dx = torch.empty_like(g)
     block_m, block_c, row_blocks, col_blocks = _blocks(m, c)
     with torch.cuda.device(g.device):
         _compiled()["_bwd_apply_kernel"][(row_blocks, col_blocks)](
-            g, xhat, gamma, beta, stats, sums, dx, m, c, 1.0 / m,
+            g, xhat, gamma, beta, stats, sums, dx, m, c, 1.0 / (count or m),
             float(slope), BLOCK_M=block_m, BLOCK_C=block_c, num_warps=4,
             enable_fp_fusion=False)
     count_launch(bn_bwd_apply, g.dtype)
@@ -424,16 +430,46 @@ def bn_bwd_apply(g, xhat, gamma, beta, stats, sums,
 init_counts(bn_stats, bn_apply, bn_bwd_reduce, bn_bwd_apply)
 
 
+# ------------------------------------------------------------------ sync-BN
+
+
+def global_stats(stats, m: int, eps: float, group):
+    """Sync-BN's forward collective: from this rank's ``bn_stats`` of its
+    ``m`` rows, the (3, C) [mean; biased var, clamped at 0; invstd] of the
+    rows of every rank of ``group`` (each with ``m`` rows), and their
+    count. One all-reduce of the per-channel sums [m * mean; m * (var +
+    mean^2)] in float64; mean and var then in float64, rounded to float32,
+    and invstd from the float32 var as the kernel takes it."""
+    local = stats[:2].to(torch.float64)
+    sums = torch.stack([local[0], local[1] + local[0] * local[0]]) * m
+    torch.distributed.all_reduce(sums, group=group)
+    count = m * torch.distributed.get_world_size(group)
+    mean = sums[0] / count
+    var = torch.clamp(sums[1] / count - mean * mean, min=0.0).to(torch.float32)
+    return torch.stack([mean.to(torch.float32), var,
+                        torch.rsqrt(var + eps)]), count
+
+
+def global_sums(sums, group):
+    """Sync-BN's backward collective: ``bn_bwd_reduce``'s (2, C) sums over
+    the rows of every rank of ``group``."""
+    total = sums.clone()
+    torch.distributed.all_reduce(total, group=group)
+    return total
+
+
 # ------------------------------------------------------------------ autograd
 
 
 class _BnLeakyTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps, slope):
-        stats = bn_stats(x, eps)
+    def forward(ctx, x, gamma, beta, eps, slope, group):
+        stats, count = bn_stats(x, eps), None
+        if group is not None:
+            stats, count = global_stats(stats, x.shape[0], eps, group)
         y, xhat = bn_apply(x, stats, gamma, beta, slope)
         ctx.save_for_backward(xhat, stats, gamma, beta)
-        ctx.slope = slope
+        ctx.slope, ctx.group, ctx.count = slope, group, count
         mean, var = stats[0], stats[1]
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
@@ -443,13 +479,24 @@ class _BnLeakyTrain(torch.autograd.Function):
         xhat, stats, gamma, beta = ctx.saved_tensors
         g = g.contiguous()
         sums = bn_bwd_reduce(g, xhat, gamma, beta, ctx.slope)
-        dx = bn_bwd_apply(g, xhat, gamma, beta, stats, sums, ctx.slope)
-        return dx, sums[1], sums[0], None, None
+        total = sums if ctx.group is None else global_sums(sums, ctx.group)
+        dx = bn_bwd_apply(g, xhat, gamma, beta, stats, total, ctx.slope,
+                          ctx.count)
+        # dgamma and dbeta of this rank's rows: the gradient mean over the
+        # ranks makes them the global batch's
+        return dx, sums[1], sums[0], None, None, None
 
 
 def bn_leaky_train(x, gamma, beta, eps: float = 1e-5,
-                   slope: float = LEAKY_SLOPE):
+                   slope: float = LEAKY_SLOPE, group=None):
     """Training-mode BN + LeakyReLU(slope) on (M, C) rows -> (y, mean, var),
     the biased batch statistics that feed the running-stat update; slope 0
-    is the decoder's ReLU. Differentiable in x, gamma and beta."""
-    return _BnLeakyTrain.apply(x, gamma, beta, eps, slope)
+    is the decoder's ReLU. Differentiable in x, gamma and beta.
+
+    ``group``: a process group whose ranks each hold M rows of one global
+    batch (sync-BN). The statistics are then the global batch's (one
+    all-reduce after the statistics kernel), and so is the backward's
+    normalisation (one all-reduce after the backward reduce kernel); the
+    gradients of gamma and beta stay this rank's own, which the gradient
+    mean over the ranks makes the global batch's."""
+    return _BnLeakyTrain.apply(x, gamma, beta, eps, slope, group)

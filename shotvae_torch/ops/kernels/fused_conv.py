@@ -72,7 +72,8 @@ import torch.nn.functional as F
 from shotvae_torch.ops.kernels import (_build, count_launch, init_counts,
                                       sm_count)
 from shotvae_torch.ops.kernels.bn_leaky import (bn_apply, bn_bwd_apply,
-                                                bn_bwd_reduce, bn_stats)
+                                                bn_bwd_reduce, bn_stats,
+                                                global_stats, global_sums)
 
 LEAKY_SLOPE = 0.01
 
@@ -353,16 +354,19 @@ init_counts(fused_bn_act_conv)
 
 class _FusedBnActConvTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, weight, eps, slope):
+    def forward(ctx, x, gamma, beta, weight, eps, slope, group):
         b, _, h, w = x.shape
         rows = to_rows(x)
-        stats = bn_stats(rows, eps)
+        stats, count = bn_stats(rows, eps), None
+        if group is not None:  # sync-BN: the global batch's statistics
+            stats, count = global_stats(stats, rows.shape[0], eps, group)
         scale = gamma * stats[2]
         shift = beta - stats[0] * scale
         y = _fused_conv_forward(from_rows(rows, b, h, w), scale, shift,
                                 weight, slope)
         ctx.save_for_backward(rows, stats, gamma, beta, weight)
         ctx.dims, ctx.slope = (b, h, w), slope
+        ctx.group, ctx.count = group, count
         mean, var = stats[0], stats[1]
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
@@ -375,19 +379,24 @@ class _FusedBnActConvTrain(torch.autograd.Function):
         dact, dw = _conv_grads(g, from_rows(act, b, h, w), weight)
         drows = to_rows(dact.contiguous(memory_format=torch.channels_last))
         sums = bn_bwd_reduce(drows, xhat, gamma, beta, ctx.slope)
-        dx = bn_bwd_apply(drows, xhat, gamma, beta, stats, sums, ctx.slope)
-        return from_rows(dx, b, h, w), sums[1], sums[0], dw, None, None
+        total = sums if ctx.group is None else global_sums(sums, ctx.group)
+        dx = bn_bwd_apply(drows, xhat, gamma, beta, stats, total, ctx.slope,
+                          ctx.count)
+        return (from_rows(dx, b, h, w), sums[1], sums[0], dw, None, None,
+                None)
 
 
 def fused_bn_act_conv_train(x, gamma, beta, weight, *, eps: float = 1e-5,
-                            slope: float = LEAKY_SLOPE):
+                            slope: float = LEAKY_SLOPE, group=None):
     """``conv3x3_SAME(leaky(BN_train(x)), weight)`` -> (y, mean, var), with
     the biased f32 batch statistics of x (B, Cin, H, W) that feed the
     running-stat update; y and the gradient of x in x's dtype (float32 or
     bfloat16), the weight cast to it. Differentiable in x, gamma, beta and
-    weight."""
+    weight. ``group``: sync-BN over a process group, as
+    ``bn_leaky.bn_leaky_train`` takes it (the fold and the backward's
+    recompute from the global batch's statistics)."""
     return _FusedBnActConvTrain.apply(x, gamma, beta, weight.to(x.dtype), eps,
-                                      slope)
+                                      slope, group)
 
 
 def fused_bn_act_conv_train_plain(x, gamma, beta, weight, *,

@@ -3,7 +3,8 @@ classic input mixup helpers.
 
 Port of shotvae_tpu/ops/mixup.py:19-168. The optimal-match partner comes
 from the vectorised pairwise Gaussian KL with the diagonal masked, as in
-the JAX package. ``mixup_data``, ``mixup_raw_labeled_data`` and
+the JAX package; ``gather_mixup`` draws over the global batch of several
+ranks. ``mixup_data``, ``mixup_raw_labeled_data`` and
 ``mixup_criterion`` are the reference's classic input mixup (its
 lib/utils/mixup.py, unused by its drivers but part of its surface).
 
@@ -141,6 +142,23 @@ def mixup_criterion(criterion, prediction, label_a, label_b, lam):
     pred), labels first, in the reference's argument order."""
     return lam * criterion(label_a, prediction) + (1.0 - lam) * criterion(
         label_b, prediction)
+
+
+def gather_mixup(dp, fn, arrays, **kw) -> MixupBatch:
+    """A mixup or label-smoothing draw (``fn``: ``label_smoothing`` or
+    ``mixup_vae_data``) over the GLOBAL batch of the ranks of ``dp``: the
+    inputs ``arrays`` (images, z mean, z log sigma, y log alpha, and labels
+    for label smoothing) gathered in rank order, the draw made on the global
+    batch with a generator every rank shares (so the weight, the partners
+    and the optimal match agree on every rank), and this rank's rows sliced
+    back out. Port of shotvae_tpu/train/steps.py:81-105 (``gather_mixup``);
+    the JAX package's GSPMD step mixes over the global batch the same
+    way."""
+    out = fn(*(dp.gather_rows(a) for a in arrays), **kw)
+    rows = dp.rows(out.image.shape[0])
+    sl = lambda t: None if t is None else t[rows]  # noqa: E731
+    return MixupBatch(sl(out.image), sl(out.z_mean), sl(out.z_sigma),
+                      sl(out.disc_alpha), sl(out.partner_labels), out.lam)
 
 
 def _interpolate(image, z_mean, z_log_sigma, disc_log_alpha, index, lam, *,

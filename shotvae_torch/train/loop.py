@@ -20,7 +20,11 @@ uninterrupted run would have drawn:
   * train step i of an epoch by (seed + 1000, epoch, i), eval batch j by
     (seed + 1000, epoch, 10_000 + j), the train reconstruction grid by
     (seed + 1000, epoch, 99_999): each seeds a fresh host
-    ``torch.Generator`` that the step's every random site draws from.
+    ``torch.Generator`` that the step's every random site draws from;
+    over several ranks (``shotvae_torch.parallel``) that generator draws
+    only what every rank shares (mixup's weights and partners), and each
+    rank draws its rows' crops, flips, latent noise and dropout from
+    (seed + 1000, epoch, i, rank + 1).
 
 The JAX package's documented deviations hold here too (its README "Parity
 and documented deviations"): best is the MAXIMUM validation accuracy,
@@ -61,7 +65,7 @@ from shotvae_torch.data.pipeline import (DeviceDataset, epoch_batches,
                                          infinite_batches, num_batches,
                                          resize_batch)
 from shotvae_torch.data.splits import labeled_subset_per_class, ssl_split
-from shotvae_torch.device import DeviceLike, resolve_device
+from shotvae_torch.device import DeviceLike, exact_f32, resolve_device
 from shotvae_torch.io.checkpoint import CheckpointManager
 from shotvae_torch.io.tb import TBWriter
 from shotvae_torch.models.classifier import (WideResNetClassifier,
@@ -71,6 +75,8 @@ from shotvae_torch.models.smooth_vae import (SmoothVAE, mnist_vae_config,
                                              svhn_vae_config)
 from shotvae_torch.models.vae import VariationalAutoEncoder
 from shotvae_torch.ops.schedules import multistep_lr, shot_vae_epoch_schedules
+from shotvae_torch.parallel.mesh import (DataParallel, rank_generator,
+                                         refuse_ranks, setup)
 from shotvae_torch.train.state import TrainState, adam_torch, sgd_torch
 from shotvae_torch.train.steps import (make_classifier_eval_step,
                                        make_classifier_train_step,
@@ -89,9 +95,6 @@ def refuse_unported(cfg: ShotVaeConfig) -> None:
     """Raise for a setting that drives a part the port does not have yet,
     naming its ROADMAP.md item: none is silently ignored."""
     unported = [
-        (cfg.bn_per_replica, "--bn-per-replica", 11),
-        (cfg.global_mixup, "--global-mixup", 11),
-        ((cfg.num_devices or 1) > 1, "--num-devices > 1", 11),
         (cfg.steps_per_call > 1, "--steps-per-call > 1", "13a"),
     ]
     for on, flag, item in unported:
@@ -132,6 +135,22 @@ def step_generator(seed: int, epoch: int, i: int) -> torch.Generator:
     """A fresh host generator keyed by (seed + 1000, epoch, i)."""
     state = np.random.SeedSequence([seed + 1000, epoch, i]).generate_state(1)
     return torch.Generator().manual_seed(int(state[0]))
+
+
+def step_generators(seed: int, epoch: int, i: int, dp: DataParallel):
+    """(the rank's generator, the shared one) of train step (or eval key)
+    ``i``: on one process with no group, ``step_generator`` alone (None
+    shared); over a group, the rank's own ``rank_generator`` for per-row
+    draws and ``step_generator``, which every rank seeds alike, for the
+    draws over the global batch."""
+    if dp.group is None:
+        return step_generator(seed, epoch, i), None
+    return (rank_generator(seed, epoch, i, dp.rank),
+            step_generator(seed, epoch, i))
+
+
+def _quiet(*args, **kwargs) -> None:
+    """The log of a data-parallel run's ranks but the first."""
 
 
 def build_model(cfg: ShotVaeConfig, spec: DatasetSpec,
@@ -200,6 +219,7 @@ def _datasets(cfg: ShotVaeConfig, spec: DatasetSpec):
     return train_data, test_data, split
 
 
+@exact_f32()
 def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
                  max_epochs: Optional[int] = None, log_fn=print,
                  device: DeviceLike = None) -> dict:
@@ -209,9 +229,22 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
     ``device="cpu"``). Returns ``{"best_valid_acc", "history", "state",
     "epoch_times"}``: ``history`` has one entry per epoch with the JAX
     loop's keys, ``epoch_times`` each epoch's ``train_s`` (up to the train
-    metrics' read) and ``eval_s`` (the grid, valid and test)."""
+    metrics' read) and ``eval_s`` (the grid, valid and test).
+
+    Data parallel over the ranks of a process group (``parallel.setup``:
+    torchrun's, or one the caller made): each rank trains on its rows of
+    every global batch of ``batch_size`` (sync-BN, or ``bn_per_replica``
+    with ``global_mixup``) and evaluates its rows of each eval batch, the
+    sums added over the ranks; every rank restores ``resume``, and only the
+    first writes checkpoints, TensorBoard events and the log."""
     dev = resolve_device(device)
     refuse_unported(cfg)
+    dp = setup(cfg, dev)
+    if cfg.batch_size % dp.world_size:
+        raise ValueError(
+            f"batch_size {cfg.batch_size} must be divisible by the number of "
+            f"ranks {dp.world_size} (use --num-devices or adjust -b)")
+    log_fn = log_fn if dp.is_main else _quiet
     tag = "M2-VAE" if m2 else "SHOT-VAE"
     spec = cfg.apply_dataset_overrides(m2=m2)
     train_data, test_data, split = _datasets(cfg, spec)
@@ -241,18 +274,22 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
 
     log_dir = os.path.join(cfg.base_path, f"{spec.name}-{tag}", "runs",
                            f"train_time:{cfg.train_time}")
-    _prepare_writer_dir(log_dir, resume=bool(cfg.resume), assume_yes=cfg.yes,
-                        train_time=cfg.train_time)
-    writer = TBWriter(log_dir)
+    if dp.is_main:
+        _prepare_writer_dir(log_dir, resume=bool(cfg.resume),
+                            assume_yes=cfg.yes, train_time=cfg.train_time)
+    dp.barrier()
+    writer = TBWriter(log_dir, enabled=dp.is_main)
 
+    ranks = dict(dp=dp, bn_per_replica=cfg.bn_per_replica)
     if m2:
         step = make_m2_train_step(
             model, state.optimizer, num_classes=spec.num_classes, bce=cfg.br,
-            x_sigma=cfg.x_sigma)
+            x_sigma=cfg.x_sigma, **ranks)
     else:
         step = make_shot_vae_train_step(
             model, state.optimizer, num_classes=spec.num_classes, bce=cfg.br,
-            x_sigma=cfg.x_sigma, epsilon=cfg.epsilon, optimal_match=cfg.om)
+            x_sigma=cfg.x_sigma, epsilon=cfg.epsilon, optimal_match=cfg.om,
+            global_mixup=cfg.global_mixup, **ranks)
     evaluate = make_vae_eval_step(model, num_classes=spec.num_classes,
                                   bce=cfg.br, x_sigma=cfg.x_sigma)
     batch = cfg.batch_size
@@ -261,7 +298,7 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
     profiler = None
     total_epochs = max_epochs if max_epochs is not None else cfg.epochs
     for epoch in range(start_epoch, total_epochs):
-        if cfg.profile_dir and epoch == start_epoch + 1:
+        if cfg.profile_dir and epoch == start_epoch + 1 and dp.is_main:
             # the second epoch's train steps (the first one compiles)
             profiler = _start_profile(dev)
         labeled_iter = infinite_batches(
@@ -278,10 +315,13 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
                                                 batch)):
             idx_l = next(labeled_iter)
             data_time.update(time.time() - end)
-            images, labels = train_ds.gather(np.concatenate([idx_l, idx_u]))
+            local = len(idx_l) // dp.world_size
+            images, labels = train_ds.gather(np.concatenate(
+                [dp.shard(idx_l), dp.shard(idx_u)]))
+            gen, shared = step_generators(cfg.seed, epoch, i, dp)
             step_metrics.append(step(
-                state, images[:batch], labels[:batch], images[batch:],
-                labels[batch:], sched, step_generator(cfg.seed, epoch, i)))
+                state, images[:local], labels[:local], images[local:],
+                labels[local:], sched, gen, shared_generator=shared))
             batch_time.update(time.time() - end)
             end = time.time()
             if i % cfg.print_freq == 0:
@@ -299,7 +339,7 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
         train_s = time.time() - epoch_t0
         writer.scalar("Train/KL_Inference",
                       train_terms.get("kl_inference", 0.0), epoch + 1)
-        log_images = epoch % cfg.reconstruct_freq == 0
+        log_images = epoch % cfg.reconstruct_freq == 0 and dp.is_main
         if log_images:
             # an eval-mode forward of 4 images of the last unlabeled batch
             img4, lab4 = train_ds.gather(idx_u[:4])
@@ -318,16 +358,18 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
             batch_metrics, first = [], None
             for j, (idx, weight) in enumerate(_padded_eval_batches(indices,
                                                                    batch)):
-                img, lab = ds.gather(idx)
+                img, lab = ds.gather(dp.shard(idx))
                 metrics, recon = evaluate(
-                    img, lab, torch.from_numpy(weight).to(dev,
-                                                          non_blocking=True),
-                    generator=step_generator(cfg.seed, epoch, EVAL_KEY + j))
+                    img, lab, torch.from_numpy(dp.shard(weight)).to(
+                        dev, non_blocking=True),
+                    generator=step_generators(cfg.seed, epoch, EVAL_KEY + j,
+                                              dp)[0])
                 batch_metrics.append(metrics)
                 if first is None:
                     first = (img[:4], recon[:4])
             acc = MetricAccumulator()
-            acc.update(_summed(batch_metrics))  # the split's one read
+            # the split's one read, of the sums over the ranks
+            acc.update(dp.sum_metrics(_summed(batch_metrics)))
             avg = acc.averages()
             results[split_name] = avg
             writer.scalar(f"{split_name}/KL(q(z|X)||p(z))",
@@ -367,36 +409,44 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
         if not m2 and spec.name == "Cifar10" and cfg.annotated_ratio >= 0.05 \
                 and epoch == cfg.adjust_lr[0]:
             cfg.ewm = cfg.ewm * 5
-        # ckpt_every <= 0 disables every save
-        if cfg.ckpt_every > 0 and ((epoch + 1) % cfg.ckpt_every == 0
-                                   or epoch == total_epochs - 1):
+        # ckpt_every <= 0 disables every save; the first rank saves
+        saves = cfg.ckpt_every > 0 and dp.is_main
+        if saves and ((epoch + 1) % cfg.ckpt_every == 0
+                      or epoch == total_epochs - 1):
             ckpt.save(state, epoch=epoch + 1, config=cfg.asdict())
         if valid_acc > best_valid_acc:
             best_valid_acc = valid_acc
-            if cfg.ckpt_every > 0 and epoch >= cfg.adjust_lr[-1]:
+            if saves and epoch >= cfg.adjust_lr[-1]:
                 ckpt.save(state, epoch=epoch + 1, config=cfg.asdict(),
                           best=True)
         writer.flush()
 
     writer.close()
     ckpt.wait_until_finished()  # the last write lands before the return
+    dp.barrier()  # and before any rank returns
     return {"best_valid_acc": best_valid_acc, "history": history,
             "state": state, "epoch_times": epoch_times}
 
 
-def _split_results(evaluate, ds, indices, batch: int, dev) -> dict:
+def _split_results(evaluate, ds, indices, batch: int, dev,
+                   dp: Optional[DataParallel] = None) -> dict:
     """``evaluate(img, lab, weight)`` over ``indices`` of ``ds`` in padded
-    batches, read once: the accumulated averages."""
+    batches, read once: the accumulated averages; over the ranks of
+    ``dp``, each evaluates its rows of every batch and the sums are added
+    over them."""
+    dp = dp or DataParallel()
     batch_metrics = []
     for idx, weight in _padded_eval_batches(indices, batch):
-        img, lab = ds.gather(idx)
+        img, lab = ds.gather(dp.shard(idx))
         batch_metrics.append(evaluate(
-            img, lab, torch.from_numpy(weight).to(dev, non_blocking=True)))
+            img, lab, torch.from_numpy(dp.shard(weight)).to(
+                dev, non_blocking=True)))
     acc = MetricAccumulator()
-    acc.update(_summed(batch_metrics))  # the split's one read
+    acc.update(dp.sum_metrics(_summed(batch_metrics)))  # the one read
     return acc.averages()
 
 
+@exact_f32()
 def run_classifier(cfg: ClassifierConfig, *, max_epochs: Optional[int] = None,
                    log_fn=print, device: DeviceLike = None) -> dict:
     """Train the supervised classifier on the labeled split on ``device``
@@ -404,9 +454,14 @@ def run_classifier(cfg: ClassifierConfig, *, max_epochs: Optional[int] = None,
     ``device="cpu"``), logging under ``<dataset>-SSL-Classifier``. Returns
     ``{"history", "train_losses", "state", "epoch_times"}``: ``history``
     and ``train_losses`` as the JAX loop's, ``epoch_times`` each epoch's
-    ``train_s`` (up to the train losses' read) and ``eval_s``."""
+    ``train_s`` (up to the train losses' read) and ``eval_s``. Data
+    parallel as ``run_shot_vae``, with the batch, and the eval batch,
+    rounded up to a multiple of the number of ranks (the JAX loop's
+    ``pad_batch_size``)."""
     dev = resolve_device(device)
     refuse_unported(cfg)
+    dp = setup(cfg, dev)
+    log_fn = log_fn if dp.is_main else _quiet
     spec = cfg.apply_dataset_overrides()
     train_data, test_data, split = _datasets(cfg, spec)
     if len(split.labeled) == 0:
@@ -418,18 +473,22 @@ def run_classifier(cfg: ClassifierConfig, *, max_epochs: Optional[int] = None,
     test_ds = DeviceDataset(test_data, device=dev)
 
     model = build_classifier_model(cfg, spec, dev)
-    batch = min(cfg.batch_size, len(split.labeled))
+    batch = dp.pad_batch_size(min(cfg.batch_size, len(split.labeled)))
+    eval_batch = dp.pad_batch_size(cfg.batch_size)
     steps_per_epoch = max(1, num_batches(len(split.labeled), batch,
                                          drop_last=False))
     state = build_state(model, cfg, steps_per_epoch)
 
     log_dir = os.path.join(cfg.base_path, f"{spec.name}-SSL-Classifier",
                            "runs", f"train_time:{cfg.train_time}")
-    _prepare_writer_dir(log_dir, resume=False, assume_yes=cfg.yes,
-                        train_time=cfg.train_time)
-    writer = TBWriter(log_dir)
+    if dp.is_main:
+        _prepare_writer_dir(log_dir, resume=False, assume_yes=cfg.yes,
+                            train_time=cfg.train_time)
+    dp.barrier()
+    writer = TBWriter(log_dir, enabled=dp.is_main)
 
-    step = make_classifier_train_step(model, state.optimizer)
+    step = make_classifier_train_step(model, state.optimizer, dp=dp,
+                                      bn_per_replica=cfg.bn_per_replica)
     evaluate = make_classifier_eval_step(model, num_classes=spec.num_classes)
     labeled_iter = infinite_batches(np.random.default_rng(cfg.seed),
                                     split.labeled, batch)
@@ -439,10 +498,10 @@ def run_classifier(cfg: ClassifierConfig, *, max_epochs: Optional[int] = None,
         epoch_t0 = time.time()
         step_losses = []
         for i in range(steps_per_epoch):
-            img, lab = train_ds.gather(next(labeled_iter))
+            img, lab = train_ds.gather(dp.shard(next(labeled_iter)))
             step_losses.append(step(state, img, lab,
-                                    step_generator(cfg.seed, epoch, i))
-                               ["cls_loss"])
+                                    step_generators(cfg.seed, epoch, i,
+                                                    dp)[0])["cls_loss"])
         losses = AverageMeter()
         # the epoch's one read
         for v in torch.stack(step_losses).to(torch.float64).tolist():
@@ -455,7 +514,7 @@ def run_classifier(cfg: ClassifierConfig, *, max_epochs: Optional[int] = None,
         for name, indices, ds in (("Valid", split.valid, train_ds),
                                   ("Test", np.arange(len(test_data.labels)),
                                    test_ds)):
-            avg = _split_results(evaluate, ds, indices, cfg.batch_size, dev)
+            avg = _split_results(evaluate, ds, indices, eval_batch, dev, dp)
             out[name] = avg
             writer.scalar(f"{name}/cls_loss", avg["cls_loss_avg"], epoch + 1)
             writer.scalar(f"{name}/top 1 accuracy", avg["top1_rate"],
@@ -473,6 +532,7 @@ def run_classifier(cfg: ClassifierConfig, *, max_epochs: Optional[int] = None,
                             "eval_s": time.time() - epoch_t0 - train_s})
         writer.flush()
     writer.close()
+    dp.barrier()
     return {"history": history, "train_losses": train_losses,
             "state": state, "epoch_times": epoch_times}
 
@@ -543,6 +603,7 @@ def build_smooth_model(cfg: SmoothElboConfig, dataset: str,
         return SmoothVAE(**mcfg, device=device)
 
 
+@exact_f32()
 def run_smooth_elbo(cfg: SmoothElboConfig, dataset: str = "mnist", *,
                     max_epochs: Optional[int] = None, log_fn=print,
                     device: DeviceLike = None) -> dict:
@@ -556,6 +617,7 @@ def run_smooth_elbo(cfg: SmoothElboConfig, dataset: str = "mnist", *,
     ``history`` as the JAX loop's, ``epoch_times`` each epoch's ``train_s``
     (up to the train metrics' read) and ``eval_s``."""
     dev = resolve_device(device)
+    refuse_ranks("the smooth-ELBO trainer")
     if dataset not in ("mnist", "svhn"):
         raise ValueError(f"dataset {dataset!r}: 'mnist' or 'svhn'")
     train, test = _smooth_datasets(cfg, dataset, dev)

@@ -35,14 +35,17 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from shotvae_torch.data.pipeline import augment_batch, to_float
 from shotvae_torch.ops import losses, mixup
 from shotvae_torch.ops.sampling import device_generator, label_onehot
+from shotvae_torch.parallel.mesh import (BN_STATS_POLICIES, DataParallel,
+                                         global_mean, set_bn_group)
 from shotvae_torch.train.state import TrainState
 
 
@@ -73,22 +76,105 @@ def _noise(inject, device, eps_key: str, unif_key: Optional[str] = None):
     return out or None
 
 
+class _Ranks(NamedTuple):
+    """How a train step spans the ranks of ``dp`` (None: one process)."""
+
+    dp: Optional[DataParallel]
+    sync: bool                # sync-BN: global statistics and hinges
+    bn_stats: Optional[str]   # the per-replica running-statistics policy
+    global_mixup: bool        # mixup draws over the global batch
+
+
+def _ranks(model, dp: Optional[DataParallel], bn_per_replica: bool,
+           bn_stats: str, global_mixup: bool) -> _Ranks:
+    """Check a step's data-parallel arguments (those of the JAX steps:
+    ``axis_name`` is ``bn_per_replica`` here) and give ``model``'s BN sites
+    the group they pool over."""
+    if bn_stats not in BN_STATS_POLICIES:
+        raise ValueError(f"unknown bn_stats policy {bn_stats!r}")
+    if global_mixup and not bn_per_replica:
+        raise ValueError("global_mixup requires the per-replica-BN mode "
+                         "(bn_per_replica); the sync-BN batch is already "
+                         "global")
+    if dp is None or dp.group is None:
+        return _Ranks(None, False, None, False)
+    sync = not bn_per_replica
+    set_bn_group(model, dp.group if sync else None)
+    return _Ranks(dp, sync, None if sync else bn_stats,
+                  sync or global_mixup)
+
+
+# per-row draws of the SHOT-VAE and M2 steps, sliced to each rank's rows
+_ROW_KEYS = ("eps_1", "eps_2", "eps_3", "eps_4", "unif_2", "unif_3",
+             "unif_4", "aug_l", "aug_u", "aug")
+
+
+def _local_inject(inject, ranks: _Ranks) -> dict:
+    """A rank's view of the global ``inject``: each per-row draw's rows of
+    this rank; the mixup weights and partners as given where the mixup
+    spans the global batch; under a mixup within each rank's rows, each
+    rank's own partners in its rows of ``perm_*`` and its own weight in
+    ``lam_*`` (one value, or one per rank)."""
+    inj = dict(inject or {})
+    dp = ranks.dp
+    if dp is None or not inj:
+        return inj
+    for k in _ROW_KEYS:
+        if k in inj:
+            v = inj[k]
+            inj[k] = (tuple(dp.shard(a) for a in v)
+                      if isinstance(v, (tuple, list)) else dp.shard(v))
+    if not ranks.global_mixup:
+        for k in ("perm_sm", "perm_mx"):
+            if k in inj:
+                inj[k] = dp.shard(inj[k])
+        for k in ("lam_sm", "lam_mx"):
+            if k in inj and np.ndim(inj[k]) == 1:
+                inj[k] = inj[k][dp.rank]
+    return inj
+
+
+def _mixup(ranks: _Ranks, fn, arrays, generator, shared_generator, **kw):
+    """``fn`` (a mixup draw) on this rank's ``arrays``: over the global
+    batch of the ranks with the generator they share where the mixup is
+    global, else over the rank's rows with its own generator."""
+    if not ranks.global_mixup:
+        return fn(*arrays, generator=generator, **kw)
+    if shared_generator is None and (kw.get("lam") is None
+                                     or kw.get("index") is None):
+        raise ValueError("a mixup over the global batch of several ranks "
+                         "draws from shared_generator, a generator every "
+                         "rank seeds alike; none was given")
+    return mixup.gather_mixup(ranks.dp, fn, arrays,
+                              generator=shared_generator, **kw)
+
+
 def _elbo(x, recon, mean, log_sigma, log_alpha, sched, *, num_classes: int,
-          bce: bool, x_sigma: float):
+          bce: bool, x_sigma: float, dp: Optional[DataParallel] = None):
     """recon + beta_c |KL_c - cmi| + beta_d |KL_d - dmi|, and its three
-    terms."""
-    terms = losses.elbo_terms(x, recon, mean, log_sigma, log_alpha,
-                              num_classes=num_classes, bce=bce,
-                              x_sigma=x_sigma)
-    r, ckl, dkl = terms
+    terms. With ``dp`` (sync-BN over its ranks) the KL batch means in the
+    hinges are the global batch's, as the JAX package's GSPMD step takes
+    them."""
+    r, ckl, dkl = losses.elbo_terms(x, recon, mean, log_sigma, log_alpha,
+                                    num_classes=num_classes, bce=bce,
+                                    x_sigma=x_sigma)
+    ckl, dkl = global_mean(ckl, dp), global_mean(dkl, dp)
     return (r + sched["kl_beta_c"] * losses.mi_hinge(ckl, sched["cmi"])
-            + sched["kl_beta_d"] * losses.mi_hinge(dkl, sched["dmi"])), terms
+            + sched["kl_beta_d"] * losses.mi_hinge(dkl, sched["dmi"])), \
+        (r, ckl, dkl)
 
 
-def _update(state: TrainState, loss) -> None:
-    """One backward of ``loss`` and one SGD update of ``state``."""
+def _update(state: TrainState, loss, ranks: Optional[_Ranks] = None) -> None:
+    """One backward of ``loss`` and one SGD update of ``state``; over
+    several ranks, the gradients averaged over them between the two, and
+    in the per-replica mode the running statistics resolved by its
+    policy (the JAX step's ``_cross_replica``)."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if ranks is not None and ranks.dp is not None:
+        ranks.dp.mean_gradients(state.model.parameters())
+        if ranks.bn_stats is not None:
+            ranks.dp.sync_running_stats(state.model, ranks.bn_stats)
     state.apply_gradients()
 
 
@@ -98,14 +184,15 @@ def _check_state(state: TrainState, model, optimizer) -> None:
                          "step was made for")
 
 
-def _vae_train_step(model, optimizer, loss_fn, aug: bool):
+def _vae_train_step(model, optimizer, loss_fn, aug: bool, ranks: _Ranks):
     """The two-stream step around ``loss_fn(x_l, lab_l, x_u, lab_u, sched,
-    generator, inject) -> (total, metrics)``."""
+    generator, inject, shared_generator) -> (total, metrics)``."""
 
     def step(state: TrainState, img_l, lab_l, img_u, lab_u, sched,
-             generator: Optional[torch.Generator] = None, inject=None):
+             generator: Optional[torch.Generator] = None, inject=None,
+             shared_generator: Optional[torch.Generator] = None):
         _check_state(state, model, optimizer)
-        inj = inject or {}
+        inj = _local_inject(inject, ranks)
         dev = _device(model)
         model.train()
         x_l = _prepare(img_l, dev, augment=aug, generator=generator,
@@ -115,9 +202,10 @@ def _vae_train_step(model, optimizer, loss_fn, aug: bool):
         lab_l = torch.as_tensor(lab_l).to(dev).long()
         lab_u = torch.as_tensor(lab_u).to(dev).long()
         total, metrics = loss_fn(x_l, lab_l, x_u, lab_u, sched, generator,
-                                 inj)
-        _update(state, total)
-        return {k: v.detach() for k, v in metrics.items()}
+                                 inj, shared_generator)
+        _update(state, total, ranks)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return ranks.dp.mean_metrics(metrics) if ranks.dp else metrics
 
     return step
 
@@ -129,9 +217,13 @@ def _cont_posterior(mean, log_sigma, target: mixup.MixupBatch, batch: int):
 
 def make_shot_vae_train_step(model, optimizer, *, num_classes: int, bce: bool,
                              x_sigma: float, epsilon: float,
-                             optimal_match: bool, aug: bool = True):
+                             optimal_match: bool, aug: bool = True,
+                             dp: Optional[DataParallel] = None,
+                             bn_per_replica: bool = False,
+                             bn_stats: str = "replica0",
+                             global_mixup: bool = False):
     """The SHOT-VAE step: ``step(state, img_l, lab_l, img_u, lab_u, sched,
-    generator, inject=None) -> metrics``.
+    generator, inject=None, shared_generator=None) -> metrics``.
 
     ``state`` is the ``TrainState`` of this ``model`` and ``optimizer``;
     the step puts the model in train mode, updates its parameters and BN
@@ -141,11 +233,27 @@ def make_shot_vae_train_step(model, optimizer, *, num_classes: int, bce: bool,
     ``ops.schedules.shot_vae_epoch_schedules``. Returns the JAX step's
     metrics as 0-d tensors on the model's device. ``aug=False`` turns the
     crops and flips off.
-    """
-    elbo = functools.partial(_elbo, num_classes=num_classes, bce=bce,
-                             x_sigma=x_sigma)
 
-    def loss_fn(x_l, lab_l, x_u, lab_u, sched, generator, inj):
+    ``dp``: the ranks of a data-parallel run (``parallel.DataParallel``),
+    each calling the step on its rows of the global batch (the JAX step
+    under ``DataParallel.jit_step``). By default sync-BN: the model's BN
+    sites pool over the global batch, the hinges take the global KL means,
+    and both interpolations draw over the global batch from
+    ``shared_generator``, which every rank seeds alike (the optimal match
+    included). ``bn_per_replica`` (the JAX step's ``axis_name``, under
+    ``shard_map_step``): each rank's own statistics and mixup, the running
+    statistics by ``bn_stats`` (``"replica0"`` or ``"mean"``), and with
+    ``global_mixup`` the interpolations over the global batch. Either way
+    the gradients and metrics are the mean over the ranks. ``generator``
+    is the rank's own (crops, flips, latent draws) and ``inject`` holds
+    the global batch's draws (``_local_inject``).
+    """
+    ranks = _ranks(model, dp, bn_per_replica, bn_stats, global_mixup)
+    elbo = functools.partial(_elbo, num_classes=num_classes, bce=bce,
+                             x_sigma=x_sigma,
+                             dp=ranks.dp if ranks.sync else None)
+
+    def loss_fn(x_l, lab_l, x_u, lab_u, sched, generator, inj, shared):
         dev = x_l.device
         batch_l, batch_u = x_l.shape[0], x_u.shape[0]
         onehot_l = label_onehot(lab_l, num_classes)
@@ -158,10 +266,10 @@ def make_shot_vae_train_step(model, optimizer, *, num_classes: int, bce: bool,
                                            sched)
 
         # labeled forward 2: the label-smoothing interpolation
-        sm = mixup.label_smoothing(
-            x_l, mean_l.detach(), ls_l.detach(), la_l.detach(), lab_l,
-            epsilon=epsilon, lam=inj.get("lam_sm"), index=inj.get("perm_sm"),
-            generator=generator)
+        sm = _mixup(ranks, mixup.label_smoothing,
+                    (x_l, mean_l.detach(), ls_l.detach(), la_l.detach(),
+                     lab_l), generator, shared, epsilon=epsilon,
+                    lam=inj.get("lam_sm"), index=inj.get("perm_sm"))
         _, mean_sm, ls_sm, la_sm = model(
             sm.image, labels=lab_l, mixup=True,
             labels_mixup=sm.partner_labels, mixup_lam=sm.lam,
@@ -183,10 +291,10 @@ def make_shot_vae_train_step(model, optimizer, *, num_classes: int, bce: bool,
                                                   num_classes)
 
         # unlabeled forward 4: the posterior mixup
-        mx = mixup.mixup_vae_data(
-            x_u, mean_u.detach(), ls_u.detach(), la_u.detach(),
-            optimal_match=optimal_match, lam=inj.get("lam_mx"),
-            index=inj.get("perm_mx"), generator=generator)
+        mx = _mixup(ranks, mixup.mixup_vae_data,
+                    (x_u, mean_u.detach(), ls_u.detach(), la_u.detach()),
+                    generator, shared, optimal_match=optimal_match,
+                    lam=inj.get("lam_mx"), index=inj.get("perm_mx"))
         _, mean_mx, ls_mx, la_mx = model(
             mx.image, noise=_noise(inj, dev, "eps_4", "unif_4"),
             generator=generator)
@@ -206,20 +314,27 @@ def make_shot_vae_train_step(model, optimizer, *, num_classes: int, bce: bool,
         }
         return total, metrics
 
-    return _vae_train_step(model, optimizer, loss_fn, aug)
+    return _vae_train_step(model, optimizer, loss_fn, aug, ranks)
 
 
 def make_m2_train_step(model, optimizer, *, num_classes: int, bce: bool,
-                       x_sigma: float, aug: bool = True):
+                       x_sigma: float, aug: bool = True,
+                       dp: Optional[DataParallel] = None,
+                       bn_per_replica: bool = False,
+                       bn_stats: str = "replica0"):
     """The M2 step, with ``make_shot_vae_train_step``'s signature and
     metrics: ``elbo = recon + beta_c |KL_c - cmi| + beta_d |KL_d - dmi|`` on
     each stream, ``loss_supervised = ew * elbo_l + NLL(q(y|x_l), y_l)`` and
     ``loss_unsupervised = ew * elbo_u``; ``sched`` needs ``ew``,
-    ``kl_beta_c``, ``kl_beta_d``, ``cmi`` and ``dmi``."""
+    ``kl_beta_c``, ``kl_beta_d``, ``cmi`` and ``dmi``. ``dp``,
+    ``bn_per_replica`` and ``bn_stats`` as the SHOT-VAE step's (M2 has no
+    mixup)."""
+    ranks = _ranks(model, dp, bn_per_replica, bn_stats, False)
     elbo = functools.partial(_elbo, num_classes=num_classes, bce=bce,
-                             x_sigma=x_sigma)
+                             x_sigma=x_sigma,
+                             dp=ranks.dp if ranks.sync else None)
 
-    def loss_fn(x_l, lab_l, x_u, lab_u, sched, generator, inj):
+    def loss_fn(x_l, lab_l, x_u, lab_u, sched, generator, inj, shared):
         dev = x_l.device
         # labeled: the one-hots of the labels replace the discrete draw
         recon_l, mean_l, ls_l, la_l = model(
@@ -251,7 +366,7 @@ def make_m2_train_step(model, optimizer, *, num_classes: int, bce: bool,
         }
         return total, metrics
 
-    return _vae_train_step(model, optimizer, loss_fn, aug)
+    return _vae_train_step(model, optimizer, loss_fn, aug, ranks)
 
 
 def make_vae_eval_step(model, *, num_classes: int, bce: bool, x_sigma: float):
@@ -313,25 +428,32 @@ def softmax_ce(logits, labels):
     return F.cross_entropy(logits.to(torch.float32), labels)
 
 
-def make_classifier_train_step(model, optimizer, *, aug: bool = True):
+def make_classifier_train_step(model, optimizer, *, aug: bool = True,
+                               dp: Optional[DataParallel] = None,
+                               bn_per_replica: bool = False,
+                               bn_stats: str = "replica0"):
     """The classifier step: ``step(state, img, lab, generator=None,
     inject=None) -> {"cls_loss"}``, one forward of the augmented labeled
     images, the cross entropy, one backward and one SGD update of
     ``state``; ``generator`` draws the crops and flips and the dropout
-    masks, ``inject`` replays the crops and flips under ``aug``."""
+    masks, ``inject`` replays the crops and flips under ``aug``. ``dp``,
+    ``bn_per_replica`` and ``bn_stats`` as the SHOT-VAE step's: each rank
+    passes its rows, ``inject`` holds the global batch's."""
+    ranks = _ranks(model, dp, bn_per_replica, bn_stats, False)
 
     def step(state: TrainState, img, lab,
              generator: Optional[torch.Generator] = None, inject=None):
         _check_state(state, model, optimizer)
-        inj = inject or {}
+        inj = _local_inject(inject, ranks)
         dev = _device(model)
         model.train()
         x = _prepare(img, dev, augment=aug, generator=generator,
                      offsets=inj.get("aug"))
         loss = softmax_ce(model(x, generator=generator),
                           torch.as_tensor(lab).to(dev).long())
-        _update(state, loss)
-        return {"cls_loss": loss.detach()}
+        _update(state, loss, ranks)
+        metrics = {"cls_loss": loss.detach()}
+        return ranks.dp.mean_metrics(metrics) if ranks.dp else metrics
 
     return step
 

@@ -3,7 +3,8 @@ same config, flag for flag (through each command's ``main`` for the M2,
 classifier and smooth-ELBO commands, the classifier's own defaults and
 SVHN's plateau included); one epoch runs through each ``main`` on the
 CPU; the flags of parts not ported yet
-parse, then raise, naming their ROADMAP.md item; every encoder family and
+parse, then raise, naming their ROADMAP.md item, and the data-parallel flags
+raise where the launch does not fit them; every encoder family and
 ``--efficient`` reach the trainer, an encoder name the JAX dispatch does
 not know raises, and so does any but a WideResNet for the classifier; a
 split too small for the batch raises."""
@@ -96,16 +97,26 @@ def test_one_cli_epoch_on_cifar100(tmp_path):
     assert {"Valid/top 5 accuracy", "Test/top 5 accuracy"} <= set(scalars)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--multihost"], "item 11"), (["--bn-per-replica"], "item 11"),
-    (["--global-mixup"], "item 11"), (["--num-devices", "2"], "item 11"),
-    (["--steps-per-call", "4"], "item 13a")])
-def test_unported_flags_raise(flags, item, tmp_path):
+# the data-parallel flags (ROADMAP.md queue 1 item 11) are ported: without
+# a launcher they raise where the run cannot be what they ask
+_DP_MISFITS = [
+    (["--multihost"], ValueError, "launch over several hosts"),
+    (["--bn-per-replica", "--num-devices", "2"], ValueError,
+     "torchrun --nproc-per-node N"),
+    (["--global-mixup"], ValueError, "requires --bn-per-replica"),
+    (["--num-devices", "2"], ValueError, "torchrun --nproc-per-node N")]
+
+
+@pytest.mark.parametrize("flags,error,match", [
+    *[pytest.param(*case, id=f"flags{i}-item 11")
+      for i, case in enumerate(_DP_MISFITS)],
+    pytest.param(["--steps-per-call", "4"], NotImplementedError, "item 13a",
+                 id="flags4-item 13a")])
+def test_unported_flags_raise(flags, error, match, tmp_path):
     argv = _small_argv(str(tmp_path))
-    if "--net-name" in flags:
-        argv = argv[2:]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         main([*argv, *flags], device="cpu")
+    assert not os.listdir(tmp_path)
 
 
 @pytest.mark.parametrize("cli", ["shot", "m2"])
@@ -214,14 +225,14 @@ def test_one_classifier_cli_epoch(tmp_path):
 
 
 @pytest.mark.parametrize("cli", list(NEW_CLIS))
-@pytest.mark.parametrize("flags,item", [
-    (["--multihost"], "item 11"), (["--bn-per-replica"], "item 11"),
-    (["--steps-per-call", "4"], "item 13a")])
-def test_new_clis_refuse_unported_flags(cli, flags, item, tmp_path):
+@pytest.mark.parametrize("flags,error,match", [
+    pytest.param(*_DP_MISFITS[0], id="flags0-item 11"),
+    pytest.param(*_DP_MISFITS[1], id="flags1-item 11"),
+    pytest.param(["--steps-per-call", "4"], NotImplementedError, "item 13a",
+                 id="flags2-item 13a")])
+def test_new_clis_refuse_unported_flags(cli, flags, error, match, tmp_path):
     argv = _small_argv(str(tmp_path))
-    if "--net-name" in flags:
-        argv = argv[2:]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         NEW_CLIS[cli][0].main([*argv, *flags], device="cpu")
     assert not os.listdir(tmp_path)
 
