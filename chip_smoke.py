@@ -164,9 +164,28 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    0's checkpoint restored on each equal to its final state bit for bit,
    and files written by rank 0 only. A rank that fails or outlasts
    DP_TIMEOUT_S fails the phase.
+14. The fused two-stream SHOT-VAE step (``fused_streams``; run after phase
+   13): the headline configuration at 768 + 768 in f32 and in bf16, two
+   forwards of 1,536 rows a step, every kernel's launches over 3 steps
+   (``EXPECTED_FUSED_TRAIN_LAUNCHES``: 66 / 66 / 61 / 61 ``bn_leaky``
+   and 44 fused conv a step) and the model's forwards counted; its
+   median and range of 10 steps and the four-forward step's, in turns in
+   this process, the idle share of one profiled step of each and their
+   peak memory; one fused step on the card against the CPU at 16 + 16
+   with every draw injected, in f32 (phase 5's tolerances) and in bf16
+   (phase 6's, calibrated on the fused step over BF16_CALIBRATION_DRAWS
+   inputs). The bf16 fused step through an NCCL group of one rank
+   against the bare fused step (phase 13's check). A WRN-28-2 checkpoint
+   in the reference's layout, ``.module`` at each ``nn.DataParallel``
+   position (``REFERENCE_WRAPPED_AT``), saved as ``{"epoch", "args",
+   "state_dict"}`` and served by ``from_checkpoint``: ``classify`` and
+   ``encode`` at 768 equal the plain-key checkpoint's bit for bit; a
+   wrapped MLP classifier and smooth VAE state_dict strict-loaded
+   (``io.reference.load_reference_state_dict``).
 10. Print the ``kernels`` JSON line (each kernel's launches on every path,
-   the M2, classifier and encoder paths included), then the result line
-   ``{"ok": true, "device": {...}}`` as the last line.
+   the M2, classifier, encoder, data-parallel and fused paths included),
+   then the result line ``{"ok": true, "device": {...}}`` as the last
+   line.
 
 Exits with an error, printing no result, where torch sees no card or where
 the script stands without the rest of the repository.
@@ -288,6 +307,16 @@ EXPECTED_EVAL_LAUNCHES = {"fused_bn_act_conv": 22, "bn_act_inference": 11,
                           "fused_joint_sample": 1, "bn_stats": 0,
                           "bn_apply": 0, "bn_bwd_reduce": 0,
                           "bn_bwd_apply": 0}
+# kernel launches per fused two-stream train step (``fused_streams``) at
+# WRN-28-2: two forwards of 2B rows; the fused conv at the 22 fused sites of
+# each, statistics and apply at all 33 sites of each; the two backward
+# kernels 28 * 2 + 5 = 61 times (forward B's reconstruction enters no
+# loss, so the decoder's 5 sites get a gradient in forward A only)
+EXPECTED_FUSED_TRAIN_LAUNCHES = {"fused_bn_act_conv": 44,
+                                 "bn_act_inference": 0,
+                                 "fused_joint_sample": 0, "bn_stats": 66,
+                                 "bn_apply": 66, "bn_bwd_reduce": 61,
+                                 "bn_bwd_apply": 61}
 # kernel launches per M2 train step at WRN-28-2: two forwards (the labeled
 # one with its labels' one-hots, the unlabeled one with the draw), both
 # reconstructions in the loss, so all 33 BN sites of each get a gradient
@@ -324,6 +353,7 @@ CLS_LOOP_STEPS = 6
 CLS_LOOP_EVAL_FORWARDS = 24
 # per path: the launches of one train step and of one eval forward
 PATHS = {"shot": (EXPECTED_TRAIN_LAUNCHES, EXPECTED_EVAL_LAUNCHES),
+         "fused": (EXPECTED_FUSED_TRAIN_LAUNCHES, EXPECTED_EVAL_LAUNCHES),
          "m2": (EXPECTED_M2_TRAIN_LAUNCHES, EXPECTED_EVAL_LAUNCHES),
          "classifier": (EXPECTED_CLS_TRAIN_LAUNCHES,
                         EXPECTED_CLS_EVAL_LAUNCHES)}
@@ -1124,13 +1154,14 @@ def _sgd_state(model, cfg, steps_per_epoch: int):
                                                steps_per_epoch))
 
 
-def trainer(model, m2: bool = False, **ranks):
+def trainer(model, m2: bool = False, **step_kw):
     """The headline configuration's train step over ``model`` (CIFAR-10,
     or CIFAR-100 for a model of 100 classes, ``--br --om``, SGD with the
     multistep LR at 45,000 train images per epoch, the epoch-0 loss
     weights); with ``m2`` the M2 baseline's step (no mixup, M2's cmi);
-    ``ranks``: the step's data-parallel arguments (``dp``,
-    ``bn_per_replica``, ``bn_stats``)."""
+    ``step_kw``: the step's data-parallel arguments (``dp``,
+    ``bn_per_replica``, ``bn_stats``) and, for the SHOT-VAE step,
+    ``fused_streams``."""
     from shotvae_torch.config import ShotVaeConfig
     from shotvae_torch.ops.schedules import shot_vae_epoch_schedules
     from shotvae_torch.train.steps import (make_m2_train_step,
@@ -1142,7 +1173,7 @@ def trainer(model, m2: bool = False, **ranks):
     state = _sgd_state(model, cfg, (50000 - spec.valid_per_class
                                     * spec.num_classes) // cfg.batch_size)
     kw = dict(num_classes=spec.num_classes, bce=cfg.br, x_sigma=cfg.x_sigma,
-              **ranks)
+              **step_kw)
     step = (make_m2_train_step(model, state.optimizer, **kw) if m2 else
             make_shot_vae_train_step(model, state.optimizer,
                                      epsilon=cfg.epsilon,
@@ -1153,6 +1184,12 @@ def trainer(model, m2: bool = False, **ranks):
 def m2_trainer(model):
     """The M2 baseline's train step over ``model`` (``trainer``'s)."""
     return trainer(model, m2=True)
+
+
+def fused_trainer(model):
+    """The fused two-stream SHOT-VAE step over ``model`` (``trainer``'s
+    with ``fused_streams``)."""
+    return trainer(model, fused_streams=True)
 
 
 def classifier_trainer(model):
@@ -1168,7 +1205,7 @@ def classifier_trainer(model):
 
 def _trainer(kind: str):
     """The step factory of a path, looked up when called."""
-    return {"shot": trainer, "m2": m2_trainer,
+    return {"shot": trainer, "fused": fused_trainer, "m2": m2_trainer,
             "classifier": classifier_trainer}[kind]
 
 
@@ -1212,13 +1249,14 @@ def step_inputs(batch: int, kind: str = "shot", draw: int = 0,
     """Seeded uint8 images and labels of both streams (the classifier: the
     labeled one), and every draw of one train step of the path ``kind`` at
     ``batch`` (+ ``batch``) (the ``inject`` dict) over ``classes``
-    classes; ``draw`` above 0 seeds other ones."""
+    classes; ``draw`` above 0 seeds other ones. The fused step takes the
+    SHOT-VAE step's draws."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng([SEED + 10, draw] if draw else SEED + 10)
     t = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
-    if kind == "shot":
+    if kind in ("shot", "fused"):
         inject = {f"eps_{i}": t(rng.standard_normal((batch, 128), np.float32))
                   for i in range(1, 5)}
         inject.update({f"unif_{i}": t(rng.random((batch, classes),
@@ -2487,7 +2525,7 @@ DP_BN_STATS = "replica0"
 def dp_train_once(model, inputs, dp=None, **ranks):
     """One headline SHOT-VAE step of ``model`` on ``step_inputs``, each
     rank of ``dp`` on its rows (None: one process on all of them), with
-    the step's data-parallel ``ranks`` arguments; the mixup draws every
+    the step's ``ranks`` arguments (``trainer``'s); the mixup draws every
     rank shares come from one seed. Returns the metrics, each parameter's
     gradient (after the mean over the ranks) and the state after it, on
     the host."""
@@ -2661,13 +2699,14 @@ def dp_rank(rank: int, world: int, folder: str) -> None:
     torch.save(out, os.path.join(folder, f"rank{rank}.pt"))
 
 
-def dp_world1_phase(dev, batch: int) -> dict:
+def dp_world1_phase(dev, batch: int, fused_streams: bool = False) -> dict:
     """The group path at world size 1 in this process (NCCL on the card,
     gloo on the CPU): the bf16 sync-BN step with every collective issued,
     its launches counted, against today's step (no group) on the same
     inputs and draws, at the calibrated bf16 bound of the two steps'
     f32 counterparts; on the card each step's median of 10 twice, in
-    turns."""
+    turns. With ``fused_streams`` the fused two-stream step, held against
+    the bare fused step, untimed (phase 14)."""
     import datetime
 
     import torch
@@ -2681,6 +2720,9 @@ def dp_world1_phase(dev, batch: int) -> dict:
     backend = "nccl" if cuda else "gloo"
     counters = kernel_counters()
     inputs = step_inputs(batch)
+    step_kw = {"fused_streams": True} if fused_streams else {}
+    expected = (EXPECTED_FUSED_TRAIN_LAUNCHES if fused_streams
+                else EXPECTED_TRAIN_LAUNCHES)
     dist.init_process_group(
         backend, init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
         rank=0, timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
@@ -2690,16 +2732,18 @@ def dp_world1_phase(dev, batch: int) -> dict:
             model = random_model(dev.type, torch.bfloat16)
             before = {n: p.detach().clone()
                       for n, p in model.named_parameters()}
-            got = dp_train_once(model, inputs, DataParallel(dist.group.WORLD))
+            got = dp_train_once(model, inputs, DataParallel(dist.group.WORLD),
+                                **step_kw)
             _sync(dev)
             launches = check_counts(
                 counters, torch.bfloat16, {k: n if cuda else 0 for k, n in
-                                           EXPECTED_TRAIN_LAUNCHES.items()},
+                                           expected.items()},
                 f"the world-1 {backend} step")
-            want, f32 = [dp_train_once(random_model(dev.type, dtype), inputs)
+            want, f32 = [dp_train_once(random_model(dev.type, dtype), inputs,
+                                       **step_kw)
                          for dtype in (torch.bfloat16, None)]
             timing = {}
-            if cuda:  # the step through the group and without, in turns
+            if cuda and not fused_streams:  # with the group and without
                 runs = {}
                 for name, dp in (("group", DataParallel(dist.group.WORLD)),
                                  ("no_group", None)):
@@ -2836,6 +2880,231 @@ def dp_phases(dev) -> dict:
               + json.dumps(value))
     print(f"dp phase {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------- phase 14
+
+FUSED_ROUNDS = 2  # rounds of the fused and the four-forward step, in turns
+# the reference's nn.DataParallel positions (SURVEY.md section 2.6: each
+# submodule; the MLP's encoder and classifier always): a .module after
+# each match; the smooth VAE's, which the reference does not wrap, per
+# top-level child
+REFERENCE_WRAPPED_AT = {
+    "vae": r"^(feature_extractor\.encoder\.[^.]+|continuous_inference\.[^.]+"
+           r"|disc_latent_inference|feature_reconstructor)\.",
+    "mlp": r"^(encoder|classifier)\.",
+    "smooth": r"^([^.]+)\.",
+}
+
+
+def reference_wrapped_keys(keys, kind: str) -> list:
+    """The key set of the reference's DataParallel model of ``kind``
+    (``"vae"``, ``"mlp"`` or ``"smooth"``) from its plain ``keys``."""
+    return [re.sub(REFERENCE_WRAPPED_AT[kind], r"\1.module.", k, count=1)
+            for k in keys]
+
+
+def fused_step_phase(dev, batch: int, dtype=None,
+                     steps: int = TRAIN_STEPS) -> dict:
+    """The fused two-stream SHOT-VAE step (``fused_streams``) of the
+    headline configuration at ``batch`` + ``batch`` with the trunk in
+    ``dtype``: ``steps`` steps with every kernel's launches and the
+    model's forwards (two of 2 x ``batch`` rows a step) counted and the
+    metrics finite; on the card, the fused and the four-forward step's
+    median and range of 10 after 2, in turns (fused, four, then four,
+    fused: FUSED_ROUNDS rounds) in this process, one profiled step of each
+    and the peak memory of one step of each; then one fused step against
+    the CPU at 16 + 16 with every draw injected: in f32 (metrics and state
+    at TOL_STEP, gradients by phase 5's rule), in bf16 at the calibrated
+    bound of the CPU's own fused bf16-vs-f32 distance."""
+    import torch
+
+    counters = kernel_counters()
+    cuda = dev.type == "cuda"
+    g = torch.Generator().manual_seed(SEED + 9)
+    data = [torch.randint(0, 256, (batch, 32, 32, 3), generator=g,
+                          dtype=torch.uint8).to(dev),
+            (torch.arange(batch) % 10).to(dev),
+            torch.randint(0, 256, (batch, 32, 32, 3), generator=g,
+                          dtype=torch.uint8).to(dev),
+            torch.randint(0, 10, (batch,), generator=g).to(dev)]
+    runs, forwards = {}, []
+    for kind in ("fused", "shot"):
+        model = random_model(dev.type, dtype)
+        state, step, sched = _trainer(kind)(model)
+        if kind == "fused":
+            hook = model.register_forward_pre_hook(
+                lambda module, args: forwards.append(int(args[0].shape[0])))
+        runs[kind] = functools.partial(step, state, *data, sched, g)
+        runs[kind]()  # compiles every kernel variant the step needs
+    _sync(dev)
+    forwards.clear()
+    zero_counts(counters)
+    metrics = [runs["fused"]() for _ in range(steps)]
+    _sync(dev)
+    hook.remove()
+    launches = check_counts(
+        counters, dtype, {name: n * steps if cuda else 0 for name, n in
+                          EXPECTED_FUSED_TRAIN_LAUNCHES.items()},
+        "fused train steps")
+    check(forwards == [2 * batch] * (2 * steps),
+          f"{steps} fused steps ran forwards of {forwards} rows; expected "
+          f"two of {2 * batch} a step")
+    for m in metrics:
+        check(all(bool(torch.isfinite(v)) for v in m.values()),
+              f"non-finite fused train metrics {m}")
+    out = dict(launches=launches, forward_rows=forwards[:2],
+               last_metrics={k: float(v) for k, v in metrics[-1].items()})
+    if cuda:
+        peak = {}
+        for kind in ("fused", "shot"):
+            torch.cuda.reset_peak_memory_stats(dev)
+            runs[kind]()
+            _sync(dev)
+            peak[kind] = torch.cuda.max_memory_allocated(dev) / 1e9
+        timing = {"fused": [], "shot": []}
+        for r in range(FUSED_ROUNDS):
+            for kind in ("fused", "shot")[::1 if r % 2 == 0 else -1]:
+                timing[kind].append(step_times(dev, runs[kind], batch, ""))
+        out.update(peak_memory_gb=peak, timing=timing,
+                   profile={kind: device_breakdown(runs[kind], top=12)
+                            for kind in ("fused", "shot")})
+    n = min(COMPARE_BATCH, batch)
+    if dtype is None:
+        out["vs_cpu"] = dict(zip(VS_CPU_KEYS,
+                                 compare_train_step(dev, n, "fused")))
+    else:
+        out["vs_cpu_bf16"] = compare_train_step_bf16(
+            dev, n, "fused", BF16_CALIBRATION_DRAWS)
+    return out
+
+
+def reference_ckpt_phase(dev, batch: int, folder: str) -> dict:
+    """A reference-layout checkpoint: the headline WRN-28-2 SHOT-VAE's
+    state_dict with the reference's DataParallel wrappers, saved as the
+    reference's ``{"epoch", "args", "state_dict"}`` payload under
+    ``folder``, served on ``dev`` through ``from_checkpoint`` (under
+    PyTorch's default float32 settings: the endpoints pin exact float32):
+    ``classify`` and ``encode`` on ``batch`` images equal the plain-key
+    payload's bit for bit, with their launches checked; then a wrapped MLP
+    classifier and a wrapped smooth VAE (MNIST) state_dict strict-loaded
+    on ``dev`` by ``load_reference_state_dict``, equal to their source's
+    weights and forwards bit for bit."""
+    import torch
+
+    from shotvae_torch.api import ShotVaeInference
+    from shotvae_torch.io.reference import (load_reference_state_dict,
+                                            reference_state_dict)
+    from shotvae_torch.models.classifier import MLPClassifier
+    from shotvae_torch.models.smooth_vae import SmoothVAE, mnist_vae_config
+
+    cuda = dev.type == "cuda"
+    counters = kernel_counters()
+    model = random_model("cpu")
+    plain = reference_state_dict(model)
+    wrapped = reference_state_dict(model,
+                                   reference_wrapped_keys(plain, "vae"))
+    served = {}
+    for name, sd in (("plain", plain), ("wrapped", wrapped)):
+        path = os.path.join(folder, f"{name}.pth.tar")
+        torch.save({"epoch": 1, "args": {"net_name": WRN["net"]},
+                    "state_dict": sd}, path)
+        served[name] = ShotVaeInference.from_checkpoint(path, device=dev)
+    g = torch.Generator().manual_seed(SEED + 4)
+    images = torch.randint(0, 256, (batch, 32, 32, 3), generator=g,
+                           dtype=torch.uint8)
+    out = {"wrapped_keys": sum(".module." in k for k in wrapped),
+           "keys": len(wrapped), "launches": {}}
+    for endpoint in ("classify", "encode"):
+        fused, bn_act, sample = EXPECTED_LAUNCHES[endpoint]
+        expected = dict.fromkeys(EXPECTED_TRAIN_LAUNCHES, 0)
+        expected.update(fused_bn_act_conv=fused, bn_act_inference=bn_act,
+                        fused_joint_sample=sample)
+        res = {}
+        for name, server in served.items():
+            zero_counts(counters)
+            res[name] = getattr(server, endpoint)(images)
+            _sync(dev)
+            launches = check_counts(
+                counters, torch.float32, {k: n if cuda else 0 for k, n in
+                                          expected.items()},
+                f"{endpoint} of the {name} checkpoint")
+            for k, n in launches.items():
+                out["launches"][k] = out["launches"].get(k, 0) + n
+        a, b = (r if isinstance(r, tuple) else (r,) for r in res.values())
+        check(all(torch.equal(x, y) for x, y in zip(a, b, strict=True)),
+              f"{endpoint} of the wrapped checkpoint differs from the "
+              f"plain one's")
+    for kind, make, shape in (
+            ("mlp", lambda: MLPClassifier(device=dev), (4, 3, 32, 32)),
+            ("smooth", lambda: SmoothVAE(**mnist_vae_config(), device=dev),
+             (4, 1, 32, 32))):
+        torch.manual_seed(SEED)
+        source = make().eval()
+        sd = source.state_dict()
+        model = load_reference_state_dict(
+            make().eval(), reference_state_dict(
+                source, reference_wrapped_keys(sd, kind)))
+        check(all(torch.equal(v, model.state_dict()[k])
+                  for k, v in sd.items()),
+              f"the wrapped {kind} state_dict loaded other weights")
+        # cuDNN deterministic: a ConvTranspose may take an algorithm that
+        # sums with atomics, which no two calls need agree on bit for bit
+        x = torch.rand(shape, generator=g).to(dev)
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            with torch.no_grad():
+                want, got = source(x), model(x)
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        want, got = (o if isinstance(o, tuple) else (o,)
+                     for o in (want, got))
+        check(torch.equal(got[0], want[0]),
+              f"the wrapped {kind} model's forward differs from its "
+              f"source's")
+        out[f"{kind}_keys"] = len(sd)
+    return out
+
+
+def fused_phases(dev, batch: int, folder: str) -> dict:
+    """Phase 14: the fused two-stream step at ``batch`` + ``batch`` in f32
+    and bf16 (``fused_step_phase``), through an NCCL group of one rank
+    (``dp_world1_phase``), and a reference-layout checkpoint served and
+    loaded (``reference_ckpt_phase``, its files under ``folder``); each
+    part's lines printed as it ends."""
+    import torch
+
+    from shotvae_torch.device import exact_f32
+
+    out = {}
+    for tag, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        t0 = time.perf_counter()
+        with exact_f32():  # the bare steps, held as the entry points
+            out[tag] = fused_step_phase(dev, batch, dtype)
+        for key, value in out[tag].items():
+            n = (min(COMPARE_BATCH, batch) if key.startswith("vs_cpu")
+                 else batch)
+            print(f"fused_train_{tag}_{key}_at_batch_{n}+{n} "
+                  + json.dumps(value))
+        print(f"fused {tag} phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["world1"] = dp_world1_phase(dev, batch, fused_streams=True)
+    print(f"fused_dp_world1_{out['world1']['backend']}_bf16_step_at_batch_"
+          f"{batch}+{batch} " + json.dumps(out["world1"]))
+    out["reference"] = reference_ckpt_phase(dev, batch, folder)
+    print(f"reference_ckpt_serve_at_batch_{batch} "
+          + json.dumps(out["reference"]))
+    print(f"fused world-1 and reference phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def fused_paths(fused: dict) -> dict:
+    """{path: the bf16 launches of each kernel}: phase 14's fused steps,
+    bare and through the group of one rank."""
+    return {"fused_train_bf16": fused["bf16"]["launches"],
+            "fused_dp_world1_bf16": fused["world1"]["launches"]}
 
 
 # -------------------------------------------------------------------- main
@@ -3208,6 +3477,14 @@ def main() -> int:
     encoders = encoder_phases(dev, BATCH)
     smooth_phases(dev)  # phase 12: no hand kernel on this path
     dp = dp_phases(dev)  # phase 13
+    t0 = time.perf_counter()
+    folder = tempfile.mkdtemp(prefix="fused_", dir=os.path.join(ROOT,
+                                                                "build"))
+    try:
+        fused = fused_phases(dev, BATCH, folder)  # phase 14
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    print(f"fused phase {time.perf_counter() - t0:.1f} s")
     conv_train = sum(r["launches"] for r in conv_bwd_rows)
     check(conv_train * TRAIN_STEPS == train["launches"]["fused_bn_act_conv"],
           f"the fused conv backward rows weigh {conv_train} launches per "
@@ -3264,6 +3541,7 @@ def main() -> int:
     paths = baseline_paths(baselines)
     paths.update(encoder_paths(encoders))
     paths.update(dp_paths(dp))
+    paths.update(fused_paths(fused))
     for path, counts in paths.items():
         if counts["fused_joint_sample"]:
             sampler["launches_by_path"][path] = counts["fused_joint_sample"]
@@ -3272,11 +3550,16 @@ def main() -> int:
         for net, res in encoders["serve"].items():
             entry["launches_by_path"][f"{net}_serve"] = \
                 res["launches"][entry["name"]]
-    # and in phase 13's f32 sync-BN step on rank 0
+    # and in phase 13's f32 sync-BN step on rank 0, and in phase 14's f32
+    # fused steps and its reference-layout checkpoint's serving
     for entry, name in zip(entries, F32_ENTRY_KERNELS):
-        entry["launches_by_path"]["dp_rank0_sync_f32"] = \
+        by_path = entry["launches_by_path"]
+        by_path["dp_rank0_sync_f32"] = \
             dp["two"]["rank0_launches"]["sync_f32"][name]
-        entry["launches"] = sum(entry["launches_by_path"].values())
+        by_path["fused_train"] = fused["f32"]["launches"][name]
+        by_path["reference_ckpt_serve"] = \
+            fused["reference"]["launches"][name]
+        entry["launches"] = sum(by_path.values())
     entries += bf16_entries(bf16, loop["epoch"]["launches"], paths)
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -25,6 +25,7 @@ from shotvae_torch.data.pipeline import to_float
 from shotvae_torch.device import DeviceLike, exact_f32, resolve_device
 from shotvae_torch.io.checkpoint import (CheckpointManager,
                                          resolve_checkpoint_path)
+from shotvae_torch.io.reference import strip_module_wrappers
 from shotvae_torch.models.vae import VariationalAutoEncoder
 from shotvae_torch.ops import sampling
 
@@ -54,14 +55,16 @@ class ShotVaeInference:
         ``build_encoder`` takes) and temperature from the stored config,
         unless ``encoder_name`` is given. The model serves in float32 in
         eval mode, where DenseNet's ``efficient`` changes nothing, so it is
-        not read."""
+        not read. The keys may carry the reference's ``nn.DataParallel``
+        wrappers (``.module``), which are stripped first."""
         device = resolve_device(device)
         name = "best" if best else "checkpoint"
         path = (source.latest_path(best)
                 if isinstance(source, CheckpointManager)
                 else resolve_checkpoint_path(os.fspath(source), (name,)))
         payload = torch.load(path, map_location="cpu", weights_only=True)
-        sd, args = payload["state_dict"], payload.get("args") or {}
+        sd = strip_module_wrappers(payload["state_dict"])
+        args = payload.get("args") or {}
         encoder_name = encoder_name or args.get("net_name")
         if not encoder_name:
             raise ValueError(f"{path} names no net_name; pass encoder_name")

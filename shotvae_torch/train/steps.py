@@ -1,14 +1,15 @@
 """The SHOT-VAE and M2 train steps, the VAE eval step, the classifier's
 train and eval steps and the smooth-ELBO train and eval steps.
 
-Port of shotvae_tpu/train/steps.py:30-44, 108-124, 261-462, 470-528,
+Port of shotvae_tpu/train/steps.py:30-44, 108-124, 185-462, 470-528,
 536-596 and 597-689. The SHOT-VAE step keeps the reference's four forwards (labeled,
 label-smoothed labeled, unlabeled, mixed unlabeled) with one backward over
 ``loss_supervised + loss_unsupervised`` (the gradient of the sum equals the
 reference's two accumulated ``.backward()`` calls) and one SGD update.
 Stop-gradients are ``.detach()``. The BatchNorm running statistics update
 in all four forwards, the decoder's included, as the JAX step threads
-``batch_stats`` through them.
+``batch_stats`` through them. With ``fused_streams`` it runs the JAX
+step's two forwards of both streams at once instead.
 
 Randomness: ``generator`` is a host (CPU) ``torch.Generator``. Every random
 site seeds from it (the card is not synchronised for that): the crops and
@@ -73,6 +74,30 @@ def _noise(inject, device, eps_key: str, unif_key: Optional[str] = None):
     out = {name: torch.as_tensor(inject[key]).to(device)
            for name, key in (("eps", eps_key), ("unif", unif_key))
            if key in inject}
+    return out or None
+
+
+# the Gumbel uniforms of the labeled rows of a fused forward: the labels'
+# one-hots replace their draw (``discrete_latent``'s ``where``), so any
+# value in (0, 1) gives the same step
+_LABELED_UNIF = 0.5
+
+
+def _fused_noise(inject, device, eps_keys, unif_key: str, batch_l: int):
+    """The ``noise`` dict of one fused forward from the four-forward
+    step's keys: the two streams' Gaussian draws ``eps_keys`` stacked, and
+    the unlabeled stream's uniforms under ``_LABELED_UNIF`` rows for the
+    labeled stream."""
+    if not inject:
+        return None
+    out = {}
+    if all(k in inject for k in eps_keys):
+        out["eps"] = torch.cat([torch.as_tensor(inject[k]).to(device)
+                                for k in eps_keys])
+    if unif_key in inject:
+        u = torch.as_tensor(inject[unif_key]).to(device)
+        out["unif"] = torch.cat([u.new_full((batch_l, *u.shape[1:]),
+                                            _LABELED_UNIF), u])
     return out or None
 
 
@@ -215,9 +240,40 @@ def _cont_posterior(mean, log_sigma, target: mixup.MixupBatch, batch: int):
             + ((torch.exp(log_sigma) - target.z_sigma) ** 2).sum()) / batch
 
 
+def _shot_loss(sched, num_classes: int, lab_l, elbo_l, elbo_u, sm, mx,
+               post_sm, post_mx, terms_l, terms_u, inference_kl):
+    """The SHOT-VAE loss and metrics from each stream's ELBO and its
+    (recon, KL_c, KL_d) ``terms_*``, the two interpolation targets
+    ``sm`` / ``mx`` and the posteriors (mean, log-sigma, log-alpha) of
+    their forwards ``post_sm`` / ``post_mx``."""
+    (mean_sm, ls_sm, la_sm), (mean_mx, ls_mx, la_mx) = post_sm, post_mx
+    disc_post_l = (sm.lam * losses.cls_nll(la_sm,
+                                           label_onehot(lab_l, num_classes))
+                   + (1.0 - sm.lam) * losses.cls_nll(
+                       la_sm, label_onehot(sm.partner_labels, num_classes)))
+    elbo_l = elbo_l + sched["kl_beta_c"] * sched["pwm"] * \
+        _cont_posterior(mean_sm, ls_sm, sm, mean_sm.shape[0])
+    loss_supervised = sched["ew"] * elbo_l + disc_post_l
+    disc_post_u = losses.cls_nll(la_mx, mx.disc_alpha)
+    elbo_u = elbo_u + sched["kl_beta_c"] * sched["pwm"] * \
+        _cont_posterior(mean_mx, ls_mx, mx, mean_mx.shape[0])
+    loss_unsupervised = sched["ew"] * elbo_u + sched["ucw"] * disc_post_u
+    total = loss_supervised + loss_unsupervised
+    (r_l, ckl_l, dkl_l), (r_u, ckl_u, dkl_u) = terms_l, terms_u
+    return total, {
+        "loss": total,
+        "loss_supervised": loss_supervised,
+        "loss_unsupervised": loss_unsupervised,
+        "recon_l": r_l, "cont_kl_l": ckl_l, "disc_kl_l": dkl_l,
+        "recon_u": r_u, "cont_kl_u": ckl_u, "disc_kl_u": dkl_u,
+        "kl_inference": inference_kl,
+    }
+
+
 def make_shot_vae_train_step(model, optimizer, *, num_classes: int, bce: bool,
                              x_sigma: float, epsilon: float,
                              optimal_match: bool, aug: bool = True,
+                             fused_streams: bool = False,
                              dp: Optional[DataParallel] = None,
                              bn_per_replica: bool = False,
                              bn_stats: str = "replica0",
@@ -247,46 +303,105 @@ def make_shot_vae_train_step(model, optimizer, *, num_classes: int, bce: bool,
     the gradients and metrics are the mean over the ranks. ``generator``
     is the rank's own (crops, flips, latent draws) and ``inject`` holds
     the global batch's draws (``_local_inject``).
+
+    ``fused_streams`` (the JAX step's keyword, steps.py:176-183) runs the
+    two streams through two forwards of 2B rows in place of four of B:
+    forward A on ``[x_l | x_u]`` with the labels ``[lab_l | -1...]`` (the
+    -1 rows keep the Gumbel draw), forward B on the two interpolations
+    ``[smoothed_l | mixed_u]`` with the smoothing's one-hot mixup on the
+    labeled rows. The ELBO terms, the posterior terms and ``kl_inference``
+    are taken on each stream's slice of the outputs, and the
+    interpolations draw as in the four-forward step. The loss is the same
+    function of the outputs, but train-mode BatchNorm pools its
+    statistics over the 2B rows of each forward, and the running
+    statistics update twice a step, not four times. Both data-parallel
+    modes take it; ``global_mixup`` does not (NotImplementedError, as
+    JAX). ``inject`` takes the four-forward step's keys: forward A's
+    ``eps`` is ``[eps_1 ; eps_3]`` and its uniforms ``[. ; unif_3]``,
+    forward B's ``[eps_2 ; eps_4]`` and ``[. ; unif_4]``, where ``.`` is
+    ``_LABELED_UNIF`` for the labeled rows, whose draw the one-hots
+    replace (JAX's fused step takes no ``inject``).
     """
     ranks = _ranks(model, dp, bn_per_replica, bn_stats, global_mixup)
+    if global_mixup and fused_streams:
+        raise NotImplementedError(
+            "global_mixup is only supported on the 4-forward path")
     elbo = functools.partial(_elbo, num_classes=num_classes, bce=bce,
                              x_sigma=x_sigma,
                              dp=ranks.dp if ranks.sync else None)
 
-    def loss_fn(x_l, lab_l, x_u, lab_u, sched, generator, inj, shared):
+    def fused_loss_fn(x_l, lab_l, x_u, lab_u, sched, generator, inj,
+                      shared):
         dev = x_l.device
         batch_l, batch_u = x_l.shape[0], x_u.shape[0]
-        onehot_l = label_onehot(lab_l, num_classes)
+        no_label_u = torch.full((batch_u,), -1, dtype=lab_l.dtype,
+                                device=dev)
+        l_rows, u_rows = slice(0, batch_l), slice(batch_l, None)
+
+        # forward A: [labeled (one-hot) | unlabeled (Gumbel-softmax)]
+        recon_a, mean_a, ls_a, la_a = model(
+            torch.cat([x_l, x_u]), labels=torch.cat([lab_l, no_label_u]),
+            noise=_fused_noise(inj, dev, ("eps_1", "eps_3"), "unif_3",
+                               batch_l),
+            generator=generator)
+        mean_l, ls_l, la_l = mean_a[l_rows], ls_a[l_rows], la_a[l_rows]
+        mean_u, ls_u, la_u = mean_a[u_rows], ls_a[u_rows], la_a[u_rows]
+        elbo_l, terms_l = elbo(x_l, recon_a[l_rows], mean_l, ls_l, la_l,
+                               sched)
+        elbo_u, terms_u = elbo(x_u, recon_a[u_rows], mean_u, ls_u, la_u,
+                               sched)
+        inference_kl = losses.inference_kl_metric(la_u.detach(), lab_u,
+                                                  num_classes)
+
+        # the stop-gradient interpolation targets, per stream
+        sm = _mixup(ranks, mixup.label_smoothing,
+                    (x_l, mean_l.detach(), ls_l.detach(), la_l.detach(),
+                     lab_l), generator, shared, epsilon=epsilon,
+                    lam=inj.get("lam_sm"), index=inj.get("perm_sm"))
+        mx = _mixup(ranks, mixup.mixup_vae_data,
+                    (x_u, mean_u.detach(), ls_u.detach(), la_u.detach()),
+                    generator, shared, optimal_match=optimal_match,
+                    lam=inj.get("lam_mx"), index=inj.get("perm_mx"))
+
+        # forward B: [smoothed labeled (one-hot mixup) | mixed unlabeled];
+        # its reconstruction enters no loss
+        _, mean_b, ls_b, la_b = model(
+            torch.cat([sm.image, mx.image]),
+            labels=torch.cat([lab_l, no_label_u]), mixup=True,
+            labels_mixup=torch.cat([sm.partner_labels, no_label_u]),
+            mixup_lam=sm.lam,
+            noise=_fused_noise(inj, dev, ("eps_2", "eps_4"), "unif_4",
+                               batch_l),
+            generator=generator)
+        return _shot_loss(sched, num_classes, lab_l, elbo_l, elbo_u, sm, mx,
+                          (mean_b[l_rows], ls_b[l_rows], la_b[l_rows]),
+                          (mean_b[u_rows], ls_b[u_rows], la_b[u_rows]),
+                          terms_l, terms_u, inference_kl)
+
+    def loss_fn(x_l, lab_l, x_u, lab_u, sched, generator, inj, shared):
+        dev = x_l.device
 
         # labeled forward 1: the ground-truth label path
         recon_l, mean_l, ls_l, la_l = model(
             x_l, labels=lab_l, noise=_noise(inj, dev, "eps_1"),
             generator=generator)
-        elbo_l, (r_l, ckl_l, dkl_l) = elbo(x_l, recon_l, mean_l, ls_l, la_l,
-                                           sched)
+        elbo_l, terms_l = elbo(x_l, recon_l, mean_l, ls_l, la_l, sched)
 
         # labeled forward 2: the label-smoothing interpolation
         sm = _mixup(ranks, mixup.label_smoothing,
                     (x_l, mean_l.detach(), ls_l.detach(), la_l.detach(),
                      lab_l), generator, shared, epsilon=epsilon,
                     lam=inj.get("lam_sm"), index=inj.get("perm_sm"))
-        _, mean_sm, ls_sm, la_sm = model(
+        _, *post_sm = model(
             sm.image, labels=lab_l, mixup=True,
             labels_mixup=sm.partner_labels, mixup_lam=sm.lam,
             noise=_noise(inj, dev, "eps_2"), generator=generator)
-        onehot_p = label_onehot(sm.partner_labels, num_classes)
-        disc_post_l = (sm.lam * losses.cls_nll(la_sm, onehot_l)
-                       + (1.0 - sm.lam) * losses.cls_nll(la_sm, onehot_p))
-        elbo_l = elbo_l + sched["kl_beta_c"] * sched["pwm"] * \
-            _cont_posterior(mean_sm, ls_sm, sm, batch_l)
-        loss_supervised = sched["ew"] * elbo_l + disc_post_l
 
         # unlabeled forward 3: the Gumbel-softmax path
         recon_u, mean_u, ls_u, la_u = model(
             x_u, noise=_noise(inj, dev, "eps_3", "unif_3"),
             generator=generator)
-        elbo_u, (r_u, ckl_u, dkl_u) = elbo(x_u, recon_u, mean_u, ls_u, la_u,
-                                           sched)
+        elbo_u, terms_u = elbo(x_u, recon_u, mean_u, ls_u, la_u, sched)
         inference_kl = losses.inference_kl_metric(la_u.detach(), lab_u,
                                                   num_classes)
 
@@ -295,26 +410,15 @@ def make_shot_vae_train_step(model, optimizer, *, num_classes: int, bce: bool,
                     (x_u, mean_u.detach(), ls_u.detach(), la_u.detach()),
                     generator, shared, optimal_match=optimal_match,
                     lam=inj.get("lam_mx"), index=inj.get("perm_mx"))
-        _, mean_mx, ls_mx, la_mx = model(
+        _, *post_mx = model(
             mx.image, noise=_noise(inj, dev, "eps_4", "unif_4"),
             generator=generator)
-        disc_post_u = losses.cls_nll(la_mx, mx.disc_alpha)
-        elbo_u = elbo_u + sched["kl_beta_c"] * sched["pwm"] * \
-            _cont_posterior(mean_mx, ls_mx, mx, batch_u)
-        loss_unsupervised = sched["ew"] * elbo_u + sched["ucw"] * disc_post_u
+        return _shot_loss(sched, num_classes, lab_l, elbo_l, elbo_u, sm, mx,
+                          post_sm, post_mx, terms_l, terms_u, inference_kl)
 
-        total = loss_supervised + loss_unsupervised
-        metrics = {
-            "loss": total,
-            "loss_supervised": loss_supervised,
-            "loss_unsupervised": loss_unsupervised,
-            "recon_l": r_l, "cont_kl_l": ckl_l, "disc_kl_l": dkl_l,
-            "recon_u": r_u, "cont_kl_u": ckl_u, "disc_kl_u": dkl_u,
-            "kl_inference": inference_kl,
-        }
-        return total, metrics
-
-    return _vae_train_step(model, optimizer, loss_fn, aug, ranks)
+    return _vae_train_step(model, optimizer,
+                           fused_loss_fn if fused_streams else loss_fn, aug,
+                           ranks)
 
 
 def make_m2_train_step(model, optimizer, *, num_classes: int, bce: bool,

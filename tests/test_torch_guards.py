@@ -1115,3 +1115,94 @@ def test_chip_smoke_dp_phase_fails_a_wrong_rank(rank_fn, match, monkeypatch,
         chip_smoke.dp_two_rank_phase(torch.device("cpu"), _DP_BATCH,
                                      str(tmp_path), None, None, rank_fn)
 
+
+
+# phase 14 at batch 2 on the CPU: the fused step in f32 and bf16 (two
+# forwards of 4 rows a step), the world-1 group over gloo, the reference-
+# layout checkpoint served at 2 images
+_FUSED_BATCH = 2
+
+
+def test_chip_smoke_fused_phase_runs_on_cpu(monkeypatch, tmp_path):
+    """chip_smoke.py's phase 14 on the CPU: the fused step's forwards and
+    finite metrics, no launch counted, the card-against-CPU checks exact
+    where both sides are the CPU, the fused step through a group of one
+    rank against the bare one, and the wrapped checkpoint served and
+    loaded."""
+    import torch.distributed as dist
+
+    chip_smoke = _chip_smoke(monkeypatch)
+    out = chip_smoke.fused_phases(torch.device("cpu"), _FUSED_BATCH,
+                                  str(tmp_path))
+    assert not dist.is_initialized()
+    for tag in ("f32", "bf16"):
+        assert out[tag]["forward_rows"] == [2 * _FUSED_BATCH] * 2
+        assert set(out[tag]["launches"].values()) == {0}
+        assert all(np.isfinite(v) for v in out[tag]["last_metrics"].values())
+    vs_cpu = dict(out["f32"]["vs_cpu"])
+    spread = vs_cpu.pop("grad_one_ulp_spread_max")
+    assert 0.0 < spread < math.inf
+    assert 0.0 <= vs_cpu.pop("grad_one_ulp_spread_median") <= spread
+    assert set(vs_cpu.values()) == {0.0}
+    assert out["bf16"]["vs_cpu_bf16"]["worst_share_of_tol"] == 0.0
+    assert out["world1"]["vs_today"]["worst_share_of_tol"] <= 1.0
+    assert set(out["world1"]["launches"].values()) == {0}
+    ref = out["reference"]
+    assert ref["wrapped_keys"] == ref["keys"] > 0
+    assert set(ref["launches"].values()) == {0}
+
+
+def _four_forwards(monkeypatch):
+    """A fused step that silently runs the four forwards."""
+    from shotvae_torch.train import steps
+
+    make = steps.make_shot_vae_train_step
+
+    def ignoring_fused(*args, fused_streams=False, **kw):
+        return make(*args, **kw)
+
+    monkeypatch.setattr(steps, "make_shot_vae_train_step", ignoring_fused)
+
+
+def _dgamma_doubled(monkeypatch, chip_smoke):
+    """A training BN backward whose dgamma is scaled by 2, in the first
+    (card-side) step of the card-against-CPU comparison."""
+    from shotvae_torch.ops.kernels import bn_leaky
+
+    fn = bn_leaky._BnLeakyTrain.backward
+    train_once, calls = chip_smoke.train_once, []
+
+    def doubled(ctx, *grads):
+        dx, dgamma, *rest = fn(ctx, *grads)
+        return (dx, dgamma * 2, *rest)
+
+    def planted(*args, **kw):
+        calls.append(1)
+        if len(calls) == 1:
+            monkeypatch.setattr(bn_leaky._BnLeakyTrain, "backward",
+                                staticmethod(doubled))
+        try:
+            return train_once(*args, **kw)
+        finally:
+            monkeypatch.setattr(bn_leaky._BnLeakyTrain, "backward",
+                                staticmethod(fn))
+
+    monkeypatch.setattr(chip_smoke, "train_once", planted)
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("four forwards", "ran forwards of"),
+    ("dgamma doubled", "disagree on the gradient")])
+def test_chip_smoke_fused_phase_fails_a_planted_fault(fault, match,
+                                                      monkeypatch):
+    """Phase 14's fused step at batch 2 on the CPU fails a fused step that
+    silently runs four forwards of B rows (its forwards counted, as its
+    launches are on the card), and a BN weight gradient scaled by 2 on
+    the card's side of the card-against-CPU step."""
+    chip_smoke = _chip_smoke(monkeypatch)
+    if fault == "four forwards":
+        _four_forwards(monkeypatch)
+    else:
+        _dgamma_doubled(monkeypatch, chip_smoke)
+    with pytest.raises(RuntimeError, match=match):
+        chip_smoke.fused_step_phase(torch.device("cpu"), _FUSED_BATCH)

@@ -19,6 +19,8 @@ results are held here against:
   steps on each rank's rows with its own draws (the gradient mean, rank
   0's or the mean running statistics), and against JAX's
   ``shard_map_step``;
+* the fused two-stream step (``fused_streams``), sync-BN and per replica,
+  against one process's fused steps;
 * ``gather_mixup`` against one draw over the global batch on the host;
 * a tiny two-rank ``run_shot_vae``: the same history on both ranks, files
   written by rank 0 only, a resume from rank 0's checkpoint equal to a
@@ -165,6 +167,9 @@ def setup():
         "shot_mean": dict(local, bn_stats="mean"),
         "shot_global_mixup": dict(sync, bn_per_replica=True,
                                   global_mixup=True),
+        "fused_sync": dict(sync, fused_streams=True),
+        "fused_replica0": dict(local, bn_stats="replica0",
+                               fused_streams=True),
         "m2_sync": dict(kind="m2", state_dict=sd, batch=batch, aug=True,
                         inject={"eps_1": sync["inject"]["eps_1"],
                                 "eps_2": sync["inject"]["eps_2"],
@@ -423,6 +428,19 @@ def test_per_replica_step_matches_local_steps(ranks, references, policy):
     for r in range(WORLD):
         _hold_step(ranks[r]["steps"][f"shot_{policy}"], want, TOL_SPLIT,
                    f"{policy} rank {r}", spread)
+
+
+@pytest.mark.parametrize("name", ["fused_sync", "fused_replica0"])
+def test_fused_steps_match_one_process(ranks, references, name):
+    """The fused two-stream step (``fused_streams``) in both data-parallel
+    modes: sync-BN, whose statistics pool over the 2B rows of each forward
+    on every rank, against one process's fused step on the global batch;
+    per replica against two one-process fused steps on each rank's rows
+    with its own draws (the gradient mean, rank 0's running statistics)."""
+    want, spread = references[name]
+    for r in range(WORLD):
+        _hold_step(ranks[r]["steps"][name], want, TOL_SPLIT,
+                   f"{name} rank {r}", spread)
 
 
 def _jax_lam_squeezed():

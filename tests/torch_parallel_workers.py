@@ -39,7 +39,8 @@ def classifier(state_dict=None):
 
 
 def train_once(job: dict, dp=None) -> dict:
-    """One train step of ``job`` (``kind`` ``shot``, ``m2`` or
+    """One train step of ``job`` (``kind`` ``shot``, with
+    ``fused_streams`` the fused two-stream step, ``m2`` or
     ``classifier``) on the rows of this rank of ``dp`` (None: the whole
     batch in one process): the metrics, every parameter's gradient (after
     the mean over the ranks), and the state dict after the update."""
@@ -73,6 +74,7 @@ def train_once(job: dict, dp=None) -> dict:
         else:
             step = steps.make_shot_vae_train_step(
                 model, opt, epsilon=0.1, optimal_match=job.get("om", True),
+                fused_streams=job.get("fused_streams", False),
                 global_mixup=job.get("global_mixup", False), **common)
             kw = {"shared_generator": torch.Generator().manual_seed(
                 job.get("shared_seed", 1))}
