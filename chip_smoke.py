@@ -182,8 +182,35 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    ``encode`` at 768 equal the plain-key checkpoint's bit for bit; a
    wrapped MLP classifier and smooth VAE state_dict strict-loaded
    (``io.reference.load_reference_state_dict``).
+15. ``--steps-per-call`` (``train.chunk``; run after phase 14): the bf16
+   SHOT-VAE step at 768 + 768 as one CUDA graph of CHUNK_STEPS (8) steps,
+   then the f32 one, then the bf16 M2 and classifier steps: an eager
+   chunk and CHUNK_REPLAYS replays (3; 1 in f32) against the same steps
+   dispatched one by one on a copy of the model, with the same host
+   generators and index rows, under cuDNN's deterministic flag: the
+   metrics, then every parameter, BN statistic and momentum buffer, bit
+   for bit; the replays' launch counters equal to the path's per-step
+   launches times the steps (132 / 132 / 122 / 122 ``bn_leaky`` and 88
+   fused conv launches a SHOT step) and to the eager steps'; each
+   captured graph's kernel nodes, read through libcuda, equal to the
+   launches its capture counted (a replay adds those counts: a wrapper
+   counts in Python); under the default flags a second capture: its
+   seconds, the per-step medians of the replays and of eager steps in
+   turns (CHUNK_ROUNDS rounds), one profiled replay (device busy time,
+   idle share, its kernels by name, at most the counters), the peak
+   memory beside an eager step's. Then the encoders in graphs of 2 steps
+   at 768 + 768: preactresnet18 and densenet121 --efficient with dropout
+   0.2 the same way (one replay), and densenet121 alone at its peak
+   memory with an eval step while the graph's pool is held. Then one bf16 ``run_shot_vae`` epoch at
+   ``steps_per_call`` 8 on phase 7's 50,000 images (58 steps = 7 x 8 + 2)
+   with phase 7's launches exactly, its graphs' kernel nodes measured,
+   and its history within CHUNK_LOOP_LOSS_REL / CHUNK_LOOP_TOP1_ABS, and
+   two tiny epochs across the LR warm-up's end and the ewm bump at N = 4
+   against N = 1, bit for bit; under ``build/chunk_*``, removed after.
+   Each line carries the card's name and power limit.
 10. Print the ``kernels`` JSON line (each kernel's launches on every path,
-   the M2, classifier, encoder, data-parallel and fused paths included),
+   the M2, classifier, encoder, data-parallel, fused and chunked paths
+   included),
    then the result line ``{"ok": true, "device": {...}}`` as the last
    line.
 
@@ -798,7 +825,7 @@ def random_model(device: str, dtype=None, net: dict = WRN):
     return _randomize_bn(VariationalAutoEncoder(
         net["net"], continuous_latent_dim=128,
         disc_latent_dim=CLASSES[net["dataset"]], device=device, dtype=dtype,
-        efficient=net["efficient"]))
+        efficient=net["efficient"], drop_rate=net.get("drop_rate", 0.0)))
 
 
 def random_classifier(device: str, dtype=None):
@@ -2884,7 +2911,7 @@ def dp_phases(dev) -> dict:
 
 # ---------------------------------------------------------------- phase 14
 
-FUSED_ROUNDS = 2  # rounds of the fused and the four-forward step, in turns
+FUSED_ROUNDS = 1  # rounds of the fused and the four-forward step, in turns
 # the reference's nn.DataParallel positions (SURVEY.md section 2.6: each
 # submodule; the MLP's encoder and classifier always): a .module after
 # each match; the smooth VAE's, which the reference does not wrap, per
@@ -3105,6 +3132,634 @@ def fused_paths(fused: dict) -> dict:
     bare and through the group of one rank."""
     return {"fused_train_bf16": fused["bf16"]["launches"],
             "fused_dp_world1_bf16": fused["world1"]["launches"]}
+
+
+# ---------------------------------------------------------------- phase 15
+
+CHUNK_STEPS = 8     # the train steps of one replayed graph (--steps-per-call)
+CHUNK_ROUNDS = 2    # rounds of the replays and the eager steps, in turns
+# replays held against eager steps with their launches counted, and
+# replays (and as many eager steps) timed per round, by the trunk's dtype:
+# the f32 step is device bound (2 to 6 % idle) and 2.5x the eager bf16
+# step's time, so its path is cut to keep the phase near 2 minutes
+CHUNK_REPLAYS = {"bf16": 3, "f32": 1}
+CHUNK_TIMED = {"bf16": 10, "f32": 1}
+CHUNK_PATHS = (("shot_bf16", "shot", "bf16"), ("shot_f32", "shot", "f32"),
+               ("m2_bf16", "m2", "bf16"),
+               ("classifier_bf16", "classifier", "bf16"))
+# the loop phase's epoch in chunks: 58 steps = 7 x 8 + 2
+CHUNK_LOOP_CONFIG = dict(LOOP_CONFIG, steps_per_call=CHUNK_STEPS)
+# its history against the loop phase's epoch, which ran without cuDNN's
+# deterministic flag: the train loss relative, the accuracies absolute
+CHUNK_LOOP_LOSS_REL = 1e-2
+CHUNK_LOOP_TOP1_ABS = 0.02
+# two tiny epochs across the LR warm-up's end, the first milestone and the
+# Cifar10 ewm bump (all at the end of epoch 0: adjust_lr [0, 1, 2]), in
+# chunks of 4 against per-step dispatch, bit for bit
+CHUNK_BOUNDARY_CONFIG = dict(RESUME_CONFIG, ckpt_every=0)
+CHUNK_BOUNDARY_STEPS = 4
+# the encoders in a graph of CHUNK_ENCODER_STEPS steps at 768 + 768 in
+# bf16: preactresnet18 and densenet121 --efficient with dropout 0.2 (its
+# recompute restores the dropout generator's state inside the graph)
+# against eager steps on a copy, bit for bit, timed: (tag, net, its key
+# in EXPECTED_ENCODER_LAUNCHES); densenet121, which peaks near 75 GB of
+# the card's 80 eagerly, alone (no eager copy beside it), then an eval
+# step at 768 with the graph's memory pool held, then a replay again
+CHUNK_ENCODER_STEPS = 2
+CHUNK_ENCODER_PATHS = (
+    ("preactresnet18", PREACT, "preactresnet18"),
+    ("densenet121_efficient_dropout", dict(DENSE_EFF, drop_rate=0.2),
+     "densenet121_efficient"))
+# the device kernels of each wrapper in a profiler trace and in a
+# captured graph (the Triton kernels by their names, the fused convs by a
+# stem their names hold)
+TRACE_KERNELS = {"bn_stats": "_stats_kernel", "bn_apply": "_apply_kernel",
+                 "bn_bwd_reduce": "_bwd_reduce_kernel",
+                 "bn_bwd_apply": "_bwd_apply_kernel",
+                 "fused_bn_act_conv": "fused_bn_act_conv3x3"}
+
+
+def cudnn_deterministic():
+    """cuDNN's deterministic flag on inside, as it was after."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def flag():
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.deterministic = saved
+    return flag()
+
+
+def _chunk_pool(dev, batch: int, kind: str):
+    """A seeded resident dataset of one step's images (labeled, then
+    unlabeled; the classifier: labeled) and each step's index row: a
+    seeded permutation of each stream's rows."""
+    import numpy as np
+
+    from shotvae_torch.data.datasets import ArrayDataset
+    from shotvae_torch.data.pipeline import DeviceDataset
+
+    streams = 1 if kind == "classifier" else 2
+    rng = np.random.default_rng(SEED + 30)
+    ds = DeviceDataset(ArrayDataset(
+        rng.integers(0, 256, (streams * batch, 32, 32, 3), dtype=np.uint8),
+        np.arange(streams * batch) % 10), device=dev)
+
+    def row(i: int):
+        g = np.random.default_rng([SEED + 31, i])
+        return np.concatenate([s * batch + g.permutation(batch)
+                               for s in range(streams)])
+    return ds, row
+
+
+def _chunk_stepper(kind: str, step, pool, batch: int):
+    """``step_by_index`` of a path over ``pool``."""
+    def step_by_index(state, idx, sched, draws, inject=None):
+        img, lab = pool.gather(idx)
+        if kind == "classifier":
+            return step(state, img, lab, draws, inject)
+        return step(state, img[:batch], lab[:batch], img[batch:],
+                    lab[batch:], sched, draws, inject=inject)
+    return step_by_index
+
+
+def replay_profile(fn, counters, dtype, top: int = 10) -> dict:
+    """One ``fn()`` (a replay of a graph already captured and replayed)
+    under torch.profiler, as ``device_breakdown`` reads it (wall time,
+    device busy time, idle share, the kernels that took the most device
+    time), with each wrapper's device kernels in the trace and its
+    counter's launches over the same call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                    for e in kernels[:top]],
+            "trace_kernels": {
+                w: sum(n == k or (w == "fused_bn_act_conv" and k in n)
+                       for n in names)
+                for w, k in TRACE_KERNELS.items()},
+            "counted": {w: c for w, c in read_counts(counters, dtype).items()
+                        if w in TRACE_KERNELS}}
+
+
+def _kernel_of(name: str):
+    """The wrapper (a TRACE_KERNELS key) whose device kernel ``name`` is,
+    or None."""
+    for w, k in TRACE_KERNELS.items():
+        if name == k or (w == "fused_bn_act_conv" and k in name):
+            return w
+    return None
+
+
+def graph_kernels(graph) -> dict:
+    """{function name: kernel nodes} of a captured CUDA graph that kept
+    its cudaGraph_t (``keep_graph=True``), read through libcuda:
+    cuGraphGetNodes, cuGraphNodeGetType, cuGraphKernelNodeGetParams and
+    cuFuncGetName (cuKernelGetName for a node that holds a library
+    kernel)."""
+    import collections
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
+
+    def call(fn, *args):
+        rc = getattr(cu, fn)(*args)
+        check(rc == 0, f"{fn} returned CUresult {rc}")
+
+    class Params(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", vp), ("grid", ctypes.c_uint * 3),
+                    ("block", ctypes.c_uint * 3),
+                    ("shared_bytes", ctypes.c_uint), ("params", vp),
+                    ("extra", vp), ("kern", vp), ("ctx", vp)]
+
+    handle = vp(int(graph.raw_cuda_graph()))
+    count = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", handle, None, ctypes.byref(count))
+    nodes = (vp * count.value)()
+    call("cuGraphGetNodes", handle, nodes, ctypes.byref(count))
+    names = collections.Counter()
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", vp(node), ctypes.byref(kind))
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = Params()
+        call("cuGraphKernelNodeGetParams_v2", vp(node),
+             ctypes.byref(params))
+        name = ctypes.c_char_p()
+        if params.func:
+            call("cuFuncGetName", ctypes.byref(name), vp(params.func))
+        else:
+            call("cuKernelGetName", ctypes.byref(name), vp(params.kern))
+        names[name.value.decode()] += 1
+    return dict(names)
+
+
+def measured_runner():
+    """``train.chunk.ChunkRunner`` whose graphs keep their cudaGraph_t
+    (``keep_graph=True``; instantiated at the first replay), so that
+    ``graph_launches`` can read their kernel nodes."""
+    import torch
+
+    from shotvae_torch.train.chunk import ChunkRunner
+
+    class MeasuredRunner(ChunkRunner):
+        def _new_graph(self):
+            return torch.cuda.CUDAGraph(keep_graph=True)
+    return MeasuredRunner
+
+
+def graph_launches(runner, counters, what: str) -> dict:
+    """{chunk length: {wrapper: kernel nodes}}: each captured graph's hand
+    kernels, counted in the graph itself (``graph_kernels``), which must
+    equal the launches its capture counted (and ``add_counts`` adds at
+    each replay), every wrapper of TRACE_KERNELS by name; with every
+    node's function name."""
+    out = {}
+    for n, graph in sorted(runner.graphs.items()):
+        names = graph_kernels(graph.graph)
+        nodes = {w: 0 for w in TRACE_KERNELS}
+        for name, c in names.items():
+            w = _kernel_of(name)
+            if w is not None:
+                nodes[w] += c
+        held = {w: sum(graph.launches[counters[w]]) for w in TRACE_KERNELS}
+        check(nodes == held, f"{what}: the graph of {n} steps holds "
+              f"{nodes} hand kernel nodes; its capture counted {held}")
+        out[n] = dict(nodes, kernel_nodes=sum(names.values()),
+                      other_kernels=len([k for k in names
+                                         if _kernel_of(k) is None]))
+    return out
+
+
+def chunk_path_phase(dev, batch: int, n: int, kind: str, dtype,
+                     replays: int, timed: int, net: dict = WRN,
+                     expected=None) -> dict:
+    """A training path (``kind`` ``"shot"``, ``"m2"`` or ``"classifier"``
+    in ``dtype``, over the encoder of ``net``) through
+    ``train.chunk.ChunkRunner`` in chunks of ``n`` steps: an eager chunk,
+    then ``replays`` replays of the captured graph, against the same steps
+    dispatched one by one on a copy of the model, with the same host
+    generators and index rows, under cuDNN's deterministic flag: every
+    chunk's metrics, then every parameter, BN statistic and momentum
+    buffer, bit for bit. The
+    replays move the launch counters by the path's per-step launches
+    (``expected``, default the WRN-28-2 path's) times the steps, as the
+    eager steps do; a wrapper counts in Python, so a replay adds what its
+    capture counted, and on the card the graph's own kernel nodes are
+    held against those counts (``graph_launches``). On the card, under
+    the default flags, a second runner on the model: the
+    capture's seconds, the per-step medians of ``timed`` replays and of
+    ``timed`` eager steps in turns (CHUNK_ROUNDS rounds), one profiled
+    replay (its idle share, and its kernels by name against the launches
+    of n steps where the trace caught them) and the peak memory of the
+    capture and its replays beside an eager step's."""
+    import numpy as np
+    import torch
+
+    from shotvae_torch.train.chunk import ChunkRunner
+
+    counters = kernel_counters()
+    cuda = dev.type == "cuda"
+    pool, row = _chunk_pool(dev, batch, kind)
+    gen = lambda i: torch.Generator().manual_seed(SEED + 40 + i)  # noqa
+    make = lambda: _trainer(kind)(_model(kind, net)(dev.type, dtype))  # noqa
+    (state_a, step_a, sched), (state_b, step_b, _) = make(), make()
+    run_a = _chunk_stepper(kind, step_a, pool, batch)
+    run_b = _chunk_stepper(kind, step_b, pool, batch)
+
+    def chunk(runner, state, c0: int, steps: int = n):
+        return runner.run(state, np.stack([row(i) for i in
+                                           range(c0, c0 + steps)]),
+                          [gen(i) for i in range(c0, c0 + steps)])
+
+    def eager(i: int):
+        m = run_b(state_b, torch.from_numpy(row(i)).to(dev), sched, gen(i))
+        return torch.stack([m[k].to(torch.float32) for k in runner.keys])
+
+    runner = measured_runner()(run_a, dev, steps=n, width=len(row(0)))
+    runner.set_sched(sched)
+    expected = expected or PATHS[kind][0]
+    with cudnn_deterministic():
+        got = [chunk(runner, state_a, 0)]
+        want = [eager(i) for i in range(n)]
+        _sync(dev)
+        zero_counts(counters)
+        got += [chunk(runner, state_a, c * n)
+                for c in range(1, replays + 1)]
+        _sync(dev)
+        replayed = {d: read_counts(counters, d)
+                    for d in (torch.float32, torch.bfloat16)}
+        launches = check_counts(
+            counters, dtype, {k: replays * n * c if cuda else 0
+                              for k, c in expected.items()},
+            f"{replays} replays of the {n}-step {kind} graph")
+        zero_counts(counters)
+        want += [eager(i) for i in range(n, (replays + 1) * n)]
+        _sync(dev)
+        stepped = {d: read_counts(counters, d)
+                   for d in (torch.float32, torch.bfloat16)}
+    check(replayed == stepped, f"the {replays} replays of the {n}-"
+          f"step graph moved the launch counters by {replayed}; the same "
+          f"{replays * n} eager steps by {stepped}")
+    got, want = torch.cat(got), torch.stack(want)
+    check(torch.equal(got, want), f"the chunked {kind} steps' metrics "
+          f"differ from the eager steps' by {_dist(got, want):.3e}")
+    diff = state_mismatches(state_a, state_b)
+    check(not diff, f"after {(replays + 1) * n} {kind} steps the "
+          f"chunked state differs from the eager one in {len(diff)} "
+          f"tensors: {diff[:5]}")
+    check(bool(torch.isfinite(got).all()), f"non-finite {kind} metrics")
+    out = dict(steps_per_call=n, launches=launches,
+               eager_vs_replay_bit_identical=dict(
+                   steps=(replays + 1) * n,
+                   tensors=len(state_a.model.state_dict())
+                   + len(_momentum(state_a))),
+               capture_s_deterministic=runner.capture_s.get(n),
+               last_metrics=dict(zip(runner.keys, got[-1].tolist())))
+    if not cuda:
+        return out
+    out["graph_kernel_nodes"] = graph_launches(runner, counters,
+                                               f"the {kind} path")
+
+    # the default flags: a runner of its own (an eager chunk, then the
+    # capture) on the same model, timed against eager steps in turns
+    timer = ChunkRunner(run_a, dev, steps=n, width=len(row(0)))
+    timer.set_sched(sched)
+    c0 = (replays + 1) * n
+    chunk(timer, state_a, c0)
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    chunk(timer, state_a, c0 + n)  # the capture and one replay
+    _sync(dev)
+    peak_graph = torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    eager(c0)
+    _sync(dev)
+    peak_eager = torch.cuda.max_memory_allocated(dev) / 1e9
+    c0 += 2 * n
+    times = {"replay": [], "eager": []}
+    for r in range(CHUNK_ROUNDS):
+        for how in ("replay", "eager")[::1 if r % 2 == 0 else -1]:
+            for _ in range(timed):
+                t0 = time.perf_counter()
+                if how == "replay":
+                    chunk(timer, state_a, c0)
+                else:
+                    eager(c0)
+                _sync(dev)
+                times[how].append((time.perf_counter() - t0) * 1e3
+                                  / (n if how == "replay" else 1))
+            c0 += n
+    timing = {}
+    for how, ts in times.items():
+        ts = sorted(ts)
+        timing[f"{how}_step_ms"] = statistics.median(ts)
+        timing[f"{how}_step_ms_range"] = [ts[0], ts[-1]]
+    timing["replay_over_eager"] = (timing["replay_step_ms"]
+                                   / timing["eager_step_ms"])
+    profile = replay_profile(lambda: chunk(timer, state_a, c0), counters,
+                             dtype)
+    # the trace may drop records (phase 4), never add any
+    caught = {w: c for w, c in profile["trace_kernels"].items() if c}
+    check(all(c <= profile["counted"][w] for w, c in caught.items()),
+          f"one profiled replay's trace shows {caught} kernels, more than "
+          f"its counters {profile['counted']}")
+    out.update(timing=timing, capture_s=timer.capture_s[n],
+               profile=profile, trace_kernels_checked=sorted(caught),
+               peak_memory_gb={"graph": peak_graph, "eager": peak_eager,
+                               "ratio": peak_graph / peak_eager})
+    return out
+
+
+def _history_close(got: dict, want: dict) -> dict:
+    """An epoch's history (``got``, in chunks) against the loop phase's
+    epoch: the train loss relative, the accuracies absolute."""
+    loss = abs(got["train_loss"] - want["train_loss"]) / abs(
+        want["train_loss"])
+    top1 = max(abs(got[k] - want[k]) for k in ("valid_top1", "test_top1"))
+    check(loss <= CHUNK_LOOP_LOSS_REL and top1 <= CHUNK_LOOP_TOP1_ABS,
+          f"the chunked epoch's history {got} is off the per-step epoch's "
+          f"{want}: train loss {loss:.3e} relative, top1 {top1:.3e}")
+    return {"train_loss_rel": loss, "top1_abs": top1}
+
+
+def chunk_loop_phase(dev, base: str, want: dict) -> dict:
+    """One bf16 epoch of ``run_shot_vae`` at ``--steps-per-call``
+    CHUNK_STEPS (CHUNK_LOOP_CONFIG: LOOP_STEPS train steps in chunks of 8
+    and a tail of 2, LOOP_EVAL_FORWARDS eval forwards) under ``base``: its
+    launches exactly the loop phase's, its history within the bands of
+    the loop phase's epoch ``want``, its train seconds beside it; the
+    loop's runner measured (``measured_runner``): each captured graph's
+    hand kernel nodes equal to the launches its capture counted."""
+    import torch
+
+    from shotvae_torch.config import ShotVaeConfig
+    from shotvae_torch.train.loop import run_shot_vae
+
+    from shotvae_torch.train import loop
+
+    counters = kernel_counters()
+    cfg = ShotVaeConfig(base_path=base, **CHUNK_LOOP_CONFIG)
+    runners = []
+
+    class Recorded(measured_runner()):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            runners.append(self)
+
+    zero_counts(counters)
+    plain, loop.ChunkRunner = loop.ChunkRunner, Recorded
+    try:
+        out = run_shot_vae(cfg, max_epochs=1, log_fn=lambda *a: print(
+            "  chunk loop:", *a), device=dev)
+    finally:
+        loop.ChunkRunner = plain
+    _sync(dev)
+    check(len(runners) == 1, f"the epoch made {len(runners)} chunk runners")
+    nodes = graph_launches(runners[0], counters, "the chunked epoch")
+    check(sorted(nodes) == [LOOP_STEPS % CHUNK_STEPS, CHUNK_STEPS],
+          f"the chunked epoch captured graphs of {sorted(nodes)} steps")
+    launches = check_counts(
+        counters, cfg.compute_dtype(),
+        {name: (LOOP_STEPS * c + LOOP_EVAL_FORWARDS
+                * EXPECTED_EVAL_LAUNCHES[name])
+         for name, c in EXPECTED_TRAIN_LAUNCHES.items()},
+        f"the chunked epoch ({LOOP_STEPS} steps, {LOOP_EVAL_FORWARDS} eval "
+        f"forwards)")
+    launches["fused_joint_sample"] = read_counts(
+        counters, torch.float32)["fused_joint_sample"]
+    check(launches == want["launches"], f"the chunked epoch launched "
+          f"{launches}; the per-step epoch {want['launches']}")
+    (h,) = out["history"]
+    times = out["epoch_times"][0]
+    return dict(launches=launches, steps_per_call=CHUNK_STEPS,
+                graph_kernel_nodes=nodes,
+                train_s=times["train_s"], eval_s=times["eval_s"],
+                per_step_epoch_train_s=want["train_s"],
+                train_s_ratio=times["train_s"] / want["train_s"],
+                unlabeled_images_per_s=LOOP_STEPS * cfg.batch_size
+                / times["train_s"],
+                train_loss=h["train_loss"], valid_top1=h["valid_top1"],
+                test_top1=h["test_top1"],
+                vs_per_step_epoch=_history_close(h, want))
+
+
+def chunk_boundary_phase(dev, base: str, config: dict, n: int) -> dict:
+    """Two epochs of ``config`` (the LR warm-up's end, the first
+    milestone and the ewm bump between them) at ``--steps-per-call n``
+    against per-step dispatch, under cuDNN's deterministic flag: every
+    tensor of the final state and the histories bit for bit, so a rate,
+    loss weight or mixup weight frozen into a graph shows."""
+    from shotvae_torch.config import ShotVaeConfig
+    from shotvae_torch.train.loop import run_shot_vae
+
+    runs = {}
+    with cudnn_deterministic():
+        for spc in (1, n):
+            cfg = ShotVaeConfig(base_path=os.path.join(base, f"spc{spc}"),
+                                steps_per_call=spc, **config)
+            runs[spc] = (run_shot_vae(cfg, max_epochs=2,
+                                      log_fn=lambda *a: None, device=dev),
+                         cfg)
+    (a, cfg_a), (b, cfg_b) = runs[1], runs[n]
+    diff = state_mismatches(b["state"], a["state"])
+    check(not diff, f"two epochs in chunks of {n} differ from per-step "
+          f"dispatch in {len(diff)} tensors: {diff[:5]}")
+    check(_no_seconds(a["history"]) == _no_seconds(b["history"]),
+          f"the chunked history {b['history']} differs from "
+          f"{a['history']}")
+    check(cfg_a.ewm == cfg_b.ewm == 5 * ShotVaeConfig().ewm,
+          f"ewm {cfg_a.ewm} / {cfg_b.ewm}: the bump did not happen")
+    return dict(epochs=2, steps=b["state"].step, steps_per_call=n,
+                bit_identical=True, tensors=len(
+                    b["state"].model.state_dict()) + len(
+                    _momentum(b["state"])), ewm=cfg_b.ewm)
+
+
+def chunk_memory_phase(dev, batch: int, n: int, net: dict,
+                       expected: dict) -> dict:
+    """The bf16 SHOT-VAE step over ``net`` (densenet121, whose eager step
+    peaks near 75 GB) at ``batch`` + ``batch`` in a graph of ``n`` steps,
+    with no eager copy beside it: the peak memory of an eager chunk and of
+    the capture and its replay; one replay's launches (``expected`` a
+    step) and the graph's kernel nodes (``graph_launches``); an eval step
+    at ``batch`` with the graph's memory pool held, its peak; a replay
+    after it; finite metrics throughout."""
+    import numpy as np
+    import torch
+
+    from shotvae_torch.train.steps import make_vae_eval_step
+
+    counters = kernel_counters()
+    pool, row = _chunk_pool(dev, batch, "shot")
+    gen = lambda i: torch.Generator().manual_seed(SEED + 40 + i)  # noqa
+    state, step, sched = trainer(random_model(dev.type, torch.bfloat16,
+                                              net=net))
+    runner = measured_runner()(_chunk_stepper("shot", step, pool, batch),
+                               dev, steps=n, width=2 * batch)
+    runner.set_sched(sched)
+
+    def chunk(c0: int):
+        return runner.run(state, np.stack([row(i) for i in
+                                           range(c0, c0 + n)]),
+                          [gen(i) for i in range(c0, c0 + n)])
+
+    def peak() -> float:
+        _sync(dev)
+        return torch.cuda.max_memory_allocated(dev) / 1e9
+
+    peaks = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    metrics = [chunk(0)]
+    peaks["eager_chunk"] = peak()
+    torch.cuda.reset_peak_memory_stats(dev)
+    metrics.append(chunk(n))  # the capture and one replay
+    peaks["capture_and_replay"] = peak()
+    zero_counts(counters)
+    metrics.append(chunk(2 * n))
+    _sync(dev)
+    launches = check_counts(counters, torch.bfloat16,
+                            {k: n * c for k, c in expected.items()},
+                            f"a replay of the {n}-step {net['net']} graph")
+    nodes = graph_launches(runner, counters, net["net"])
+    evaluate = make_vae_eval_step(state.model,
+                                  num_classes=CLASSES[net["dataset"]],
+                                  bce=True, x_sigma=1.0)
+    img, lab = pool.gather(torch.from_numpy(row(0)[:batch]).to(dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    sums, _ = evaluate(img, lab, torch.ones(batch, device=dev),
+                       generator=torch.Generator().manual_seed(SEED))
+    peaks["eval_with_graph_held"] = peak()
+    metrics.append(chunk(3 * n))  # a replay after the eval step
+    _sync(dev)
+    metrics = torch.cat(metrics)
+    check(bool(torch.isfinite(metrics).all()) and all(
+        bool(torch.isfinite(v).all()) for v in sums.values()),
+        f"non-finite {net['net']} metrics in or after a graph")
+    return dict(steps_per_call=n, launches=launches, graph_kernel_nodes=nodes,
+                capture_s=runner.capture_s[n], peak_memory_gb=peaks,
+                reserved_gb=torch.cuda.memory_reserved(dev) / 1e9,
+                steps=4 * n, last_metrics=dict(zip(runner.keys,
+                                                   metrics[-1].tolist())))
+
+
+def chunk_encoder_phases(dev, batch: int, n: int, card: str) -> dict:
+    """The encoders in a graph of ``n`` bf16 SHOT-VAE steps at ``batch``
+    + ``batch``: CHUNK_ENCODER_PATHS against eager steps bit for bit and
+    timed (``chunk_path_phase``), densenet121 at its peak memory
+    (``chunk_memory_phase``)."""
+    import gc
+
+    import torch
+
+    from shotvae_torch.device import exact_f32
+
+    out = {}
+
+    def show(tag: str, t0: float) -> None:
+        for key, value in out[tag].items():
+            print(f"chunk_{tag}_{key}_at_batch_{batch} "
+                  + json.dumps({"value": value, "card": card}))
+        print(f"chunk {tag} phase {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for tag, net, name in CHUNK_ENCODER_PATHS:
+        t0 = time.perf_counter()
+        with exact_f32():
+            out[tag] = chunk_path_phase(
+                dev, batch, n, "shot", torch.bfloat16, 1, 1, net=net,
+                expected=EXPECTED_ENCODER_LAUNCHES[name][0])
+        show(tag, t0)
+    t0 = time.perf_counter()
+    with exact_f32():
+        out["densenet121"] = chunk_memory_phase(
+            dev, batch, n, DENSE, EXPECTED_ENCODER_LAUNCHES["densenet121"][0])
+    show("densenet121", t0)
+    return out
+
+
+def chunk_phases(dev, batch: int, n: int, base: str, card: str,
+                 loop_epoch=None, boundary=CHUNK_BOUNDARY_CONFIG,
+                 boundary_steps: int = CHUNK_BOUNDARY_STEPS) -> dict:
+    """Phase 15: ``--steps-per-call`` as one CUDA graph of ``n`` train
+    steps (``chunk_path_phase``) for the bf16 SHOT-VAE step, the f32 one,
+    the bf16 M2 and classifier steps at ``batch`` (+ ``batch``); on the
+    card the encoders (``chunk_encoder_phases``); then, given the loop
+    phase's epoch ``loop_epoch``, the chunked epoch
+    (``chunk_loop_phase``), and two tiny epochs of ``boundary``
+    (``chunk_boundary_phase``, chunks of ``boundary_steps``) under a
+    folder of ``base``; each part's lines printed beside ``card``."""
+    import torch
+
+    from shotvae_torch.device import exact_f32
+
+    out = {}
+    for tag, kind, dt in CHUNK_PATHS:
+        t0 = time.perf_counter()
+        dtype = torch.bfloat16 if dt == "bf16" else None
+        with exact_f32():  # the bare steps, held as the entry points
+            out[tag] = chunk_path_phase(dev, batch, n, kind, dtype,
+                                        CHUNK_REPLAYS[dt], CHUNK_TIMED[dt])
+        for key, value in out[tag].items():
+            print(f"chunk_{tag}_{key}_at_batch_{batch} "
+                  + json.dumps({"value": value, "card": card}))
+        print(f"chunk {tag} phase {time.perf_counter() - t0:.1f} s")
+    if dev.type == "cuda":
+        out["encoders"] = chunk_encoder_phases(dev, batch,
+                                               CHUNK_ENCODER_STEPS, card)
+    if loop_epoch is not None:
+        t0 = time.perf_counter()
+        out["loop"] = chunk_loop_phase(dev, os.path.join(base, "loop"),
+                                       loop_epoch)
+        print(f"chunk_loop_epoch_at_batch_{BATCH}+{BATCH} "
+              + json.dumps({"value": out["loop"], "card": card}))
+        print(f"chunk loop phase {time.perf_counter() - t0:.1f} s")
+    if boundary is not None:
+        t0 = time.perf_counter()
+        out["boundary"] = chunk_boundary_phase(
+            dev, os.path.join(base, "boundary"), boundary, boundary_steps)
+        print("chunk_boundary_two_epochs " + json.dumps(out["boundary"]))
+        print(f"chunk boundary phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def chunk_paths(chunk: dict) -> dict:
+    """{path: the bf16 launches of each kernel}: phase 15's replays and its
+    chunked epoch."""
+    out = {f"chunk_{tag}": chunk[tag]["launches"]
+           for tag, _, dt in CHUNK_PATHS if dt == "bf16"}
+    for name, res in chunk.get("encoders", {}).items():
+        out[f"chunk_{name}_bf16"] = res["launches"]
+    if "loop" in chunk:
+        out["chunk_loop_bf16"] = chunk["loop"]["launches"]
+    return out
 
 
 # -------------------------------------------------------------------- main
@@ -3485,6 +4140,15 @@ def main() -> int:
     finally:
         shutil.rmtree(folder, ignore_errors=True)
     print(f"fused phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    folder = tempfile.mkdtemp(prefix="chunk_", dir=os.path.join(ROOT,
+                                                                "build"))
+    try:  # phase 15
+        chunk = chunk_phases(dev, BATCH, CHUNK_STEPS, folder, smi,
+                             loop_epoch=loop["epoch"])
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    print(f"chunk phase {time.perf_counter() - t0:.1f} s")
     conv_train = sum(r["launches"] for r in conv_bwd_rows)
     check(conv_train * TRAIN_STEPS == train["launches"]["fused_bn_act_conv"],
           f"the fused conv backward rows weigh {conv_train} launches per "
@@ -3542,6 +4206,7 @@ def main() -> int:
     paths.update(encoder_paths(encoders))
     paths.update(dp_paths(dp))
     paths.update(fused_paths(fused))
+    paths.update(chunk_paths(chunk))
     for path, counts in paths.items():
         if counts["fused_joint_sample"]:
             sampler["launches_by_path"][path] = counts["fused_joint_sample"]
@@ -3550,10 +4215,12 @@ def main() -> int:
         for net, res in encoders["serve"].items():
             entry["launches_by_path"][f"{net}_serve"] = \
                 res["launches"][entry["name"]]
-    # and in phase 13's f32 sync-BN step on rank 0, and in phase 14's f32
-    # fused steps and its reference-layout checkpoint's serving
+    # and in phase 13's f32 sync-BN step on rank 0, in phase 14's f32
+    # fused steps and its reference-layout checkpoint's serving, and in
+    # phase 15's f32 replays
     for entry, name in zip(entries, F32_ENTRY_KERNELS):
         by_path = entry["launches_by_path"]
+        by_path["chunk_shot_f32"] = chunk["shot_f32"]["launches"][name]
         by_path["dp_rank0_sync_f32"] = \
             dp["two"]["rank0_launches"]["sync_f32"][name]
         by_path["fused_train"] = fused["f32"]["launches"][name]

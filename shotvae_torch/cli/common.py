@@ -182,8 +182,13 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                              "statistics (each rank's own rows); default is "
                              "sync-BN")
     parser.add_argument("--steps-per-call", default=1, type=int,
-                        help="run N train steps per host dispatch (not "
-                             "ported yet: N > 1 raises)")
+                        help="run N train steps per host dispatch: on a "
+                             "CUDA card each chunk of N steps is one replay "
+                             "of a CUDA graph captured after the first "
+                             "chunk (which runs eagerly), the same steps, "
+                             "draws and batches as N = 1; on the CPU the "
+                             "steps run one after another. Not over a "
+                             "process group (torchrun): N > 1 raises there")
     parser.add_argument("--global-mixup", action="store_true",
                         help="with --bn-per-replica: draw mixup/"
                              "label-smoothing partners over the GLOBAL batch "

@@ -8,24 +8,26 @@ ranks. ``mixup_data``, ``mixup_raw_labeled_data`` and
 ``mixup_criterion`` are the reference's classic input mixup (its
 lib/utils/mixup.py, unused by its drivers but part of its surface).
 
-Randomness: ``generator`` is a host (CPU) ``torch.Generator``. The
-interpolation weight is drawn on the host, as the reference did
-(shotvae_tpu/ops/mixup.py:7-8), by a numpy ``Generator`` seeded with one
-draw from it (``torch.distributions.Beta`` takes no generator); it is a
-Python scalar, so the card is not synchronised for it. The partner
-permutation is drawn on the tensors' device by ``torch.randperm`` with a
-generator seeded from ``generator``. ``lam=`` / ``index=`` override the
-draws for deterministic replay.
+Randomness: ``generator`` is a host (CPU) ``torch.Generator`` or a train
+step's ``sampling.StepDraws``. The interpolation weight is drawn on the
+host, as the reference did (shotvae_tpu/ops/mixup.py:7-8), by a numpy
+``Generator`` seeded with one draw from it (``torch.distributions.Beta``
+takes no generator): a Python float from a host generator, the step's
+0-d float32 weight slot from a ``StepDraws``; the card is not synchronised
+for it. The interpolations compute with the weight as a 0-d float32
+tensor, as the JAX package does, so ``1 - lam`` rounds in float32. The
+partner permutation is drawn on the tensors' device by ``torch.randperm``
+with a generator seeded from ``generator``. ``lam=`` / ``index=``
+override the draws for deterministic replay.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
-from shotvae_torch.ops.sampling import device_generator, draw_seed
+from shotvae_torch.ops.sampling import StepDraws, beta_value, device_generator
 
 
 class MixupBatch(NamedTuple):
@@ -36,7 +38,7 @@ class MixupBatch(NamedTuple):
     z_sigma: torch.Tensor     # interpolated posterior *sigma*
     disc_alpha: torch.Tensor  # interpolated posterior *probabilities*
     partner_labels: Optional[torch.Tensor]  # labels[perm] (label smoothing)
-    lam: float
+    lam: object               # float, or the step's 0-d weight slot
 
 
 def pairwise_gaussian_kl(z_mean, z_log_sigma):
@@ -64,11 +66,21 @@ def optimal_match_index(z_mean, z_log_sigma):
     return torch.argmin(kl + eye * 3.4e38, dim=1)
 
 
-def draw_beta(generator: Optional[torch.Generator], a: float,
-              b: float) -> float:
+def draw_beta(generator, a: float, b: float):
     """One Beta(a, b) draw on the host, from a numpy generator seeded by
-    ``generator``."""
-    return float(np.random.default_rng(draw_seed(generator)).beta(a, b))
+    ``generator``: a float, or a ``StepDraws``' weight slot holding it."""
+    if isinstance(generator, StepDraws):
+        return generator.beta(a, b)
+    return beta_value(generator, a, b)
+
+
+def _weight(lam, device):
+    """(``lam`` as a 0-d float32 tensor on ``device``, ``lam`` as it is
+    returned: a tensor slot stays itself, anything else becomes a
+    float)."""
+    if not isinstance(lam, torch.Tensor):
+        lam = float(lam)
+    return torch.as_tensor(lam, dtype=torch.float32, device=device), lam
 
 
 def _permutation(generator, n: int, device):
@@ -114,9 +126,9 @@ def _classic_mix(image, alpha: float, lam, index, generator):
         lam = draw_beta(generator, alpha, alpha) if alpha > 0 else 1.0
     if index is None:
         index = _permutation(generator, image.shape[0], image.device)
-    lam = float(lam)
     index = torch.as_tensor(index, device=image.device).long()
-    return lam * image + (1.0 - lam) * image[index], index, lam
+    w, lam = _weight(lam, image.device)
+    return w * image + (1.0 - w) * image[index], index, lam
 
 
 def mixup_data(image, label, alpha: float = 1.0, *, lam=None, index=None,
@@ -163,9 +175,9 @@ def gather_mixup(dp, fn, arrays, **kw) -> MixupBatch:
 
 def _interpolate(image, z_mean, z_log_sigma, disc_log_alpha, index, lam, *,
                  labels):
-    lam = float(lam)
     index = torch.as_tensor(index, device=image.device).long()
-    mix = lambda t: lam * t + (1.0 - lam) * t[index]  # noqa: E731
+    w, lam = _weight(lam, image.device)
+    mix = lambda t: w * t + (1.0 - w) * t[index]  # noqa: E731
     return MixupBatch(mix(image), mix(z_mean), mix(torch.exp(z_log_sigma)),
                       mix(torch.exp(disc_log_alpha)),
                       None if labels is None else labels[index], lam)

@@ -4,15 +4,23 @@ Port of shotvae_tpu/ops/sampling.py:15-111 with explicit
 ``torch.Generator``s in place of ``jax.random`` keys. The two frameworks
 draw different bits from the same seed, so cross-framework tests inject
 the draws (``eps``, ``unif``, ``noise=``) and compare exactly.
+
+A train step takes its draws through ``StepDraws``: persistent device
+generators and 0-d float32 mixup weights, one per random site, seeded from
+the step's host generator in the order the sites ask. Seeding a persistent
+generator gives the draws of a fresh one with the same seed, and the slots
+stay where a CUDA graph that captured the step reads them.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
+import numpy as np
 import torch
 
 GUMBEL_EPS = 1e-12  # parity: shotvae_tpu/ops/sampling.py:15
+LAM_SLOTS = 4       # mixup weights a step may draw (the SHOT-VAE step: 2)
 
 
 def draw_seed(generator: Optional[torch.Generator] = None) -> int:
@@ -23,10 +31,110 @@ def draw_seed(generator: Optional[torch.Generator] = None) -> int:
                              device=device).item())
 
 
-def device_generator(generator: Optional[torch.Generator],
-                     device) -> torch.Generator:
+def beta_value(generator: Optional[torch.Generator], a: float,
+               b: float) -> float:
+    """One Beta(a, b) draw on the host, from a numpy generator seeded by
+    one draw from ``generator``."""
+    return float(np.random.default_rng(draw_seed(generator)).beta(a, b))
+
+
+class StepDraws:
+    """The random draws of one train step, from persistent slots: device
+    generators and the 0-d float32 entries of ``lams``. The step's sites
+    ask in program order (``device_generator``, ``mixup.draw_beta``); the
+    k-th generator request gets the k-th generator, the k-th Beta request
+    the k-th weight.
+
+    ``draw(host)``: each slot is seeded (a generator) or written (a weight)
+    from one draw of the host generator ``host`` as its request comes, in
+    the order of fresh generators seeded one by one; the requests are
+    recorded as ``plan``. ``defer()``: each request gets its slot as it
+    stands and must follow ``plan``; ``seed(host)`` seeds the generators
+    and returns the weights, from the same draws of ``host`` in the same
+    order, before the step runs (the replay of a CUDA graph that captured
+    the deferred step)."""
+
+    def __init__(self, device, lams: Optional[torch.Tensor] = None):
+        self.device = torch.device(device)
+        self.lams = (torch.zeros(LAM_SLOTS, dtype=torch.float32,
+                                 device=self.device)
+                     if lams is None else lams)
+        self.generators: List[torch.Generator] = []
+        self.plan: list = []  # ("gen", device) or ("beta", a, b) a request
+        self.host: Optional[torch.Generator] = None
+        self.deferred = False
+        self._asked = self._gens = self._betas = 0
+
+    def draw(self, host: torch.Generator) -> "StepDraws":
+        self.host, self.deferred, self.plan = host, False, []
+        self._asked = self._gens = self._betas = 0
+        return self
+
+    def defer(self) -> "StepDraws":
+        self.host, self.deferred = None, True
+        self._asked = self._gens = self._betas = 0
+        return self
+
+    def ensure(self, plan: list) -> None:
+        """Take ``plan`` and make the generators it asks for (a capture
+        must find every generator it uses made and registered)."""
+        self.plan = list(plan)
+        gens = [torch.device(e[1]) for e in self.plan if e[0] == "gen"]
+        for dev in gens[len(self.generators):]:
+            self.generators.append(torch.Generator(device=dev))
+
+    def seed(self, host: torch.Generator) -> List[float]:
+        """Seed every generator of ``plan`` from ``host`` and draw every
+        weight, as ``draw(host)`` would; returns the weights in slot
+        order."""
+        gens, lams = iter(self.generators), []
+        for entry in self.plan:
+            if entry[0] == "gen":
+                next(gens).manual_seed(draw_seed(host))
+            else:
+                lams.append(beta_value(host, entry[1], entry[2]))
+        return lams
+
+    def _ask(self, entry: tuple) -> None:
+        if self.deferred:
+            if (self._asked >= len(self.plan)
+                    or self.plan[self._asked] != entry):
+                raise RuntimeError(
+                    f"a deferred train step asked for {entry} as its draw "
+                    f"{self._asked}; its drawing run asked for {self.plan}")
+        else:
+            self.plan.append(entry)
+        self._asked += 1
+
+    def generator(self, device) -> torch.Generator:
+        device = torch.device(device)
+        self._ask(("gen", str(device)))
+        k, self._gens = self._gens, self._gens + 1
+        if k == len(self.generators):
+            self.generators.append(torch.Generator(device=device))
+        gen = self.generators[k]
+        if not self.deferred:
+            gen.manual_seed(draw_seed(self.host))
+        return gen
+
+    def beta(self, a: float, b: float) -> torch.Tensor:
+        self._ask(("beta", float(a), float(b)))
+        k, self._betas = self._betas, self._betas + 1
+        if k >= self.lams.shape[0]:
+            raise RuntimeError(f"a train step drew more than "
+                               f"{self.lams.shape[0]} mixup weights")
+        lam = self.lams[k]
+        if not self.deferred:
+            lam.fill_(beta_value(self.host, a, b))
+        return lam
+
+
+def device_generator(generator, device) -> torch.Generator:
     """A generator on ``device`` seeded by one draw from ``generator``. With
-    a host (CPU) ``generator`` the draw does not synchronise the card."""
+    a host (CPU) ``generator`` the draw does not synchronise the card. A
+    ``StepDraws`` gives its next generator slot."""
+    if isinstance(generator, StepDraws):
+        return generator.generator(device)
     return torch.Generator(device=device).manual_seed(draw_seed(generator))
 
 

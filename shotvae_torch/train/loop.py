@@ -11,7 +11,11 @@ The datasets lie on the device as uint8 (``DeviceDataset``); per step the
 host sends one index array and the step gathers, augments, runs the four
 forwards, the backward and the update there. Nothing is read back inside
 the step loop: the train metrics stay on the device until the epoch ends,
-the eval sums until each split ends.
+the eval sums until each split ends. With ``steps_per_call`` N above 1 the
+SHOT-VAE, M2 and classifier loops dispatch chunks of N steps
+(``train.chunk``): on the card one CUDA graph replay per chunk, the same
+steps, keys and batches as per-step dispatch, as the JAX loop's chunked
+branch; the eval steps stay one dispatch per batch.
 
 Randomness is keyed by integers, so a resumed run replays exactly what the
 uninterrupted run would have drawn:
@@ -77,6 +81,7 @@ from shotvae_torch.models.vae import VariationalAutoEncoder
 from shotvae_torch.ops.schedules import multistep_lr, shot_vae_epoch_schedules
 from shotvae_torch.parallel.mesh import (DataParallel, rank_generator,
                                          refuse_ranks, setup)
+from shotvae_torch.train.chunk import ChunkRunner
 from shotvae_torch.train.state import TrainState, adam_torch, sgd_torch
 from shotvae_torch.train.steps import (make_classifier_eval_step,
                                        make_classifier_train_step,
@@ -91,11 +96,14 @@ EVAL_KEY = 10_000   # eval batch j draws with step key EVAL_KEY + j
 GRID_KEY = 99_999   # the train reconstruction grid's step key
 
 
-def refuse_unported(cfg: ShotVaeConfig) -> None:
+def refuse_unported(cfg: ShotVaeConfig, dp: DataParallel) -> None:
     """Raise for a setting that drives a part the port does not have yet,
-    naming its ROADMAP.md item: none is silently ignored."""
+    naming its ROADMAP.md item: none is silently ignored. ``dp``: the
+    run's ranks, after ``setup``."""
     unported = [
-        (cfg.steps_per_call > 1, "--steps-per-call > 1", "13a"),
+        (cfg.steps_per_call > 1 and dp.group is not None,
+         "--steps-per-call > 1 over a process group (NCCL collectives and "
+         "the sync-BN all-reduces inside a captured graph)", "13c"),
     ]
     for on, flag, item in unported:
         if on:
@@ -192,12 +200,60 @@ def build_state(model, cfg: ShotVaeConfig, steps_per_epoch: int) -> TrainState:
                                                steps_per_epoch))
 
 
-def _summed(rows) -> dict:
+def _summed(rows, keys=None) -> dict:
     """{name: 0-d tensor}: the sums over a list of metric dicts of 0-d
-    tensors, in float64, on their device (no host read)."""
-    keys = list(rows[0])
-    table = torch.stack([torch.stack([r[k] for k in keys]) for r in rows])
+    tensors, or over the rows of (n, len(keys)) tables of them (a chunk
+    runner's), in float64, on their device (no host read)."""
+    if keys is None:
+        keys = list(rows[0])
+        table = torch.stack([torch.stack([r[k] for k in keys]) for r in rows])
+    else:
+        table = torch.cat(rows)
     return dict(zip(keys, table.to(torch.float64).sum(0).unbind()))
+
+
+def _chunk_runner(cfg, dev, step_by_index, width: int):
+    """The chunk runner of ``cfg.steps_per_call`` above 1, else None."""
+    if cfg.steps_per_call <= 1:
+        return None
+    return ChunkRunner(step_by_index, dev, steps=cfg.steps_per_call,
+                       width=width)
+
+
+def _dispatch(runner, step_by_index, state, rows: np.ndarray, sched,
+              seed: int, epoch: int, c0: int, dp: DataParallel,
+              streams: int):
+    """Train steps [c0, c0 + n) of ``epoch`` on the (n, width) index
+    ``rows``, each row ``streams`` blocks of the global batch's indices.
+    With a chunk runner (``steps_per_call`` above 1): one chunk, step i
+    drawing from per-step dispatch's host generator (JAX's
+    ``_chunk_keys``); returns its (n, len(runner.keys)) metrics. Else the
+    one step itself on this rank's share of each block; returns its
+    metric dict."""
+    if runner is not None:
+        return runner.run(state, rows, [step_generator(seed, epoch, i)
+                                        for i in range(c0, c0 + len(rows))])
+    (row,) = rows
+    gen, shared = step_generators(seed, epoch, c0, dp)
+    local = np.concatenate([dp.shard(b) for b in np.split(row, streams)])
+    return step_by_index(state, local, sched, gen, shared=shared)
+
+
+def shot_vae_chunks(seed: int, epoch: int, labeled: np.ndarray,
+                    unlabeled: np.ndarray, batch: int, steps: int):
+    """The index chunks of one SHOT-VAE or M2 epoch: (first step, (n, 2 *
+    batch) rows of labeled | unlabeled indices), n = ``steps`` but in the
+    last chunk, from the streams of per-step dispatch (the JAX loop's
+    chunked branch, shotvae_tpu/train/loop.py:341-349)."""
+    labeled_iter = infinite_batches(
+        np.random.default_rng([seed + 1, epoch]), labeled, batch)
+    u_batches = list(epoch_batches(np.random.default_rng([seed + 2, epoch]),
+                                   unlabeled, batch))
+    l_batches = [next(labeled_iter) for _ in u_batches]
+    for c0 in range(0, len(u_batches), steps):
+        yield c0, np.concatenate([np.stack(l_batches[c0:c0 + steps]),
+                                  np.stack(u_batches[c0:c0 + steps])],
+                                 axis=1)
 
 
 def _host_images(t: torch.Tensor) -> np.ndarray:
@@ -238,8 +294,8 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
     sums added over the ranks; every rank restores ``resume``, and only the
     first writes checkpoints, TensorBoard events and the log."""
     dev = resolve_device(device)
-    refuse_unported(cfg)
     dp = setup(cfg, dev)
+    refuse_unported(cfg, dp)
     if cfg.batch_size % dp.world_size:
         raise ValueError(
             f"batch_size {cfg.batch_size} must be divisible by the number of "
@@ -293,6 +349,15 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
     evaluate = make_vae_eval_step(model, num_classes=spec.num_classes,
                                   bce=cfg.br, x_sigma=cfg.x_sigma)
     batch = cfg.batch_size
+    local = batch // dp.world_size
+
+    def step_by_index(state, idx, sched, gen, inject=None, shared=None):
+        images, labels = train_ds.gather(idx)
+        return step(state, images[:local], labels[:local], images[local:],
+                    labels[local:], sched, gen, inject=inject,
+                    shared_generator=shared)
+
+    runner = _chunk_runner(cfg, dev, step_by_index, 2 * local)
     best_valid_acc = -1.0
     history, epoch_times = [], []
     profiler = None
@@ -301,41 +366,39 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
         if cfg.profile_dir and epoch == start_epoch + 1 and dp.is_main:
             # the second epoch's train steps (the first one compiles)
             profiler = _start_profile(dev)
-        labeled_iter = infinite_batches(
-            np.random.default_rng([cfg.seed + 1, epoch]), split.labeled,
-            batch)
-        rng_u = np.random.default_rng([cfg.seed + 2, epoch])
         epoch_t0 = time.time()
         sched = shot_vae_epoch_schedules(epoch, cfg)
         batch_time = AverageMeter()
         data_time = AverageMeter()
-        step_metrics = []
-        end = time.time()
-        for i, idx_u in enumerate(epoch_batches(rng_u, split.unlabeled,
-                                                batch)):
-            idx_l = next(labeled_iter)
-            data_time.update(time.time() - end)
-            local = len(idx_l) // dp.world_size
-            images, labels = train_ds.gather(np.concatenate(
-                [dp.shard(idx_l), dp.shard(idx_u)]))
-            gen, shared = step_generators(cfg.seed, epoch, i, dp)
-            step_metrics.append(step(
-                state, images[:local], labels[:local], images[local:],
-                labels[local:], sched, gen, shared_generator=shared))
-            batch_time.update(time.time() - end)
+        step_metrics, n_steps = [], 0
+        if runner is not None:
+            runner.set_sched(sched)
+        steps = cfg.steps_per_call
+        chunks = list(shot_vae_chunks(cfg.seed, epoch, split.labeled,
+                                      split.unlabeled, batch, steps))
+        end = time.time()  # the epoch's index prep is not a step's
+        for c0, idx in chunks:
+            n = len(idx)
+            data_time.update((time.time() - end) / n, n)
+            step_metrics.append(_dispatch(runner, step_by_index, state, idx,
+                                          sched, cfg.seed, epoch, c0, dp, 2))
+            n_steps += n
+            batch_time.update((time.time() - end) / n, n)
             end = time.time()
-            if i % cfg.print_freq == 0:
-                # host-side times: the step returns before the card is done
-                log_fn(f"Epoch: [{epoch}][{i + 1}/{steps_per_epoch}]\t"
+            if (c0 // steps) % cfg.print_freq == 0:
+                # host-side times: the steps return before the card is done
+                log_fn(f"Epoch: [{epoch}][{c0 + n}/{steps_per_epoch}]\t"
                        f"Time {batch_time.val:.3f} ({batch_time.avg:.3f})"
                        f"\tData {data_time.val:.3f} ({data_time.avg:.3f})")
+        idx_u = chunks[-1][1][-1, batch:]  # the reconstruction grid
         if profiler is not None:
             _stop_profile(profiler, cfg.profile_dir, epoch)
             profiler = None
         train_sums = MetricAccumulator()
-        train_sums.update(_summed(step_metrics))  # the epoch's one read
-        train_terms = {k: v / len(step_metrics)
-                       for k, v in train_sums.totals.items()}
+        # the epoch's one read
+        train_sums.update(_summed(step_metrics,
+                                  runner and runner.keys))
+        train_terms = {k: v / n_steps for k, v in train_sums.totals.items()}
         train_s = time.time() - epoch_t0
         writer.scalar("Train/KL_Inference",
                       train_terms.get("kl_inference", 0.0), epoch + 1)
@@ -459,8 +522,8 @@ def run_classifier(cfg: ClassifierConfig, *, max_epochs: Optional[int] = None,
     rounded up to a multiple of the number of ranks (the JAX loop's
     ``pad_batch_size``)."""
     dev = resolve_device(device)
-    refuse_unported(cfg)
     dp = setup(cfg, dev)
+    refuse_unported(cfg, dp)
     log_fn = log_fn if dp.is_main else _quiet
     spec = cfg.apply_dataset_overrides()
     train_data, test_data, split = _datasets(cfg, spec)
@@ -490,6 +553,12 @@ def run_classifier(cfg: ClassifierConfig, *, max_epochs: Optional[int] = None,
     step = make_classifier_train_step(model, state.optimizer, dp=dp,
                                       bn_per_replica=cfg.bn_per_replica)
     evaluate = make_classifier_eval_step(model, num_classes=spec.num_classes)
+
+    def step_by_index(state, idx, sched, gen, inject=None, shared=None):
+        img, lab = train_ds.gather(idx)
+        return step(state, img, lab, gen, inject)
+
+    runner = _chunk_runner(cfg, dev, step_by_index, batch)
     labeled_iter = infinite_batches(np.random.default_rng(cfg.seed),
                                     split.labeled, batch)
     history, train_losses, epoch_times = [], [], []
@@ -497,14 +566,17 @@ def run_classifier(cfg: ClassifierConfig, *, max_epochs: Optional[int] = None,
     for epoch in range(total_epochs):
         epoch_t0 = time.time()
         step_losses = []
-        for i in range(steps_per_epoch):
-            img, lab = train_ds.gather(dp.shard(next(labeled_iter)))
-            step_losses.append(step(state, img, lab,
-                                    step_generators(cfg.seed, epoch, i,
-                                                    dp)[0])["cls_loss"])
+        idxs = [next(labeled_iter) for _ in range(steps_per_epoch)]
+        for c0 in range(0, steps_per_epoch, cfg.steps_per_call):
+            metrics = _dispatch(runner, step_by_index, state,
+                                np.stack(idxs[c0:c0 + cfg.steps_per_call]),
+                                None, cfg.seed, epoch, c0, dp, 1)
+            step_losses.append(
+                metrics["cls_loss"].reshape(1) if runner is None
+                else metrics[:, runner.keys.index("cls_loss")])
         losses = AverageMeter()
         # the epoch's one read
-        for v in torch.stack(step_losses).to(torch.float64).tolist():
+        for v in torch.cat(step_losses).to(torch.float64).tolist():
             losses.update(v, batch)
         train_s = time.time() - epoch_t0
         writer.scalar("Train/cls_loss", losses.avg, epoch + 1)

@@ -5,8 +5,11 @@ Port of shotvae_tpu/train/state.py:22-69. The reference trains with
 parameter, BN affines included, and its smooth-ELBO scripts with
 ``torch.optim.Adam`` at its defaults; the JAX package's ``sgd_torch`` and
 ``adam_torch`` copy them with optax chains, and here they are those
-optimizers themselves. The learning-rate schedule is a function of the
-global step, applied to the optimizer before each update.
+optimizers themselves (SGD in torch's fused form, whose update reads a
+rate given as a tensor on the device, so that a CUDA graph of train steps
+reads the rate written before each replay: ``train.chunk``). The
+learning-rate schedule is a function of the global step, applied to the
+optimizer before each update.
 """
 
 from __future__ import annotations
@@ -21,9 +24,12 @@ from torch import nn
 def sgd_torch(model: nn.Module, lr: float = 0.1, momentum: float = 0.9,
               weight_decay: float = 5e-4) -> torch.optim.SGD:
     """SGD with momentum and coupled weight decay over every parameter:
-    g += wd * p, then momentum, then lr."""
+    g += wd * p, then momentum, then lr. Fused: one kernel for the update,
+    whose rate may be a 0-d tensor on the device (the same update as a
+    float rate, bit for bit); within a last-ulp rounding of torch's
+    default foreach SGD."""
     return torch.optim.SGD(model.parameters(), lr=lr, momentum=momentum,
-                           weight_decay=weight_decay)
+                           weight_decay=weight_decay, fused=True)
 
 
 def adam_torch(model: nn.Module, lr: float, b1: float = 0.9,

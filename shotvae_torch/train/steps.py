@@ -14,7 +14,14 @@ step's two forwards of both streams at once instead.
 Randomness: ``generator`` is a host (CPU) ``torch.Generator``. Every random
 site seeds from it (the card is not synchronised for that): the crops and
 flips and the latent draws on the model's device, the mixup weights on the
-host, the mixup permutations on the device. ``inject`` replays pre-drawn
+host, the mixup permutations on the device. The sites take their draws
+through a ``sampling.StepDraws`` (the step's own, or a chunk runner's in
+place of ``generator``): persistent device generators seeded in turn, and
+the mixup weights as 0-d float32 slots. ``sched`` enters as 0-d float32
+tensors on the model's device (Python floats are converted), as the JAX
+loop puts it on the device. So the SHOT-VAE, M2 and classifier steps read
+no host value that changes from step to step, and a CUDA graph can
+capture them (``train.chunk``). ``inject`` replays pre-drawn
 randomness instead, under the JAX step's keys ``eps_1..eps_4``, ``unif_3``,
 ``unif_4``, ``lam_sm``, ``perm_sm``, ``lam_mx``, ``perm_mx``, plus
 ``aug_l`` / ``aug_u``, the ``(off_y, off_x, flip)`` of ``augment_batch``.
@@ -44,7 +51,8 @@ import torch.nn.functional as F
 
 from shotvae_torch.data.pipeline import augment_batch, to_float
 from shotvae_torch.ops import losses, mixup
-from shotvae_torch.ops.sampling import device_generator, label_onehot
+from shotvae_torch.ops.sampling import (StepDraws, device_generator,
+                                        label_onehot)
 from shotvae_torch.parallel.mesh import (BN_STATS_POLICIES, DataParallel,
                                          global_mean, set_bn_group)
 from shotvae_torch.train.state import TrainState
@@ -65,6 +73,23 @@ def _prepare(images_u8, device, *, augment: bool, generator=None,
                                                                  device)
         x = augment_batch(x, generator=gen, offsets=offsets)
     return x.permute(0, 3, 1, 2)
+
+
+def _step_draws(own: dict, generator, device):
+    """The draws of one step: a ``StepDraws`` as given (a chunk runner's);
+    a host generator through the step's own slots (``own``, by device),
+    drawn as the sites ask; None as None (torch's default generators)."""
+    if generator is None or isinstance(generator, StepDraws):
+        return generator
+    if device not in own:
+        own[device] = StepDraws(device)
+    return own[device].draw(generator)
+
+
+def _sched(sched: dict, device) -> dict:
+    """The loss weights as 0-d float32 tensors on ``device``."""
+    return {k: torch.as_tensor(v, dtype=torch.float32, device=device)
+            for k, v in sched.items()}
 
 
 def _noise(inject, device, eps_key: str, unif_key: Optional[str] = None):
@@ -213,12 +238,16 @@ def _vae_train_step(model, optimizer, loss_fn, aug: bool, ranks: _Ranks):
     """The two-stream step around ``loss_fn(x_l, lab_l, x_u, lab_u, sched,
     generator, inject, shared_generator) -> (total, metrics)``."""
 
+    own = {}
+
     def step(state: TrainState, img_l, lab_l, img_u, lab_u, sched,
              generator: Optional[torch.Generator] = None, inject=None,
              shared_generator: Optional[torch.Generator] = None):
         _check_state(state, model, optimizer)
         inj = _local_inject(inject, ranks)
         dev = _device(model)
+        generator = _step_draws(own, generator, dev)
+        sched = _sched(sched, dev)
         model.train()
         x_l = _prepare(img_l, dev, augment=aug, generator=generator,
                        offsets=inj.get("aug_l"))
@@ -544,12 +573,14 @@ def make_classifier_train_step(model, optimizer, *, aug: bool = True,
     ``bn_per_replica`` and ``bn_stats`` as the SHOT-VAE step's: each rank
     passes its rows, ``inject`` holds the global batch's."""
     ranks = _ranks(model, dp, bn_per_replica, bn_stats, False)
+    own = {}
 
     def step(state: TrainState, img, lab,
              generator: Optional[torch.Generator] = None, inject=None):
         _check_state(state, model, optimizer)
         inj = _local_inject(inject, ranks)
         dev = _device(model)
+        generator = _step_draws(own, generator, dev)
         model.train()
         x = _prepare(img, dev, augment=aug, generator=generator,
                      offsets=inj.get("aug"))

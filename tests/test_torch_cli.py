@@ -2,9 +2,9 @@
 same config, flag for flag (through each command's ``main`` for the M2,
 classifier and smooth-ELBO commands, the classifier's own defaults and
 SVHN's plateau included); one epoch runs through each ``main`` on the
-CPU; the flags of parts not ported yet
-parse, then raise, naming their ROADMAP.md item, and the data-parallel flags
-raise where the launch does not fit them; every encoder family and
+CPU; ``--steps-per-call 2`` trains one tiny epoch in chunks through each
+command, and the data-parallel flags raise where the launch does not fit
+them; every encoder family and
 ``--efficient`` reach the trainer, an encoder name the JAX dispatch does
 not know raises, and so does any but a WideResNet for the classifier; a
 split too small for the batch raises."""
@@ -107,13 +107,25 @@ _DP_MISFITS = [
     (["--num-devices", "2"], ValueError, "torchrun --nproc-per-node N")]
 
 
+# --steps-per-call above 1 (item 13a) is ported: on 106 synthetic images
+# (96 unlabeled) it trains one epoch of 3 steps, a chunk of 2 and one of 1
+_SPC_FLAGS = ["--steps-per-call", "2", "--synthetic-size", "106"]
+
+
+def _trains_one_epoch(out, steps: int) -> None:
+    assert len(out["history"]) == 1 and out["state"].step == steps
+    assert 0.0 <= out["history"][0]["test_top1"] <= 1.0
+
+
 @pytest.mark.parametrize("flags,error,match", [
     *[pytest.param(*case, id=f"flags{i}-item 11")
       for i, case in enumerate(_DP_MISFITS)],
-    pytest.param(["--steps-per-call", "4"], NotImplementedError, "item 13a",
-                 id="flags4-item 13a")])
+    pytest.param(_SPC_FLAGS, None, None, id="flags4-item 13a")])
 def test_unported_flags_raise(flags, error, match, tmp_path):
     argv = _small_argv(str(tmp_path))
+    if error is None:  # ported since: one epoch in chunks
+        _trains_one_epoch(main([*argv, *flags], device="cpu"), 3)
+        return
     with pytest.raises(error, match=match):
         main([*argv, *flags], device="cpu")
     assert not os.listdir(tmp_path)
@@ -228,10 +240,15 @@ def test_one_classifier_cli_epoch(tmp_path):
 @pytest.mark.parametrize("flags,error,match", [
     pytest.param(*_DP_MISFITS[0], id="flags0-item 11"),
     pytest.param(*_DP_MISFITS[1], id="flags1-item 11"),
-    pytest.param(["--steps-per-call", "4"], NotImplementedError, "item 13a",
-                 id="flags2-item 13a")])
+    pytest.param(_SPC_FLAGS, None, None, id="flags2-item 13a")])
 def test_new_clis_refuse_unported_flags(cli, flags, error, match, tmp_path):
     argv = _small_argv(str(tmp_path))
+    if error is None:  # ported since: one epoch in chunks (the
+        # classifier: 10 labeled images, one step)
+        _trains_one_epoch(NEW_CLIS[cli][0].main([*argv, *flags],
+                                                device="cpu"),
+                          1 if cli == "classifier" else 3)
+        return
     with pytest.raises(error, match=match):
         NEW_CLIS[cli][0].main([*argv, *flags], device="cpu")
     assert not os.listdir(tmp_path)

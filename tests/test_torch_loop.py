@@ -174,15 +174,16 @@ def test_loop_checkpoint_serves(straight):
 
 
 def test_unported_settings_raise(tmp_path):
-    """Multi-step dispatch (item 13a) is refused; the data-parallel
-    settings (item 11) raise where one process cannot run them."""
+    """The data-parallel settings (item 11) raise where one process cannot
+    run them. (Multi-step dispatch, item 13a, is ported: its refusal over
+    a process group is checked on two ranks, tests/test_torch_parallel.py,
+    and its epochs in tests/test_torch_steps_per_call.py.)"""
     for kw, error, match in (
             ({"bn_per_replica": True, "num_devices": 2}, ValueError,
              "torchrun --nproc-per-node N"),
             ({"global_mixup": True}, ValueError, "requires --bn-per-replica"),
             ({"num_devices": 2}, ValueError, "2 but this run has 1 rank"),
-            ({"dp": False, "num_devices": 3}, ValueError, "3 but this run"),
-            ({"steps_per_call": 4}, NotImplementedError, "item 13a")):
+            ({"dp": False, "num_devices": 3}, ValueError, "3 but this run")):
         with pytest.raises(error, match=match):
             run_shot_vae(_tiny_cfg(str(tmp_path), **kw), device="cpu")
     assert not os.listdir(tmp_path)  # refused before anything was written

@@ -559,12 +559,16 @@ def test_two_rank_resume_equals_straight_run(ranks):
 def test_refusals_inside_a_group(ranks):
     """Inside a two-rank group, ``--dp`` (data parallelism off) and a
     ``--num-devices`` other than the world size raise before anything
-    runs."""
+    runs, and so does ``--steps-per-call`` above 1, naming item 13c (in
+    one process the data-parallel misfits raise before that refusal can
+    be reached)."""
     for r in range(WORLD):
         out = ranks[r]["refusals"]
         assert "--dp turns data parallelism off" in out["dp"]
         assert "--num-devices 3 but this run has 2 rank(s)" in \
             out["num_devices"]
+        assert out["steps_per_call"].startswith("NotImplementedError")
+        assert "item 13c" in out["steps_per_call"]
 
 
 @pytest.mark.parametrize("flags,match", [

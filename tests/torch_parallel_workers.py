@@ -133,17 +133,20 @@ def mixups(job: dict, dp) -> dict:
 
 def refusals(job: dict, dp) -> dict:
     """What the data-parallel entry points raise inside a group: ``--dp``
-    above one rank, and ``--num-devices`` other than the world size."""
+    above one rank, ``--num-devices`` other than the world size, and
+    ``--steps-per-call`` above 1 (a graph of steps over a group is not
+    ported)."""
     from shotvae_torch.cli.main_shot_vae import main
 
     out = {}
     for name, flags in (("dp", ["--dp"]), ("num_devices",
-                                           ["--num-devices", "3"])):
+                                           ["--num-devices", "3"]),
+                        ("steps_per_call", ["--steps-per-call", "4"])):
         try:
             main([*job["argv"], *flags], device="cpu")
             out[name] = None
-        except ValueError as e:
-            out[name] = str(e)
+        except (ValueError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {e}"
     return out
 
 
