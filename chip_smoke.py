@@ -208,9 +208,24 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    two tiny epochs across the LR warm-up's end and the ewm bump at N = 4
    against N = 1, bit for bit; under ``build/chunk_*``, removed after.
    Each line carries the card's name and power limit.
+16. ``--steps-per-call`` over a process group (run after phase 15):
+   through an NCCL group of one rank in this process (phase 13's set-up),
+   the bf16 sync-BN SHOT-VAE step, the per-replica one with global mixup
+   (rank 0's running statistics) and the sync-BN classifier step, each as
+   one graph of CHUNK_STEPS steps held as phase 15 holds its paths (3
+   replays against 32 eager group steps bit for bit, launches and kernel
+   nodes), the collectives of the replays and of each capture equal to
+   the eager steps', each graph's nodes by type (NCCL's kernels apart),
+   and under the default flags the replays, eager group steps and
+   replays with no group timed in turns. Then one torchrun launch of the
+   SHOT-VAE CLI at ``--steps-per-call`` 4 for two epochs of 9 steps on
+   12,000 synthetic images, its second epoch resumed from its first
+   epoch's checkpoint by the same CLI in this process, bit for bit; under
+   ``build/group_*``, removed after. Each line carries the card's name
+   and power limit.
 10. Print the ``kernels`` JSON line (each kernel's launches on every path,
-   the M2, classifier, encoder, data-parallel, fused and chunked paths
-   included),
+   the M2, classifier, encoder, data-parallel, fused and chunked paths,
+   in one process and over a group, included),
    then the result line ``{"ok": true, "device": {...}}`` as the last
    line.
 
@@ -220,9 +235,11 @@ the script stands without the rest of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import glob
+import io
 import json
 import math
 import os
@@ -1219,15 +1236,17 @@ def fused_trainer(model):
     return trainer(model, fused_streams=True)
 
 
-def classifier_trainer(model):
+def classifier_trainer(model, **step_kw):
     """The classifier's train step over ``model`` (SGD with its multistep
     LR at CIFAR-10's 4,000 labeled images, 6 steps an epoch); no loss
-    schedule (None)."""
+    schedule (None). ``step_kw``: the step's data-parallel arguments
+    (``dp``, ``bn_per_replica``, ``bn_stats``)."""
     from shotvae_torch.config import ClassifierConfig
     from shotvae_torch.train.steps import make_classifier_train_step
 
     state = _sgd_state(model, ClassifierConfig(), CLS_LOOP_STEPS)
-    return state, make_classifier_train_step(model, state.optimizer), None
+    return state, make_classifier_train_step(model, state.optimizer,
+                                             **step_kw), None
 
 
 def _trainer(kind: str):
@@ -3181,8 +3200,6 @@ TRACE_KERNELS = {"bn_stats": "_stats_kernel", "bn_apply": "_apply_kernel",
 
 def cudnn_deterministic():
     """cuDNN's deterministic flag on inside, as it was after."""
-    import contextlib
-
     import torch
 
     @contextlib.contextmanager
@@ -3220,12 +3237,13 @@ def _chunk_pool(dev, batch: int, kind: str):
 
 def _chunk_stepper(kind: str, step, pool, batch: int):
     """``step_by_index`` of a path over ``pool``."""
-    def step_by_index(state, idx, sched, draws, inject=None):
+    def step_by_index(state, idx, sched, draws, inject=None, shared=None):
         img, lab = pool.gather(idx)
         if kind == "classifier":
             return step(state, img, lab, draws, inject)
         return step(state, img[:batch], lab[:batch], img[batch:],
-                    lab[batch:], sched, draws, inject=inject)
+                    lab[batch:], sched, draws, inject=inject,
+                    shared_generator=shared)
     return step_by_index
 
 
@@ -3275,13 +3293,17 @@ def _kernel_of(name: str):
     return None
 
 
-def graph_kernels(graph) -> dict:
-    """{function name: kernel nodes} of a captured CUDA graph that kept
-    its cudaGraph_t (``keep_graph=True``), read through libcuda:
-    cuGraphGetNodes, cuGraphNodeGetType, cuGraphKernelNodeGetParams and
-    cuFuncGetName (cuKernelGetName for a node that holds a library
-    kernel)."""
-    import collections
+# cudaGraphNodeType: the kinds phase 16 counts apart (the rest: "other")
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset",
+                    6: "event_wait", 7: "event_record"}
+
+
+def graph_nodes(graph) -> list:
+    """[(node type, function name of a kernel node, else None)] of a
+    captured CUDA graph that kept its cudaGraph_t (``keep_graph=True``),
+    read through libcuda: cuGraphGetNodes, cuGraphNodeGetType,
+    cuGraphKernelNodeGetParams and cuFuncGetName (cuKernelGetName for a
+    node that holds a library kernel)."""
     import ctypes
 
     cu = ctypes.CDLL("libcuda.so.1")
@@ -3302,11 +3324,12 @@ def graph_kernels(graph) -> dict:
     call("cuGraphGetNodes", handle, None, ctypes.byref(count))
     nodes = (vp * count.value)()
     call("cuGraphGetNodes", handle, nodes, ctypes.byref(count))
-    names = collections.Counter()
+    out = []
     for node in nodes:
         kind = ctypes.c_int(-1)
         call("cuGraphNodeGetType", vp(node), ctypes.byref(kind))
         if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            out.append((kind.value, None))
             continue
         params = Params()
         call("cuGraphKernelNodeGetParams_v2", vp(node),
@@ -3316,8 +3339,36 @@ def graph_kernels(graph) -> dict:
             call("cuFuncGetName", ctypes.byref(name), vp(params.func))
         else:
             call("cuKernelGetName", ctypes.byref(name), vp(params.kern))
-        names[name.value.decode()] += 1
-    return dict(names)
+        out.append((0, name.value.decode()))
+    return out
+
+
+def graph_kernels(graph) -> dict:
+    """{function name: kernel nodes} of a captured CUDA graph
+    (``graph_nodes``)."""
+    import collections
+
+    return dict(collections.Counter(name for kind, name in
+                                    graph_nodes(graph) if kind == 0))
+
+
+def graph_node_types(graph) -> dict:
+    """A captured graph's nodes by type (GRAPH_NODE_TYPES, the rest
+    ``other``), its NCCL kernels (``nccl*`` functions) counted apart from
+    the other kernels, and those NCCL kernels by name."""
+    import collections
+
+    types = collections.Counter()
+    nccl = collections.Counter()
+    for kind, name in graph_nodes(graph):
+        if kind == 0 and name.lower().startswith("nccl"):
+            types["nccl_kernel"] += 1
+            nccl[name[:60]] += 1
+        else:
+            types[GRAPH_NODE_TYPES.get(kind, "other")] += 1
+    return {**{k: types.get(k, 0) for k in (
+        "kernel", "nccl_kernel", "memcpy", "memset", "event_record",
+        "event_wait", "other")}, "nccl_kernels_by_name": dict(nccl)}
 
 
 def measured_runner():
@@ -3359,7 +3410,7 @@ def graph_launches(runner, counters, what: str) -> dict:
 
 def chunk_path_phase(dev, batch: int, n: int, kind: str, dtype,
                      replays: int, timed: int, net: dict = WRN,
-                     expected=None) -> dict:
+                     expected=None, step_kw=None) -> dict:
     """A training path (``kind`` ``"shot"``, ``"m2"`` or ``"classifier"``
     in ``dtype``, over the encoder of ``net``) through
     ``train.chunk.ChunkRunner`` in chunks of ``n`` steps: an eager chunk,
@@ -3378,31 +3429,55 @@ def chunk_path_phase(dev, batch: int, n: int, kind: str, dtype,
     ``timed`` eager steps in turns (CHUNK_ROUNDS rounds), one profiled
     replay (its idle share, and its kernels by name against the launches
     of n steps where the trace caught them) and the peak memory of the
-    capture and its replays beside an eager step's."""
+    capture and its replays beside an eager step's.
+
+    ``step_kw``: the step's data-parallel arguments (``dp``, a group's
+    ``DataParallel``, and ``bn_per_replica``, ``bn_stats``,
+    ``global_mixup``; phase 16). Each step then also draws from a
+    generator every rank shares, and the collectives that the replays
+    and each capture issued (``DataParallel.collectives``) must equal the
+    eager steps'; on the card each graph's nodes are counted by type, and
+    the timing adds, in turns, the replays of a runner with no group on a
+    model of its own (phase 15's)."""
     import numpy as np
     import torch
 
+    from shotvae_torch.parallel import DataParallel
     from shotvae_torch.train.chunk import ChunkRunner
 
+    step_kw = step_kw or {}
+    dp = step_kw.get("dp")
     counters = kernel_counters()
     cuda = dev.type == "cuda"
     pool, row = _chunk_pool(dev, batch, kind)
-    gen = lambda i: torch.Generator().manual_seed(SEED + 40 + i)  # noqa
-    make = lambda: _trainer(kind)(_model(kind, net)(dev.type, dtype))  # noqa
-    (state_a, step_a, sched), (state_b, step_b, _) = make(), make()
+
+    def gen(i: int, group: bool = dp is not None):
+        """Step i's (rank's, shared) host generators."""
+        shared = torch.Generator().manual_seed(SEED + 4000 + i)
+        return (torch.Generator().manual_seed(SEED + 40 + i),
+                shared if group else None)
+
+    def make(**kw):
+        return _trainer(kind)(_model(kind, net)(dev.type, dtype), **kw)
+    (state_a, step_a, sched), (state_b, step_b, _) = (make(**step_kw),
+                                                      make(**step_kw))
     run_a = _chunk_stepper(kind, step_a, pool, batch)
     run_b = _chunk_stepper(kind, step_b, pool, batch)
 
     def chunk(runner, state, c0: int, steps: int = n):
         return runner.run(state, np.stack([row(i) for i in
                                            range(c0, c0 + steps)]),
-                          [gen(i) for i in range(c0, c0 + steps)])
+                          [gen(i, runner.dp is not None)
+                           for i in range(c0, c0 + steps)])
 
     def eager(i: int):
-        m = run_b(state_b, torch.from_numpy(row(i)).to(dev), sched, gen(i))
+        g, shared = gen(i)
+        m = run_b(state_b, torch.from_numpy(row(i)).to(dev), sched, g,
+                  shared=shared)
         return torch.stack([m[k].to(torch.float32) for k in runner.keys])
 
-    runner = measured_runner()(run_a, dev, steps=n, width=len(row(0)))
+    runner = measured_runner()(run_a, dev, steps=n, width=len(row(0)),
+                               dp=dp)
     runner.set_sched(sched)
     expected = expected or PATHS[kind][0]
     with cudnn_deterministic():
@@ -3410,9 +3485,11 @@ def chunk_path_phase(dev, batch: int, n: int, kind: str, dtype,
         want = [eager(i) for i in range(n)]
         _sync(dev)
         zero_counts(counters)
+        issued = DataParallel.collectives
         got += [chunk(runner, state_a, c * n)
                 for c in range(1, replays + 1)]
         _sync(dev)
+        replayed_collectives = DataParallel.collectives - issued
         replayed = {d: read_counts(counters, d)
                     for d in (torch.float32, torch.bfloat16)}
         launches = check_counts(
@@ -3420,13 +3497,21 @@ def chunk_path_phase(dev, batch: int, n: int, kind: str, dtype,
                               for k, c in expected.items()},
             f"{replays} replays of the {n}-step {kind} graph")
         zero_counts(counters)
+        issued = DataParallel.collectives
         want += [eager(i) for i in range(n, (replays + 1) * n)]
         _sync(dev)
+        stepped_collectives = DataParallel.collectives - issued
         stepped = {d: read_counts(counters, d)
                    for d in (torch.float32, torch.bfloat16)}
     check(replayed == stepped, f"the {replays} replays of the {n}-"
           f"step graph moved the launch counters by {replayed}; the same "
           f"{replays * n} eager steps by {stepped}")
+    captured = runner.graphs[n].collectives
+    check(replayed_collectives == stepped_collectives
+          == replays * captured and (dp is None) == (captured == 0),
+          f"the {kind} graph of {n} steps captured {captured} collectives, "
+          f"its {replays} replays issued {replayed_collectives}; the same "
+          f"{replays * n} eager steps {stepped_collectives}")
     got, want = torch.cat(got), torch.stack(want)
     check(torch.equal(got, want), f"the chunked {kind} steps' metrics "
           f"differ from the eager steps' by {_dist(got, want):.3e}")
@@ -3442,14 +3527,22 @@ def chunk_path_phase(dev, batch: int, n: int, kind: str, dtype,
                    + len(_momentum(state_a))),
                capture_s_deterministic=runner.capture_s.get(n),
                last_metrics=dict(zip(runner.keys, got[-1].tolist())))
+    if dp is not None:
+        out["collectives"] = dict(
+            captured_per_graph=captured, replays=replayed_collectives,
+            eager_steps=stepped_collectives, per_step=captured / n,
+            backend=dp.backend, world_size=dp.world_size)
     if not cuda:
         return out
     out["graph_kernel_nodes"] = graph_launches(runner, counters,
                                                f"the {kind} path")
+    if dp is not None:
+        out["graph_node_types"] = graph_node_types(runner.graphs[n].graph)
 
     # the default flags: a runner of its own (an eager chunk, then the
-    # capture) on the same model, timed against eager steps in turns
-    timer = ChunkRunner(run_a, dev, steps=n, width=len(row(0)))
+    # capture) on the same model, timed against eager steps in turns;
+    # over a group also against a runner with no group
+    timer = ChunkRunner(run_a, dev, steps=n, width=len(row(0)), dp=dp)
     timer.set_sched(sched)
     c0 = (replays + 1) * n
     chunk(timer, state_a, c0)
@@ -3463,18 +3556,27 @@ def chunk_path_phase(dev, batch: int, n: int, kind: str, dtype,
     _sync(dev)
     peak_eager = torch.cuda.max_memory_allocated(dev) / 1e9
     c0 += 2 * n
-    times = {"replay": [], "eager": []}
+    runs = {"replay": lambda c: chunk(timer, state_a, c),
+            "eager": eager}
+    per = {"replay": n, "eager": 1}
+    if dp is not None:
+        state_c, step_c, _ = make()
+        lone = ChunkRunner(_chunk_stepper(kind, step_c, pool, batch), dev,
+                           steps=n, width=len(row(0)))
+        lone.set_sched(sched)
+        for c in (0, n):  # its eager chunk, then its capture
+            chunk(lone, state_c, c)
+        runs["replay_no_group"] = lambda c: chunk(lone, state_c, c)
+        per["replay_no_group"] = n
+    times = {how: [] for how in runs}
     for r in range(CHUNK_ROUNDS):
-        for how in ("replay", "eager")[::1 if r % 2 == 0 else -1]:
+        for how in list(runs)[::1 if r % 2 == 0 else -1]:
             for _ in range(timed):
                 t0 = time.perf_counter()
-                if how == "replay":
-                    chunk(timer, state_a, c0)
-                else:
-                    eager(c0)
+                runs[how](c0)
                 _sync(dev)
                 times[how].append((time.perf_counter() - t0) * 1e3
-                                  / (n if how == "replay" else 1))
+                                  / per[how])
             c0 += n
     timing = {}
     for how, ts in times.items():
@@ -3628,7 +3730,7 @@ def chunk_memory_phase(dev, batch: int, n: int, net: dict,
     def chunk(c0: int):
         return runner.run(state, np.stack([row(i) for i in
                                            range(c0, c0 + n)]),
-                          [gen(i) for i in range(c0, c0 + n)])
+                          [(gen(i), None) for i in range(c0, c0 + n)])
 
     def peak() -> float:
         _sync(dev)
@@ -3760,6 +3862,219 @@ def chunk_paths(chunk: dict) -> dict:
     if "loop" in chunk:
         out["chunk_loop_bf16"] = chunk["loop"]["launches"]
     return out
+
+
+# ---------------------------------------------------------------- phase 16
+
+# --steps-per-call over a process group: each path as one CUDA graph of
+# CHUNK_STEPS steps through an NCCL group of one rank (gloo on the CPU),
+# held as phase 15 holds its paths, bf16 at 768 (+ 768)
+GROUP_CHUNK_PATHS = (
+    ("shot_sync_bf16", "shot", {}),
+    ("shot_replica_global_mixup_bf16", "shot",
+     {"bn_per_replica": True, "bn_stats": DP_BN_STATS,
+      "global_mixup": True}),
+    ("classifier_sync_bf16", "classifier", {}))
+GROUP_CHUNK_REPLAYS = 3
+# replays (and as many eager group steps) timed per round: an eager SHOT
+# step through the group takes 0.3 to 0.8 s
+GROUP_CHUNK_TIMED = 2
+# the launcher run: torchrun with one process on phase 13's 12,000
+# synthetic images, 9 steps of 768 + 768 an epoch in chunks of 4, 4 and 1
+# (the first eager, then a graph of 4 and one of 1, captured and replayed),
+# two epochs straight, then the second again from the first's checkpoint
+GROUP_CLI_N = 4
+GROUP_CLI_STEPS = 9
+GROUP_CLI_TIMEOUT_S = 300
+GROUP_CLI_ARGV = ["--num-devices", "1", "--steps-per-call", str(GROUP_CLI_N),
+                  "--synthetic-data", "--yes", "--dataset", "Cifar10",
+                  "--net-name", "wideresnet-28-2", "-b", str(BATCH), "--br",
+                  "--om", "--synthetic-size", "12000", "-rf", "1", "-p",
+                  "1", "--ckpt-every", "1", "--max-epochs", "2"]
+
+
+def run_command(argv, env: dict, timeout_s: float) -> list:
+    """``argv`` from the repository's root in a session of its own, its
+    output unbuffered: [(seconds since the start, line)] of its stdout
+    and stderr. Raises where it fails or outlasts ``timeout_s``; every
+    process of its session is stopped."""
+    import signal
+    import threading
+
+    def stop():
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=ROOT,
+                            env=dict(env, PYTHONUNBUFFERED="1"),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    timer = threading.Timer(timeout_s, stop)
+    timer.start()
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append((time.perf_counter() - t0, line.rstrip()))
+        proc.wait()
+    finally:
+        timer.cancel()
+        stop()
+    late = time.perf_counter() - t0 > timeout_s
+    check(proc.returncode == 0 and not late,
+          f"{' '.join(argv[:10])}... exited {proc.returncode} after "
+          f"{time.perf_counter() - t0:.0f} s (limit {timeout_s:.0f}):\n"
+          + "\n".join(line for _, line in lines[-40:]))
+    return lines
+
+
+def group_cli_phase(base: str) -> dict:
+    """The launcher run on the card: ``python3 -m torch.distributed.run
+    --nproc-per-node 1 -m shotvae_torch.cli.main_shot_vae`` with
+    GROUP_CLI_ARGV (two epochs at ``--steps-per-call`` GROUP_CLI_N,
+    checkpoints after each), under cuDNN's deterministic flag, which a
+    ``sitecustomize`` module written under ``base`` and put first on
+    PYTHONPATH sets at its start (the CLI has no flag for it, as the JAX
+    package's has none); then the same command's ``main`` in this process
+    under the same flag with ``--resume`` of a copy of the first epoch's
+    checkpoint (a second launch would cost about 30 s of process start).
+    The resumed second epoch must equal the straight run's: its log line,
+    and its final state against the straight run's last checkpoint (every
+    tensor of the model and the optimizer, the step) bit for bit. One
+    process: ``parallel.setup`` joins torchrun's group only above one
+    rank, so the run takes the path with no group."""
+    import torch
+
+    from shotvae_torch.parallel.mesh import free_port
+
+    site = os.path.join(base, "site")
+    os.makedirs(site)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write("import torch\ntorch.backends.cudnn.deterministic = True\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [site, ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    run_base = os.path.join(base, "run")
+    folder = os.path.join(run_base, "Cifar10-SHOT-VAE", "parameter",
+                          "train_time_1")
+
+    def launch(*extra) -> tuple:
+        """(the run's log text, {milestone: seconds since the launch})."""
+        argv = [sys.executable, "-m", "torch.distributed.run",
+                "--nproc-per-node", "1", "--master-addr", "127.0.0.1",
+                "--master-port", str(free_port()), "-m",
+                "shotvae_torch.cli.main_shot_vae", *GROUP_CLI_ARGV, "-bp",
+                run_base, *extra]
+        t0 = time.perf_counter()
+        lines = run_command(argv, env, GROUP_CLI_TIMEOUT_S)
+        marks = {"exit": time.perf_counter() - t0}
+        for t, line in lines:
+            for mark in ("Begin the", "Epoch: [0]", "Epoch: [1]",
+                         "Epoch 0:", "Epoch 1:"):
+                if line.strip().startswith(mark):
+                    marks.setdefault(mark, t)
+        return "\n".join(line for _, line in lines), marks
+
+    def epoch_line(text: str, epoch: int) -> str:
+        lines = [ln.strip() for ln in text.splitlines()
+                 if ln.strip().startswith(f"Epoch {epoch}: valid top1")]
+        check(len(lines) == 1, f"the launcher run logged {lines} for epoch "
+              f"{epoch}")
+        return lines[0]
+
+    def payload(path: str) -> dict:
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    straight, straight_s = launch()  # the run, its milestones' seconds
+    check(f"Epoch: [0][{GROUP_CLI_N}/{GROUP_CLI_STEPS}]" in straight,
+          f"the launcher run's first chunk is not {GROUP_CLI_N} of "
+          f"{GROUP_CLI_STEPS} steps")
+    first = os.path.join(base, "epoch1.pth.tar")
+    shutil.copyfile(os.path.join(folder, "checkpoint.slot0.pth.tar"), first)
+    want = payload(os.path.join(folder, "checkpoint.slot1.pth.tar"))
+    check(payload(first)["epoch"] == 1 and want["epoch"] == 2,
+          "the launcher run's checkpoints are not those of epochs 1 and 2")
+    from shotvae_torch.cli import main_shot_vae
+
+    log = io.StringIO()
+    with cudnn_deterministic(), contextlib.redirect_stdout(log):
+        run = main_shot_vae.main([*GROUP_CLI_ARGV, "-bp", run_base,
+                                  "--resume", first])
+    state = run["state"]
+    momentum = _momentum(state)
+    diff = [k for k, v in state.model.state_dict().items()
+            if not torch.equal(v.cpu(), want["state_dict"][k])]
+    diff += [f"momentum {k}" for k, st in want["optimizer"]["state"].items()
+             if not torch.equal(momentum[k].cpu(), st["momentum_buffer"])]
+    check(not diff and state.step == want["step"] == 2 * GROUP_CLI_STEPS
+          and [h["epoch"] for h in run["history"]] == [1],
+          f"the resumed second epoch differs from the straight run's last "
+          f"checkpoint in {diff[:5]} (step {state.step} / {want['step']})")
+    line = epoch_line(log.getvalue(), 1)
+    check(line == epoch_line(straight, 1), f"the resumed second epoch "
+          f"logged {line!r}; the straight run {epoch_line(straight, 1)!r}")
+    return dict(steps_per_call=GROUP_CLI_N, steps_per_epoch=GROUP_CLI_STEPS,
+                epochs=2, epoch1_line=line, resumed_bit_identical=dict(
+                    tensors=len(want["state_dict"]) + len(momentum),
+                    step=state.step),
+                straight_timeline_s=straight_s,
+                resumed_epoch_s=run["history"][0]["seconds"],
+                chunk_lines=[ln for ln in straight.splitlines()
+                             if ln.strip().startswith("Epoch: [")],
+                group="none: one process")
+
+
+def group_chunk_phases(dev, batch: int, n: int, base: str, card: str,
+                       cli: bool = True) -> dict:
+    """Phase 16: ``--steps-per-call`` over a process group of one rank in
+    this process (NCCL on the card, gloo on the CPU), each path of
+    GROUP_CHUNK_PATHS as one graph of ``n`` steps at ``batch`` (+
+    ``batch``) through ``chunk_path_phase`` with the group's step
+    arguments; then, with ``cli``, the launcher run (``group_cli_phase``)
+    under a folder of ``base``; each part's lines printed beside
+    ``card``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from shotvae_torch.device import exact_f32
+    from shotvae_torch.parallel import DataParallel
+    from shotvae_torch.parallel.mesh import COLLECTIVE_TIMEOUT_S, free_port
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    out = {}
+    dist.init_process_group(
+        backend, init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+    try:
+        dp = DataParallel(dist.group.WORLD)
+        for tag, kind, kw in GROUP_CHUNK_PATHS:
+            t0 = time.perf_counter()
+            with exact_f32():  # the bare steps, held as the entry points
+                out[tag] = chunk_path_phase(
+                    dev, batch, n, kind, torch.bfloat16, GROUP_CHUNK_REPLAYS,
+                    GROUP_CHUNK_TIMED, step_kw=dict(dp=dp, **kw))
+            for key, value in out[tag].items():
+                print(f"group_chunk_{tag}_{key}_at_batch_{batch} "
+                      + json.dumps({"value": value, "card": card}))
+            print(f"group chunk {tag} phase {time.perf_counter() - t0:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    if cli:
+        t0 = time.perf_counter()
+        out["cli"] = group_cli_phase(base)
+        print("group_chunk_launcher_run "
+              + json.dumps({"value": out["cli"], "card": card}))
+        print(f"group chunk launcher phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def group_chunk_paths(group: dict) -> dict:
+    """{path: the bf16 launches of each kernel}: phase 16's replays."""
+    return {f"group_chunk_{tag}": group[tag]["launches"]
+            for tag, _, _ in GROUP_CHUNK_PATHS}
 
 
 # -------------------------------------------------------------------- main
@@ -4149,6 +4464,14 @@ def main() -> int:
     finally:
         shutil.rmtree(folder, ignore_errors=True)
     print(f"chunk phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    folder = tempfile.mkdtemp(prefix="group_", dir=os.path.join(ROOT,
+                                                                "build"))
+    try:  # phase 16
+        group = group_chunk_phases(dev, BATCH, CHUNK_STEPS, folder, smi)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    print(f"group chunk phase {time.perf_counter() - t0:.1f} s")
     conv_train = sum(r["launches"] for r in conv_bwd_rows)
     check(conv_train * TRAIN_STEPS == train["launches"]["fused_bn_act_conv"],
           f"the fused conv backward rows weigh {conv_train} launches per "
@@ -4207,6 +4530,7 @@ def main() -> int:
     paths.update(dp_paths(dp))
     paths.update(fused_paths(fused))
     paths.update(chunk_paths(chunk))
+    paths.update(group_chunk_paths(group))
     for path, counts in paths.items():
         if counts["fused_joint_sample"]:
             sampler["launches_by_path"][path] = counts["fused_joint_sample"]

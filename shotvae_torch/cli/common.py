@@ -11,9 +11,7 @@ under torchrun (``shotvae_torch.parallel``):
   torchrun --nproc-per-node N -m shotvae_torch.cli.main_shot_vae \
       --num-devices N ...
 
-Flags of parts the port does not have yet parse, then raise
-``NotImplementedError`` naming their ROADMAP.md item
-(``shotvae_torch.train.loop.refuse_unported``).
+and takes every flag there, ``--steps-per-call`` above 1 included.
 """
 
 from __future__ import annotations
@@ -187,8 +185,10 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                              "of a CUDA graph captured after the first "
                              "chunk (which runs eagerly), the same steps, "
                              "draws and batches as N = 1; on the CPU the "
-                             "steps run one after another. Not over a "
-                             "process group (torchrun): N > 1 raises there")
+                             "steps run one after another. Under torchrun "
+                             "too: each rank captures its steps with their "
+                             "NCCL collectives (a gloo group on a card "
+                             "raises)")
     parser.add_argument("--global-mixup", action="store_true",
                         help="with --bn-per-replica: draw mixup/"
                              "label-smoothing partners over the GLOBAL batch "

@@ -33,6 +33,8 @@ from typing import Optional
 import torch
 
 NAMES = ("checkpoint", "best")
+# the optimizer's implementation flags: the run's own, not the checkpoint's
+IMPLEMENTATION_FLAGS = ("fused", "foreach", "differentiable", "capturable")
 
 
 def _read_pointer(pointer: str) -> str:
@@ -160,9 +162,26 @@ class CheckpointManager:
             raise FileNotFoundError(f"Checkpoint Resume File {path} Not Found")
         payload = torch.load(path, map_location="cpu", weights_only=True)
         state.model.load_state_dict(payload["state_dict"], strict=True)
-        state.optimizer.load_state_dict(payload["optimizer"])
+        load_optimizer(state.optimizer, payload["optimizer"])
         state.step = int(payload["step"])
         return state, int(payload["epoch"]), payload["args"]
+
+
+def load_optimizer(optimizer: torch.optim.Optimizer, state_dict: dict) -> None:
+    """``optimizer.load_state_dict(state_dict)``: the state (momentum
+    buffers) and the hyperparameters (``lr``, ``momentum``,
+    ``weight_decay``, ...) of the checkpoint, with the run's own
+    implementation flags (``IMPLEMENTATION_FLAGS``) put back after it, which
+    ``load_state_dict`` would take from the checkpoint: a checkpoint of
+    torch's default (foreach) SGD stores ``fused: None``, which would turn
+    the run's fused SGD, whose rate a CUDA graph of steps gives as a tensor,
+    into a foreach one. The JAX package's optax state carries no such
+    flag."""
+    own = [{k: g[k] for k in IMPLEMENTATION_FLAGS if k in g}
+           for g in optimizer.param_groups]
+    optimizer.load_state_dict(state_dict)
+    for group, flags in zip(optimizer.param_groups, own):
+        group.update(flags)
 
 
 def _write_text(path: str, text: str) -> None:

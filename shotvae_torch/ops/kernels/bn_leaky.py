@@ -74,6 +74,7 @@ import math
 import torch
 
 from shotvae_torch.ops.kernels import count_launch, init_counts, sm_count
+from shotvae_torch.parallel.mesh import issue
 
 LEAKY_SLOPE = 0.01
 _BLOCK_ELEMS = 4096      # elements per apply program: 16 KiB of f32
@@ -431,6 +432,9 @@ init_counts(bn_stats, bn_apply, bn_bwd_reduce, bn_bwd_apply)
 
 
 # ------------------------------------------------------------------ sync-BN
+# Neither collective reads a value back to the host (the world size is the
+# group's own host-side count), so a CUDA graph captures each all-reduce
+# between the kernels, as ``train.chunk`` does over a process group.
 
 
 def global_stats(stats, m: int, eps: float, group):
@@ -442,7 +446,7 @@ def global_stats(stats, m: int, eps: float, group):
     and invstd from the float32 var as the kernel takes it."""
     local = stats[:2].to(torch.float64)
     sums = torch.stack([local[0], local[1] + local[0] * local[0]]) * m
-    torch.distributed.all_reduce(sums, group=group)
+    issue(torch.distributed.all_reduce, sums, group)
     count = m * torch.distributed.get_world_size(group)
     mean = sums[0] / count
     var = torch.clamp(sums[1] / count - mean * mean, min=0.0).to(torch.float32)
@@ -454,7 +458,7 @@ def global_sums(sums, group):
     """Sync-BN's backward collective: ``bn_bwd_reduce``'s (2, C) sums over
     the rows of every rank of ``group``."""
     total = sums.clone()
-    torch.distributed.all_reduce(total, group=group)
+    issue(torch.distributed.all_reduce, total, group)
     return total
 
 

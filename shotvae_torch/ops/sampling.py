@@ -9,7 +9,10 @@ A train step takes its draws through ``StepDraws``: persistent device
 generators and 0-d float32 mixup weights, one per random site, seeded from
 the step's host generator in the order the sites ask. Seeding a persistent
 generator gives the draws of a fresh one with the same seed, and the slots
-stay where a CUDA graph that captured the step reads them.
+stay where a CUDA graph that captured the step reads them. A step over a
+process group draws from two host generators, the rank's own and the one
+every rank shares (mixup over the global batch), each through a
+``StepDraws`` of its own with its own plan.
 """
 
 from __future__ import annotations

@@ -30,8 +30,17 @@ issues a collective, and the step is exactly the single-card step.
 
 Every rank must issue the same collectives in the same order; a rank that
 fails leaves the others waiting until the group's timeout
-(``COLLECTIVE_TIMEOUT_S``). ``spawn_ranks`` runs W ranks of one function on
-one host and fails where any rank fails or the run outlasts its limit.
+(``COLLECTIVE_TIMEOUT_S``). That timeout covers eager collectives only: a
+collective captured in a CUDA graph (``--steps-per-call`` above 1,
+``train.chunk``) runs inside each replay, which the group's watchdog does
+not track, so a replay whose peer never joins hangs until the caller's own
+time limit. ``spawn_ranks`` runs W ranks of one function on one host and
+fails where any rank fails or the run outlasts its limit.
+
+Each collective is counted on ``DataParallel.collectives`` where it is
+issued (``issue``), as a kernel wrapper counts its launches: a step reads
+nothing back to the host, so a graph can capture its collectives, and the
+chunk runner holds a capture's count against the eager steps'.
 """
 
 from __future__ import annotations
@@ -50,16 +59,29 @@ COLLECTIVE_TIMEOUT_S = 600
 BN_STATS_POLICIES = ("replica0", "mean")
 
 
+def issue(collective, t: torch.Tensor, group, **kw) -> torch.Tensor:
+    """``collective(t, group=group, **kw)`` (a ``torch.distributed``
+    collective, in place on ``t``), counted on
+    ``DataParallel.collectives``."""
+    DataParallel.collectives += 1
+    collective(t, group=group, **kw)
+    return t
+
+
 class DataParallel:
-    """The ranks of one process group (None: one process, no collective).
+    """The ranks of one process group (None: one process, no collective)
+    and the group's backend (None without a group).
 
     A group of one rank still issues every collective, so the group path
     can be checked on a single card."""
+
+    collectives = 0  # the collectives of this process's steps (``issue``)
 
     def __init__(self, group=None):
         self.group = group
         self.world_size = 1 if group is None else dist.get_world_size(group)
         self.rank = 0 if group is None else dist.get_rank(group)
+        self.backend = None if group is None else dist.get_backend(group)
 
     @property
     def is_main(self) -> bool:
@@ -91,7 +113,7 @@ class DataParallel:
                     ) -> torch.Tensor:
         """Sum (or mean) ``t`` over the ranks, in place."""
         if self.group is not None:
-            dist.all_reduce(t, group=self.group)
+            issue(dist.all_reduce, t, self.group)
             if mean:
                 t.div_(self.world_size)
         return t
@@ -160,8 +182,8 @@ class DataParallel:
             return
         flat = torch.cat([b.reshape(-1) for b in bufs])
         if policy == "replica0":
-            dist.broadcast(flat, src=dist.get_global_rank(self.group, 0),
-                           group=self.group)
+            issue(dist.broadcast, flat, self.group,
+                  src=dist.get_global_rank(self.group, 0))
         else:
             self.all_reduce_(flat, mean=True)
         start = 0

@@ -13,9 +13,10 @@ forwards, the backward and the update there. Nothing is read back inside
 the step loop: the train metrics stay on the device until the epoch ends,
 the eval sums until each split ends. With ``steps_per_call`` N above 1 the
 SHOT-VAE, M2 and classifier loops dispatch chunks of N steps
-(``train.chunk``): on the card one CUDA graph replay per chunk, the same
-steps, keys and batches as per-step dispatch, as the JAX loop's chunked
-branch; the eval steps stay one dispatch per batch.
+(``train.chunk``), in one process or over a process group in both BN
+modes: on the card one CUDA graph replay per chunk, the same steps, keys
+and batches as per-step dispatch, as the JAX loop's chunked branch; the
+eval steps stay one dispatch per batch.
 
 Randomness is keyed by integers, so a resumed run replays exactly what the
 uninterrupted run would have drawn:
@@ -94,21 +95,6 @@ from shotvae_torch.utils.meters import AverageMeter, MetricAccumulator
 
 EVAL_KEY = 10_000   # eval batch j draws with step key EVAL_KEY + j
 GRID_KEY = 99_999   # the train reconstruction grid's step key
-
-
-def refuse_unported(cfg: ShotVaeConfig, dp: DataParallel) -> None:
-    """Raise for a setting that drives a part the port does not have yet,
-    naming its ROADMAP.md item: none is silently ignored. ``dp``: the
-    run's ranks, after ``setup``."""
-    unported = [
-        (cfg.steps_per_call > 1 and dp.group is not None,
-         "--steps-per-call > 1 over a process group (NCCL collectives and "
-         "the sync-BN all-reduces inside a captured graph)", "13c"),
-    ]
-    for on, flag, item in unported:
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md queue 1 item {item})")
 
 
 def _prepare_writer_dir(log_dir: str, *, resume: bool, assume_yes: bool,
@@ -212,31 +198,35 @@ def _summed(rows, keys=None) -> dict:
     return dict(zip(keys, table.to(torch.float64).sum(0).unbind()))
 
 
-def _chunk_runner(cfg, dev, step_by_index, width: int):
-    """The chunk runner of ``cfg.steps_per_call`` above 1, else None."""
+def _chunk_runner(cfg, dev, step_by_index, width: int, dp: DataParallel):
+    """The chunk runner of ``cfg.steps_per_call`` above 1 over ``dp``'s
+    ranks, each step on ``width`` indices of this rank's rows, else
+    None."""
     if cfg.steps_per_call <= 1:
         return None
     return ChunkRunner(step_by_index, dev, steps=cfg.steps_per_call,
-                       width=width)
+                       width=width, dp=dp)
 
 
 def _dispatch(runner, step_by_index, state, rows: np.ndarray, sched,
               seed: int, epoch: int, c0: int, dp: DataParallel,
               streams: int):
     """Train steps [c0, c0 + n) of ``epoch`` on the (n, width) index
-    ``rows``, each row ``streams`` blocks of the global batch's indices.
-    With a chunk runner (``steps_per_call`` above 1): one chunk, step i
-    drawing from per-step dispatch's host generator (JAX's
-    ``_chunk_keys``); returns its (n, len(runner.keys)) metrics. Else the
-    one step itself on this rank's share of each block; returns its
-    metric dict."""
+    ``rows``, each row ``streams`` blocks of the global batch's indices,
+    each step on this rank's share of each block, step i drawing from
+    per-step dispatch's host generators (``step_generators``; JAX's
+    ``_chunk_keys``). With a chunk runner (``steps_per_call`` above 1):
+    one chunk; returns its (n, len(runner.keys)) metrics. Else the one
+    step itself; returns its metric dict."""
+    local = np.stack([np.concatenate([dp.shard(b)
+                                      for b in np.split(row, streams)])
+                      for row in rows])
+    keys = [step_generators(seed, epoch, i, dp)
+            for i in range(c0, c0 + len(rows))]
     if runner is not None:
-        return runner.run(state, rows, [step_generator(seed, epoch, i)
-                                        for i in range(c0, c0 + len(rows))])
-    (row,) = rows
-    gen, shared = step_generators(seed, epoch, c0, dp)
-    local = np.concatenate([dp.shard(b) for b in np.split(row, streams)])
-    return step_by_index(state, local, sched, gen, shared=shared)
+        return runner.run(state, local, keys)
+    ((row,), ((gen, shared),)) = local, keys
+    return step_by_index(state, row, sched, gen, shared=shared)
 
 
 def shot_vae_chunks(seed: int, epoch: int, labeled: np.ndarray,
@@ -295,7 +285,6 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
     first writes checkpoints, TensorBoard events and the log."""
     dev = resolve_device(device)
     dp = setup(cfg, dev)
-    refuse_unported(cfg, dp)
     if cfg.batch_size % dp.world_size:
         raise ValueError(
             f"batch_size {cfg.batch_size} must be divisible by the number of "
@@ -357,7 +346,7 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
                     labels[local:], sched, gen, inject=inject,
                     shared_generator=shared)
 
-    runner = _chunk_runner(cfg, dev, step_by_index, 2 * local)
+    runner = _chunk_runner(cfg, dev, step_by_index, 2 * local, dp)
     best_valid_acc = -1.0
     history, epoch_times = [], []
     profiler = None
@@ -523,7 +512,6 @@ def run_classifier(cfg: ClassifierConfig, *, max_epochs: Optional[int] = None,
     ``pad_batch_size``)."""
     dev = resolve_device(device)
     dp = setup(cfg, dev)
-    refuse_unported(cfg, dp)
     log_fn = log_fn if dp.is_main else _quiet
     spec = cfg.apply_dataset_overrides()
     train_data, test_data, split = _datasets(cfg, spec)
@@ -558,7 +546,8 @@ def run_classifier(cfg: ClassifierConfig, *, max_epochs: Optional[int] = None,
         img, lab = train_ds.gather(idx)
         return step(state, img, lab, gen, inject)
 
-    runner = _chunk_runner(cfg, dev, step_by_index, batch)
+    runner = _chunk_runner(cfg, dev, step_by_index,
+                           batch // dp.world_size, dp)
     labeled_iter = infinite_batches(np.random.default_rng(cfg.seed),
                                     split.labeled, batch)
     history, train_losses, epoch_times = [], [], []

@@ -17,7 +17,10 @@ flips and the latent draws on the model's device, the mixup weights on the
 host, the mixup permutations on the device. The sites take their draws
 through a ``sampling.StepDraws`` (the step's own, or a chunk runner's in
 place of ``generator``): persistent device generators seeded in turn, and
-the mixup weights as 0-d float32 slots. ``sched`` enters as 0-d float32
+the mixup weights as 0-d float32 slots; so do the draws over the global
+batch of several ranks, from ``shared_generator`` (a ``StepDraws`` of its
+own), so that a mixup weight is the same float32 value whether the step
+runs alone or in a chunk. ``sched`` enters as 0-d float32
 tensors on the model's device (Python floats are converted), as the JAX
 loop puts it on the device. So the SHOT-VAE, M2 and classifier steps read
 no host value that changes from step to step, and a CUDA graph can
@@ -238,7 +241,7 @@ def _vae_train_step(model, optimizer, loss_fn, aug: bool, ranks: _Ranks):
     """The two-stream step around ``loss_fn(x_l, lab_l, x_u, lab_u, sched,
     generator, inject, shared_generator) -> (total, metrics)``."""
 
-    own = {}
+    own, own_shared = {}, {}
 
     def step(state: TrainState, img_l, lab_l, img_u, lab_u, sched,
              generator: Optional[torch.Generator] = None, inject=None,
@@ -247,6 +250,7 @@ def _vae_train_step(model, optimizer, loss_fn, aug: bool, ranks: _Ranks):
         inj = _local_inject(inject, ranks)
         dev = _device(model)
         generator = _step_draws(own, generator, dev)
+        shared_generator = _step_draws(own_shared, shared_generator, dev)
         sched = _sched(sched, dev)
         model.train()
         x_l = _prepare(img_l, dev, augment=aug, generator=generator,

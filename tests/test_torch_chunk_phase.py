@@ -7,8 +7,16 @@ failing a runner that freezes its first step's mixup weights into every
 step of a chunk, and a replay whose launch counters do not move. One
 replay a path here (CHUNK_REPLAYS, 3 in bf16 on the card): on the CPU every
 replay of a chunk length takes the same path, and no launch is
-counted."""
+counted.
 
+Phase 16 (the same over a process group) likewise, over a gloo group of
+one rank in this process: its paths' replays against eager group steps bit
+for bit with the collectives of the replays equal to the eager steps'
+(its launcher run needs the card); and the phase failing a runner that
+leaves the shared generator's slots as the last step left them, and a
+capture whose collectives are counted twice."""
+
+import contextlib
 import importlib.util
 import math
 import os
@@ -117,3 +125,86 @@ def test_chip_smoke_chunk_phase_fails_a_planted_fault(fault, match,
     with pytest.raises(RuntimeError, match=match):
         chip_smoke.chunk_path_phase(torch.device("cpu"), BATCH, N, "shot",
                                     None, 1, 0)
+
+
+def _group_phase(chip_smoke, paths):
+    """Phase 16 on the CPU over gloo at batch 2 with N = 2, one replay a
+    path, the paths of ``paths``; no launcher run."""
+    chip_smoke.GROUP_CHUNK_REPLAYS = 1
+    chip_smoke.GROUP_CHUNK_PATHS = tuple(
+        p for p in chip_smoke.GROUP_CHUNK_PATHS if p[0] in paths)
+    assert [p[0] for p in chip_smoke.GROUP_CHUNK_PATHS] == list(paths)
+    return chip_smoke.group_chunk_phases(torch.device("cpu"), BATCH, N, "",
+                                         "cpu", cli=False)
+
+
+def test_chip_smoke_group_chunk_phase_runs_on_cpu():
+    """Phase 16's three paths over a gloo group of one rank: the sync-BN
+    SHOT-VAE step, the per-replica one with global mixup and the sync-BN
+    classifier step, each chunked against eager group steps bit for bit,
+    no launch counted, the collectives of the replays equal to those of
+    the eager steps and to the capture's, finite metrics."""
+    paths = ("shot_sync_bf16", "shot_replica_global_mixup_bf16",
+             "classifier_sync_bf16")
+    out = _group_phase(_chip_smoke(), paths)
+    for tag in paths:
+        res = out[tag]
+        assert set(res["launches"].values()) == {0}
+        assert res["eager_vs_replay_bit_identical"]["steps"] == 2 * N
+        coll = res["collectives"]
+        assert coll["backend"] == "gloo" and coll["world_size"] == 1
+        assert coll["replays"] == coll["eager_steps"] == \
+            coll["captured_per_graph"] > 0
+        assert all(math.isfinite(v) for v in res["last_metrics"].values())
+    # sync-BN: two all-reduces a BN site; per replica: none there
+    assert out["shot_sync_bf16"]["collectives"]["per_step"] > \
+        out["shot_replica_global_mixup_bf16"]["collectives"]["per_step"]
+
+
+def _stale_shared_slots(monkeypatch):
+    """A runner that seeds each step's own generators and writes its rate,
+    but leaves the shared generator's slots (its generators and weights)
+    as the last step left them."""
+    from shotvae_torch.train import chunk
+
+    def write(self, state, n, generators):
+        rows = self.scalars[:n].clone()
+        for j, (gen, _) in enumerate(generators):
+            self.draws[j].ensure(self.plan)
+            lams = self.draws[j].seed(gen)
+            rows[j, :len(lams)] = torch.tensor(lams)
+            rows[j, chunk.LR] = self._rate(state, state.step + j)
+        self.scalars[:n].copy_(rows)
+
+    monkeypatch.setattr(chunk.ChunkRunner, "_write", write)
+
+
+def _double_counted_collectives(monkeypatch):
+    """A capture that counts each of its collectives twice."""
+    from shotvae_torch.train import chunk
+
+    held = chunk._held
+
+    @contextlib.contextmanager
+    def doubled(counts):
+        with held(counts) as made:
+            yield made
+        counts["collectives"] *= 2
+
+    monkeypatch.setattr(chunk, "_held", doubled)
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("stale shared slots", "metrics differ"),
+    ("collectives counted twice", "collectives")])
+def test_chip_smoke_group_chunk_phase_fails_a_planted_fault(fault, match,
+                                                            monkeypatch):
+    """Phase 16's sync-BN SHOT-VAE path over a gloo group of one rank at
+    batch 2 with N = 2 fails a runner that skips the re-seed of the shared
+    generator's slots (the mixup weights and partners over the global
+    batch), and a capture whose collectives are counted twice."""
+    {"stale shared slots": _stale_shared_slots,
+     "collectives counted twice": _double_counted_collectives}[fault](
+        monkeypatch)
+    with pytest.raises(RuntimeError, match=match):
+        _group_phase(_chip_smoke(), ("shot_sync_bf16",))

@@ -24,7 +24,14 @@ results are held here against:
 * ``gather_mixup`` against one draw over the global batch on the host;
 * a tiny two-rank ``run_shot_vae``: the same history on both ranks, files
   written by rank 0 only, a resume from rank 0's checkpoint equal to a
-  straight run.
+  straight run;
+* ``--steps-per-call`` over the two ranks (the chunk runner's plain
+  version): one tiny epoch of the sync-BN SHOT-VAE with ``--om``, the
+  per-replica one with ``--global-mixup`` and the sync-BN classifier at
+  N = 4 against N = 1 bit for bit; three injected SHOT-VAE steps through
+  the runner against JAX's ``jit_step`` and ``shard_map_step``; the CLI
+  at ``--steps-per-call 4`` inside the group; and, without ranks, the
+  refusal of a gloo group on a CUDA device.
 
 Tolerances: 1e-3 abs + rel on parameters, running statistics and metrics
 (f32 goldens, as the port's lockstep tests hold the JAX step); one process
@@ -84,6 +91,25 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+# ``--steps-per-call``: one tiny epoch of each case at N = CHUNK_N and at
+# N = 1 on the two ranks, 6 steps at a global batch of 8 (a chunk of 4
+# that runs eagerly, then a chunk of 2 through the runner's static inputs;
+# the classifier's 43 labeled images give 6 steps too)
+CHUNK_N = 4
+_CHUNK_FIELDS = dict(dataset="Cifar10", batch_size=8,
+                     net_name="wideresnet-10-1", ldc=8, synthetic_data=True,
+                     synthetic_size=60, valid_per_class=1,
+                     annotated_per_class=6, yes=True, epochs=1,
+                     reconstruct_freq=1, print_freq=100, adjust_lr=[0, 1],
+                     bf16=False, ckpt_every=0)
+CHUNKED_CASES = {
+    "shot_sync_om": ("shot", dict(_CHUNK_FIELDS, om=True)),
+    "shot_replica_global_mixup": ("shot", dict(
+        _CHUNK_FIELDS, bn_per_replica=True, global_mixup=True)),
+    "classifier_sync": ("classifier", _CHUNK_FIELDS)}
+CHUNK_STEPS = 6
 
 
 def _randomize_bn(params, batch_stats, rng):
@@ -157,6 +183,7 @@ def setup():
                 inject=_draws(rng))
     local = dict(kind="shot", state_dict=sd, batch=batch, aug=False,
                  inject=_draws(rng, local_mixup=True), bn_per_replica=True)
+    rng_chunk = np.random.default_rng(7)
     torch.manual_seed(0)
     cls_model = workers.classifier()
     steps = {
@@ -203,7 +230,22 @@ def setup():
             "ls": 0.1 * torch.randn((B, DC), generator=g),
             "la": torch.log_softmax(torch.randn((B, K), generator=g), 1),
             "lab": torch.randint(0, K, (B,), generator=g), "seed": 11}},
-        "refusals": {"argv": ["-bp", "unused", "--synthetic-data", "--yes"]},
+        # the misfits raise before anything runs; --steps-per-call 4 runs
+        # one epoch of 6 steps at 4 + 4 a rank (a chunk of 4, then 2)
+        "refusals": {"argv": ["-bp", "unused", "--synthetic-data", "--yes"],
+                     "spc_argv": [
+                         "--net-name", "wideresnet-10-1", "--ldc", "8",
+                         "--synthetic-data", "--synthetic-size", "60", "-b",
+                         "8", "--valid-per-class", "1",
+                         "--annotated-per-class", "1", "--yes", "--no-bf16",
+                         "--max-epochs", "1", "-p", "100", "-rf", "1",
+                         "--ckpt-every", "0", "--steps-per-call", "4"]},
+        "chunked": {"cases": CHUNKED_CASES, "n": CHUNK_N},
+        "injected_chunk": {"steps": {
+            "shot_sync": dict(sync, injects=[_draws(rng_chunk)
+                                             for _ in range(3)]),
+            "shot_replica0": dict(local, bn_stats="replica0", injects=[
+                _draws(rng_chunk, local_mixup=True) for _ in range(3)])}},
         # 92 unlabeled images: one step of 32 + 32 a rank an epoch
         "epoch_and_resume": {"config": dict(
             dataset="Cifar10", batch_size=64, net_name="wideresnet-10-1",
@@ -221,9 +263,13 @@ def ranks(setup, tmp_path_factory):
     folder = str(tmp_path_factory.mktemp("ranks"))
     torch.save({"steps": setup["steps"], "parts": setup["parts"]},
                os.path.join(folder, "jobs.pt"))
-    spawn_ranks(workers.run, WORLD, folder, timeout_s=300)
-    return {r: torch.load(os.path.join(folder, f"rank{r}.pt"),
-                          weights_only=False) for r in range(WORLD)}
+    spawn_ranks(workers.run, WORLD, folder, timeout_s=600)
+    out = {}
+    for r in range(WORLD):  # read, then removed: each is over 0.5 GB
+        path = os.path.join(folder, f"rank{r}.pt")
+        out[r] = torch.load(path, weights_only=False)
+        os.remove(path)
+    return out
 
 
 def _close(got, want, tol, what):
@@ -383,22 +429,52 @@ def _jax_result(jm, new_state, metrics) -> dict:
                                              new_state.batch_stats))}
 
 
-def test_sync_shot_step_matches_jax_gspmd(setup, ranks):
+@pytest.fixture(scope="module")
+def jax_wrapped(setup):
+    """(the two-device mesh's ``DataParallel``, ``get(replica, gm=False)``,
+    the replicated initial state, whose optimizer is part of what a step
+    compiles for): JAX's SHOT-VAE step (optimal match on, no crops) under ``jit_step``
+    (sync-BN) or, with ``replica``, ``shard_map_step`` (per replica, with
+    ``global_mixup`` as ``gm``), made once per form so that the tests that
+    call one form share its compilation. While the module runs, JAX's
+    mixup takes an injected weight of shape (1,) as a scalar
+    (``_jax_lam_squeezed``: under ``shard_map`` a per-replica weight
+    arrives as its replica's slice; a sync step's weight is 0-d)."""
+    jm, params, bs = setup["jax"]
+    jdp = JaxDataParallel(make_mesh(WORLD))
+    made = {}
+
+    def get(replica: bool, gm: bool = False):
+        if (replica, gm) not in made:
+            jstep = jax_steps.make_shot_vae_train_step(
+                jm, num_classes=K, bce=True, x_sigma=1.0, epsilon=0.1,
+                optimal_match=True,
+                aug=jax_steps.AugmentConfig(enabled=False),
+                **({"axis_name": jdp.axis_name, "global_mixup": gm}
+                   if replica else {}))
+            made[replica, gm] = (
+                jdp.shard_map_step(jstep, batch_argnums=(0, 1, 2, 3, 6),
+                                   donate_state=False) if replica else
+                jdp.jit_step(jstep, batch_argnums=(0, 1, 2, 3),
+                             donate_state=False))
+        return made[replica, gm]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_steps, "mixup", _jax_lam_squeezed())
+        yield jdp, get, jdp.replicate(_jax_state(jm, params, bs))
+
+
+def test_sync_shot_step_matches_jax_gspmd(setup, ranks, jax_wrapped):
     """The two-rank sync-BN SHOT-VAE step (optimal match on, over the
     global batch) against JAX's step under ``jit_step`` on a two-device
     mesh, with the same injected draws."""
     jm, params, bs = setup["jax"]
     job = setup["steps"]["shot_sync"]
-    jstep = jax_steps.make_shot_vae_train_step(
-        jm, num_classes=K, bce=True, x_sigma=1.0, epsilon=0.1,
-        optimal_match=True, aug=jax_steps.AugmentConfig(enabled=False))
-    dp = JaxDataParallel(make_mesh(WORLD))
-    wrapped = dp.jit_step(jstep, batch_argnums=(0, 1, 2, 3),
-                          donate_state=False)
+    _, get, state0 = jax_wrapped
     batch = [jnp.asarray(job["batch"][k])
              for k in ("img_l", "lab_l", "img_u", "lab_u")]
-    new_state, metrics = wrapped(
-        dp.replicate(_jax_state(jm, params, bs)), *batch, _sched(),
+    new_state, metrics = get(False)(
+        state0, *batch, _sched(),
         jax.random.key(0), {k: jnp.asarray(v)
                             for k, v in job["inject"].items()})
     want = _jax_result(jm, new_state, metrics)
@@ -462,7 +538,7 @@ def _jax_lam_squeezed():
 
 @pytest.mark.parametrize("name", ["shot_replica0", "shot_global_mixup"])
 def test_per_replica_step_matches_jax_shard_map(setup, ranks, name,
-                                                monkeypatch):
+                                                jax_wrapped):
     """The per-replica step against JAX's ``shard_map_step`` (replica 0's
     running statistics), every draw injected through the batch-sharded
     ``inject``: each replica's rows of the per-row draws, and for the
@@ -478,18 +554,11 @@ def test_per_replica_step_matches_jax_shard_map(setup, ranks, name,
             inj[k] = np.tile(inj[k], WORLD)
         for k in ("lam_sm", "lam_mx"):
             inj[k] = np.full(WORLD, inj[k], np.float32)
-    monkeypatch.setattr(jax_steps, "mixup", _jax_lam_squeezed())
-    jdp = JaxDataParallel(make_mesh(WORLD))
-    jstep = jax_steps.make_shot_vae_train_step(
-        jm, num_classes=K, bce=True, x_sigma=1.0, epsilon=0.1,
-        optimal_match=True, aug=jax_steps.AugmentConfig(enabled=False),
-        axis_name=jdp.axis_name, global_mixup=gm)
-    wrapped = jdp.shard_map_step(jstep, batch_argnums=(0, 1, 2, 3, 6),
-                                 donate_state=False)
+    _, get, state0 = jax_wrapped
     batch = [jnp.asarray(job["batch"][k])
              for k in ("img_l", "lab_l", "img_u", "lab_u")]
-    new_state, metrics = wrapped(
-        jdp.replicate(_jax_state(jm, params, bs)), *batch, _sched(),
+    new_state, metrics = get(True, gm)(
+        state0, *batch, _sched(),
         jax.random.key(0), {k: jnp.asarray(v) for k, v in inj.items()})
     want = _jax_result(jm, new_state, metrics)
     for r in range(WORLD):
@@ -559,16 +628,112 @@ def test_two_rank_resume_equals_straight_run(ranks):
 def test_refusals_inside_a_group(ranks):
     """Inside a two-rank group, ``--dp`` (data parallelism off) and a
     ``--num-devices`` other than the world size raise before anything
-    runs, and so does ``--steps-per-call`` above 1, naming item 13c (in
-    one process the data-parallel misfits raise before that refusal can
-    be reached)."""
+    runs; ``--steps-per-call 4`` runs: one CLI epoch of 6 steps on both
+    ranks, with the same history on each."""
     for r in range(WORLD):
         out = ranks[r]["refusals"]
         assert "--dp turns data parallelism off" in out["dp"]
         assert "--num-devices 3 but this run has 2 rank(s)" in \
             out["num_devices"]
-        assert out["steps_per_call"].startswith("NotImplementedError")
-        assert "item 13c" in out["steps_per_call"]
+        (h,) = out["steps_per_call"]
+        assert h["epoch"] == 0 and np.isfinite(h["train_loss"])
+        assert 0.0 <= h["valid_top1"] <= 1.0
+    assert _no_seconds(ranks[0]["refusals"]["steps_per_call"]) == \
+        _no_seconds(ranks[1]["refusals"]["steps_per_call"])
+
+
+@pytest.mark.parametrize("case", list(CHUNKED_CASES))
+def test_chunked_epoch_over_two_ranks_equals_per_step(ranks, case):
+    """``--steps-per-call 4`` over the two gloo ranks (the runner's plain
+    version) against per-step dispatch over the same ranks: on each rank
+    every parameter, BN statistic and momentum buffer bit for bit
+    (compared on the rank), ``state.step``, the history and the
+    collectives the steps issued as many; both ranks' final states
+    alike (their digests)."""
+    for r in range(WORLD):
+        res = ranks[r]["chunked"][case]
+        assert res["differ"] == [], f"rank {r}: {res['differ'][:5]}"
+        assert res["tensors"] > res["momenta"] > 0
+        assert res["step"] == {1: CHUNK_STEPS, CHUNK_N: CHUNK_STEPS}
+        assert res["history"][CHUNK_N] == res["history"][1]
+        assert res["collectives"][CHUNK_N] == res["collectives"][1] > 0
+    assert ranks[0]["chunked"][case]["digest"] == \
+        ranks[1]["chunked"][case]["digest"]
+
+
+@pytest.mark.parametrize("name", ["shot_sync", "shot_replica0"])
+def test_injected_chunk_over_two_ranks_matches_jax(setup, ranks, name,
+                                                   jax_wrapped):
+    """Three SHOT-VAE steps through the chunk runner on the two ranks (a
+    chunk of 2, then a tail of 1 through the static inputs), every draw
+    injected, the LR warm-up then a decay (0.02, 0.1, 0.01), against three
+    JAX steps under ``jit_step`` (sync-BN) or ``shard_map_step`` (per
+    replica, replica 0's statistics) on a two-device mesh with the same
+    ``inject``: each step's metrics, then the parameters and running
+    statistics after each chunk, at the file's JAX tolerance."""
+    jm, params, bs = setup["jax"]
+    job = setup["parts"]["injected_chunk"]["steps"][name]
+    jdp, get, jstate = jax_wrapped
+    wrapped = get(job.get("bn_per_replica", False))
+    batch = [jnp.asarray(job["batch"][k])
+             for k in ("img_l", "lab_l", "img_u", "lab_u")]
+    want = []
+    for i, inj in enumerate(job["injects"]):
+        # replicated as the first call's state was: one compilation
+        jstate, metrics = wrapped(jdp.replicate(jstate), *batch, _sched(),
+                                  jax.random.key(i),
+                                  {k: jnp.asarray(v) for k, v in inj.items()})
+        want.append(_jax_result(jm, jstate, metrics))
+    for r in range(WORLD):
+        got = ranks[r]["injected_chunk"][name]
+        assert got["step"] == 3 and got["graphs"] == [1]
+        for i, w in enumerate(want):
+            assert got["metrics"][i].keys() == w["metrics"].keys()
+            for k, v in w["metrics"].items():
+                _close(got["metrics"][i][k], v, TOL,
+                       f"{name} rank {r} step {i}: {k}")
+        for state, i in zip(got["states"], (1, 2)):
+            for k, v in want[i]["state"].items():
+                if not k.endswith("num_batches_tracked"):
+                    _close(state[k], v, TOL,
+                           f"{name} rank {r} after step {i}: {k}")
+
+
+def test_gloo_group_on_a_card_refuses_steps_per_call():
+    """A chunk runner over a gloo group on a CUDA device raises a
+    ``ValueError`` naming NCCL before it touches the card (gloo stages a
+    CUDA tensor through the host, which a graph cannot capture); a gloo
+    group on the CPU, an NCCL group on a card and no group pass the
+    check."""
+    from shotvae_torch.train.chunk import ChunkRunner, check_capturable
+
+    group = lambda backend: types.SimpleNamespace(  # noqa: E731
+        group=object(), backend=backend, world_size=WORLD)
+    with pytest.raises(ValueError, match="NCCL"):
+        ChunkRunner(lambda *a, **kw: None, "cuda", steps=4, width=2 * B,
+                    dp=group("gloo"))
+    with pytest.raises(ValueError, match="gloo group on a CUDA card"):
+        check_capturable(group("gloo"), torch.device("cuda", 0))
+    check_capturable(group("gloo"), "cpu")
+    check_capturable(group("nccl"), "cuda")
+    check_capturable(None, "cuda")
+
+
+def test_nccl_blocking_wait_refuses_steps_per_call(monkeypatch):
+    """With ``TORCH_NCCL_BLOCKING_WAIT`` set, an NCCL group on a CUDA
+    device refuses a chunk runner (each collective would wait on the host
+    inside a capture); unset, or on the CPU, it passes."""
+    from shotvae_torch.train.chunk import ChunkRunner, check_capturable
+
+    nccl = types.SimpleNamespace(group=object(), backend="nccl",
+                                 world_size=WORLD)
+    monkeypatch.setenv("TORCH_NCCL_BLOCKING_WAIT", "1")
+    with pytest.raises(ValueError, match="TORCH_NCCL_BLOCKING_WAIT"):
+        ChunkRunner(lambda *a, **kw: None, "cuda", steps=4, width=2 * B,
+                    dp=nccl)
+    check_capturable(nccl, "cpu")
+    monkeypatch.setenv("TORCH_NCCL_BLOCKING_WAIT", "0")
+    check_capturable(nccl, "cuda")
 
 
 @pytest.mark.parametrize("flags,match", [

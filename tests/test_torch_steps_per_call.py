@@ -20,12 +20,17 @@ against per-step dispatch and the JAX loop's chunked branch.
   generators, and ``sgd_torch``'s fused update with its rate a tensor
   equals the same update with float rates bit for bit and
   ``torch.optim.SGD``'s foreach one within a last-ulp rounding.
+* A ``--resume`` at N = 2 of the first epoch's checkpoint, as the port
+  wrote it and as torch's default (foreach) SGD would have (its groups say
+  ``fused: None``), equals the second epoch of a straight N = 2 run bit for
+  bit, the run's fused SGD kept.
 
 The epochs' TensorBoard writer is off (TensorBoard pulls in TensorFlow,
 which costs more than the epochs; tests/test_torch_loop.py covers the
 writer)."""
 
 import copy
+import os
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +46,7 @@ from shotvae_tpu.train import steps as jax_steps
 from shotvae_torch.config import ClassifierConfig, ShotVaeConfig
 from shotvae_torch.data.datasets import ArrayDataset
 from shotvae_torch.data.pipeline import DeviceDataset
+from shotvae_torch.io.checkpoint import IMPLEMENTATION_FLAGS
 from shotvae_torch.io.jax_weights import state_dict_from_jax
 from shotvae_torch.io.tb import TBWriter
 from shotvae_torch.models.vae import VariationalAutoEncoder
@@ -98,6 +104,53 @@ def epochs(tmp_path_factory):
     return out
 
 
+# two epochs of 3 steps at batch 16 in chunks of 2 (an eager chunk of 2,
+# then a graph of 1), a checkpoint after each
+RESUME_FIELDS = dict(batch_size=16, synthetic_size=60, ckpt_every=1,
+                     epochs=2)
+
+
+@pytest.fixture(scope="module")
+def resumes(tmp_path_factory):
+    """Two epochs of ``run_shot_vae`` at N = 2 straight, then its second
+    epoch again at N = 2 from the first epoch's checkpoint: as the port
+    wrote it (``port``) and with its optimizer's groups carrying the
+    implementation flags of torch's default foreach SGD
+    (``foreign_sgd``)."""
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(loop, "TBWriter",
+                   lambda log_dir, enabled=True: TBWriter(log_dir, False))
+        base = str(tmp_path_factory.mktemp("straight"))
+        cfg = _cfg(base, "shot", 2)
+        for k, v in RESUME_FIELDS.items():
+            setattr(cfg, k, v)
+        out["straight"] = loop.run_shot_vae(cfg, log_fn=lambda *a: None,
+                                            device="cpu")
+        first = torch.load(os.path.join(
+            base, "Cifar10-SHOT-VAE", "parameter", "train_time_1",
+            "checkpoint.slot0.pth.tar"), weights_only=True)
+        assert first["epoch"] == 1
+        foreign = torch.optim.SGD(torch.nn.Linear(2, 2).parameters(),
+                                  lr=0.1, momentum=0.9, weight_decay=5e-4,
+                                  foreach=True).param_groups[0]
+        payloads = {"port": first, "foreign_sgd": copy.deepcopy(first)}
+        for group in payloads["foreign_sgd"]["optimizer"]["param_groups"]:
+            group.update({k: foreign[k] for k in IMPLEMENTATION_FLAGS
+                          if k in foreign})
+            assert group["fused"] is None
+        for name, payload in payloads.items():
+            path = str(tmp_path_factory.mktemp(name) / "epoch1.pth.tar")
+            torch.save(payload, path)
+            cfg = _cfg(base, "shot", 2)
+            for k, v in RESUME_FIELDS.items():
+                setattr(cfg, k, v)
+            cfg.resume = path
+            out[name] = loop.run_shot_vae(cfg, log_fn=lambda *a: None,
+                                          device="cpu")
+    return out
+
+
 def _momentum(state) -> dict:
     return {i: s["momentum_buffer"]
             for i, s in state.optimizer.state_dict()["state"].items()}
@@ -127,6 +180,24 @@ def test_chunked_epoch_equals_per_step_dispatch(epochs, kind):
     assert no_s(chunked["history"]) == no_s(one["history"])
     if kind == "classifier":
         assert chunked["train_losses"] == one["train_losses"]
+
+
+@pytest.mark.parametrize("checkpoint", ["port", "foreign_sgd"])
+def test_resume_at_n2_equals_straight_run(resumes, checkpoint):
+    """The second epoch at N = 2 resumed from the first epoch's checkpoint
+    equals the straight run's second epoch bit for bit (parameters, BN
+    statistics, momentum buffers, ``state.step``, history), also from a
+    checkpoint of a foreign (foreach, ``fused: None``) SGD, whose flags
+    the restore leaves out: the run's SGD stays fused."""
+    straight, resumed = resumes["straight"], resumes[checkpoint]
+    assert straight["state"].step == 2 * 3
+    _state_equal(resumed["state"], straight["state"])
+    no_s = lambda h: [{k: v for k, v in e.items() if k != "seconds"}  # noqa
+                      for e in h]
+    assert [h["epoch"] for h in resumed["history"]] == [1]
+    assert no_s(resumed["history"]) == no_s(straight["history"][1:])
+    assert all(g["fused"] and g["foreach"] is None for g in
+               resumed["state"].optimizer.param_groups)
 
 
 def test_chunk_indices_equal_jax_chunked_branch():
@@ -184,10 +255,10 @@ def _runner(step, data, steps: int) -> ChunkRunner:
         np.concatenate([data["img_l"], data["img_u"]]),
         np.concatenate([data["lab_l"], data["lab_u"]])), device="cpu")
 
-    def step_by_index(state, idx, sched, draws, inject=None):
+    def step_by_index(state, idx, sched, draws, inject=None, shared=None):
         images, labels = ds.gather(idx)
         return step(state, images[:B], labels[:B], images[B:], labels[B:],
-                    sched, draws, inject=inject)
+                    sched, draws, inject=inject, shared_generator=shared)
 
     return ChunkRunner(step_by_index, "cpu", steps=steps, width=2 * B)
 
@@ -226,7 +297,7 @@ def test_injected_chunk_matches_jax_steps():
     injects = [_inject(rng) for _ in range(3)]
     for c0, n in ((0, 2), (2, 1)):
         got = runner.run(state, np.tile(np.arange(2 * B), (n, 1)),
-                         [torch.Generator().manual_seed(c0 + j)
+                         [(torch.Generator().manual_seed(c0 + j), None)
                           for j in range(n)], injects[c0:c0 + n])
         for j in range(n):
             jstate, want = jstep(jstate, *batch, sched,
@@ -285,7 +356,7 @@ def test_static_inputs_follow_new_values(monkeypatch):
                 sampling, "beta_value",
                 lambda g, a, b: (sampling.draw_seed(g), 0.3)[1])
         runner.set_sched(sched)
-        got = runner.run(states[0], idx, gens(c0))
+        got = runner.run(states[0], idx, [(g, None) for g in gens(c0)])
         want = [steps[1](states[1], *batch, sched, g) for g in gens(c0)]
         for j in range(2):
             assert torch.equal(got[j], torch.stack(

@@ -6,6 +6,7 @@ from ``<folder>/jobs.pt`` and writes what it computed to
 
 from __future__ import annotations
 
+import hashlib
 import os
 
 import numpy as np
@@ -132,19 +133,20 @@ def mixups(job: dict, dp) -> dict:
 
 
 def refusals(job: dict, dp) -> dict:
-    """What the data-parallel entry points raise inside a group: ``--dp``
-    above one rank, ``--num-devices`` other than the world size, and
-    ``--steps-per-call`` above 1 (a graph of steps over a group is not
-    ported)."""
+    """What the data-parallel entry points do inside a group: ``--dp``
+    above one rank and ``--num-devices`` other than the world size raise;
+    ``--steps-per-call 4`` runs (one tiny epoch, under this rank's own
+    base path): its history, or what it raised."""
     from shotvae_torch.cli.main_shot_vae import main
 
     out = {}
-    for name, flags in (("dp", ["--dp"]), ("num_devices",
-                                           ["--num-devices", "3"]),
-                        ("steps_per_call", ["--steps-per-call", "4"])):
+    spc = ["-bp", os.path.join(job["folder"], f"spc{dp.rank}"),
+           *job["spc_argv"]]
+    for name, argv in (("dp", [*job["argv"], "--dp"]),
+                       ("num_devices", [*job["argv"], "--num-devices", "3"]),
+                       ("steps_per_call", spc)):
         try:
-            main([*job["argv"], *flags], device="cpu")
-            out[name] = None
+            out[name] = main(argv, device="cpu")["history"]
         except (ValueError, NotImplementedError) as e:
             out[name] = f"{type(e).__name__}: {e}"
     return out
@@ -180,8 +182,139 @@ def epoch_and_resume(job: dict, dp) -> dict:
             "straight_state": state(straight)}
 
 
+def _tensors_of(state) -> dict:
+    """Every tensor of a train state: the model's state dict and SGD's
+    momentum buffers."""
+    out = dict(state.model.state_dict())
+    out.update({f"momentum {i}": st["momentum_buffer"] for i, st in
+                state.optimizer.state_dict()["state"].items()})
+    return out
+
+
+def _digest(tensors: dict) -> str:
+    """A SHA-256 over the names, dtypes, shapes and bytes of ``tensors``."""
+    h = hashlib.sha256()
+    for k, v in tensors.items():
+        v = v.detach().contiguous()
+        h.update(f"{k} {v.dtype} {tuple(v.shape)}".encode())
+        h.update(v.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def chunked(job: dict, dp) -> dict:
+    """``--steps-per-call``: each case of ``job["cases"]`` ({name: (kind,
+    config fields)}), one tiny epoch at N = 1 and at ``job["n"]`` under
+    this rank's own base path, TensorBoard off, compared here (the states
+    are large): {name: {"differ": the tensors of the final states
+    (parameters, buffers, momentum) that differ in any bit, "tensors":
+    their number, "momenta": the momentum buffers', "digest": the N run's
+    (``_digest``, held across the ranks), and by N: ``state.step``, the
+    history (but its seconds) and the collectives counted}}."""
+    from shotvae_torch.config import ClassifierConfig, ShotVaeConfig
+    from shotvae_torch.io.tb import TBWriter
+    from shotvae_torch.parallel import DataParallel
+    from shotvae_torch.train import loop
+
+    writer, loop.TBWriter = loop.TBWriter, (
+        lambda log_dir, enabled=True: TBWriter(log_dir, False))
+    out = {}
+    try:
+        for name, (kind, fields) in job["cases"].items():
+            res, tensors = {"step": {}, "history": {}, "collectives": {}}, {}
+            for n in (1, job["n"]):
+                base = os.path.join(job["folder"], f"{name}{n}_{dp.rank}")
+                cfg = (ClassifierConfig if kind == "classifier"
+                       else ShotVaeConfig)(base_path=base, steps_per_call=n,
+                                           **fields)
+                before = DataParallel.collectives
+                run = (loop.run_classifier(cfg, max_epochs=1, device="cpu",
+                                           log_fn=lambda *a: None)
+                       if kind == "classifier" else
+                       loop.run_shot_vae(cfg, m2=kind == "m2", max_epochs=1,
+                                         device="cpu",
+                                         log_fn=lambda *a: None))
+                res["collectives"][n] = DataParallel.collectives - before
+                res["step"][n] = run["state"].step
+                res["history"][n] = [{k: v for k, v in h.items()
+                                      if k != "seconds"}
+                                     for h in run["history"]]
+                tensors[n] = _tensors_of(run["state"])
+            one, many = tensors[1], tensors[job["n"]]
+            res.update(
+                differ=sorted(set(one) ^ set(many)) + [
+                    k for k in one if k in many
+                    and not torch.equal(one[k], many[k])],
+                tensors=len(one), digest=_digest(many),
+                momenta=sum(k.startswith("momentum ") for k in one))
+            out[name] = res
+    finally:
+        loop.TBWriter = writer
+    return out
+
+
+def injected_chunk(job: dict, dp) -> dict:
+    """Three SHOT-VAE steps of each of ``job["steps"]`` ({name: step job,
+    as ``train_once`` takes, with its three global draws under
+    ``injects``}) through a chunk runner over the ranks, a chunk of 2
+    (eager) and a tail of 1 (the static inputs), each step on this rank's
+    rows and the LR of ``multistep_lr(0.1, [1], 1)``: each step's metrics
+    and the state dict after each chunk."""
+    from shotvae_torch.data.datasets import ArrayDataset
+    from shotvae_torch.data.pipeline import DeviceDataset
+    from shotvae_torch.ops.schedules import multistep_lr
+    from shotvae_torch.train import steps
+    from shotvae_torch.train.chunk import ChunkRunner
+    from shotvae_torch.train.state import TrainState, sgd_torch
+
+    out = {}
+    for name, sj in job["steps"].items():
+        b = len(sj["batch"]["img_l"])
+        ds = DeviceDataset(ArrayDataset(
+            np.concatenate([sj["batch"]["img_l"], sj["batch"]["img_u"]]),
+            np.concatenate([sj["batch"]["lab_l"], sj["batch"]["lab_u"]])),
+            device="cpu")
+        model = vae(sj["state_dict"])
+        opt = sgd_torch(model)
+        state = TrainState(model, opt, multistep_lr(0.1, [1],
+                                                    steps_per_epoch=1))
+        step = steps.make_shot_vae_train_step(
+            model, opt, num_classes=K, bce=True, x_sigma=1.0, epsilon=0.1,
+            optimal_match=True, aug=False, dp=dp,
+            bn_per_replica=sj.get("bn_per_replica", False),
+            bn_stats=sj.get("bn_stats", "replica0"),
+            global_mixup=sj.get("global_mixup", False))
+        local = b // dp.world_size
+
+        def step_by_index(state, idx, sched, draws, inject=None,
+                          shared=None):
+            images, labels = ds.gather(idx)
+            return step(state, images[:local], labels[:local],
+                        images[local:], labels[local:], sched, draws,
+                        inject=inject, shared_generator=shared)
+
+        runner = ChunkRunner(step_by_index, "cpu", steps=2, width=2 * local,
+                             dp=dp)
+        runner.set_sched(SCHED)
+        row = np.concatenate([dp.shard(np.arange(b)),
+                              b + dp.shard(np.arange(b))])
+        metrics, states = [], []
+        for c0, n in ((0, 2), (2, 1)):
+            gens = [(torch.Generator().manual_seed(c0 + j),
+                     torch.Generator().manual_seed(100 + c0 + j))
+                    for j in range(n)]
+            got = runner.run(state, np.tile(row, (n, 1)), gens,
+                             sj["injects"][c0:c0 + n])
+            metrics += [dict(zip(runner.keys, m.tolist())) for m in got]
+            states.append({k: v.clone()
+                           for k, v in model.state_dict().items()})
+        out[name] = {"metrics": metrics, "states": states,
+                     "graphs": sorted(runner.graphs), "step": state.step}
+    return out
+
+
 PARTS = {"bn_sites": bn_sites, "mixups": mixups, "refusals": refusals,
-         "epoch_and_resume": epoch_and_resume}
+         "epoch_and_resume": epoch_and_resume, "chunked": chunked,
+         "injected_chunk": injected_chunk}
 
 
 def run(rank: int, world: int, folder: str) -> None:
