@@ -223,9 +223,23 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    epoch's checkpoint by the same CLI in this process, bit for bit; under
    ``build/group_*``, removed after. Each line carries the card's name
    and power limit.
+17. The learning harnesses (run after phase 16):
+   ``scripts/torch_learning_quality.py`` at its full width (WRN-28-2,
+   768 + 768, 16,384 hard synthetic images through the CIFAR-10 loader)
+   with ``--steps-per-call`` 8 for LEARNING_EPOCHS epochs of each arm
+   (classifier, M2, SHOT), then ``scripts/torch_smooth_elbo_learning.py``
+   for LEARNING_SMOOTH_EPOCHS epochs of each arm (MNIST, SVHN); the
+   artifacts' keys those of the JAX package's committed artifacts plus
+   ``device``, which names the card, every curve value finite, every
+   epoch's test top-1 in [0, 1], and each of the SHOT-VAE, M2 and
+   classifier arms' launches exactly its steps' and eval forwards' (every
+   kernel moved in the SHOT arm); the ``learning_phase`` line with each
+   arm's seconds and epoch-train seconds; under ``build/lq_*``, removed
+   after.
 10. Print the ``kernels`` JSON line (each kernel's launches on every path,
    the M2, classifier, encoder, data-parallel, fused and chunked paths,
-   in one process and over a group, included),
+   in one process and over a group, and the learning harnesses' arms
+   included),
    then the result line ``{"ok": true, "device": {...}}`` as the last
    line.
 
@@ -1613,7 +1627,8 @@ def compare_train_step_bf16(dev, batch: int, kind: str = "shot",
                 for dtype in (torch.bfloat16, None)]
         spread = {k: max(v, _dist(a[k], b[k])) for k, v in spread.items()}
     return dict(calibration_draws=draws,
-                **hold_bf16(got, want, spread, "bf16 card and CPU", "CPU"))
+                **hold_bf16(got, want, spread, "bf16 card and CPU", "CPU",
+                            before))
 
 
 def flat_step(run, before: dict) -> dict:
@@ -1630,20 +1645,37 @@ def flat_step(run, before: dict) -> dict:
     return out
 
 
+def update_quantum(before, update) -> float:
+    """The spacing of float32 values at the largest magnitude of a
+    parameter ``before`` a step and after its ``update``: the update, a
+    difference of two float32 values, is resolved no finer, so two steps
+    whose exact updates differ by far less can still round one spacing
+    apart."""
+    import torch
+
+    m = torch.maximum(before.abs().max(), (before + update).abs().max())
+    m = m.to(torch.float32)
+    return float(torch.nextafter(m, torch.tensor(math.inf)) - m)
+
+
 def hold_bf16(got: dict, want: dict, spread: dict, what: str,
-              reference: str) -> dict:
+              reference: str, before: dict) -> dict:
     """Each tensor of a bf16 step ``got`` against ``want`` within
     max(BF16_FLOOR x its largest value, BF16_FACTOR x ``spread``, the
-    reference's own distance between its bf16 and its f32 step), max abs.
-    Returns the worst share of its tolerance that a tensor used, which
-    tensor, and the two distances relative to each tensor's largest
-    value."""
+    reference's own distance between its bf16 and its f32 step), max abs;
+    a parameter's update (from ``before``) also within one spacing of the
+    float32 values it is the difference of (``update_quantum``). Returns
+    the worst share of its tolerance that a tensor used, which tensor,
+    and the two distances relative to each tensor's largest value."""
     import torch
 
     worst, worst_key, errs, own = 0.0, "", [], []
     for k, w in want.items():
         e, d = _dist(got[k], w), spread[k]
         tol = max(BF16_FLOOR * float(w.detach().abs().max()), BF16_FACTOR * d)
+        name = k[len("update "):]
+        if k.startswith("update ") and name in before:
+            tol = max(tol, update_quantum(before[name].cpu(), w.cpu()))
         check(bool(torch.isfinite(got[k]).all()) and e <= tol,
               f"{what} disagree on {k}: {e:.3e} max abs, beyond tol "
               f"{tol:.3e} (the {reference}'s bf16-vs-f32 distance {d:.3e})")
@@ -2811,7 +2843,7 @@ def dp_world1_phase(dev, batch: int, fused_streams: bool = False) -> dict:
     held = hold_bf16(got, want, {k: _dist(w, f32[k]) for k, w in
                                  want.items()},
                      f"the world-1 {backend} step and today's step",
-                     "step")
+                     "step", before)
     return dict(backend=backend, launches=launches, vs_today=held,
                 bit_identical_tensors=sum(
                     bool(torch.equal(got[k], w)) for k, w in want.items()),
@@ -2876,7 +2908,8 @@ def dp_two_rank_phase(dev, batch: int, folder: str, loop_config: dict,
             out[f"rank{r}_{name}_vs_one_process"] = hold_bf16(
                 flat((got["metrics"], got["grads"], got["state"])), w,
                 {k: _dist(v, flat(want32)[k]) for k, v in w.items()},
-                f"{what}'s {name} step and one process's", "one process")
+                f"{what}'s {name} step and one process's", "one process",
+                before)
         out[f"rank{r}_launches"] = {name: res[name]["launches"] for name in
                                     ("sync_f32", "sync_bf16",
                                      "per_replica_bf16")}
@@ -4077,6 +4110,168 @@ def group_chunk_paths(group: dict) -> dict:
             for tag, _, _ in GROUP_CHUNK_PATHS}
 
 
+# ---------------------------------------------------------------- phase 17
+
+# the learning harnesses (scripts/torch_learning_quality.py and
+# scripts/torch_smooth_elbo_learning.py) at their full width, cut in depth
+LEARNING_EPOCHS = 3
+LEARNING_SMOOTH_EPOCHS = 2
+LEARNING_ARMS = ("classifier", "m2", "shot")
+LEARNING_SMOOTH_ARMS = ("mnist", "svhn")
+# the JAX package's artifacts, whose keys the port's must have
+LEARNING_JAX_ARTIFACTS = {"lq": "learning_quality.json",
+                          "smooth": "smooth_elbo_learning.json"}
+# per epoch at the harness's defaults: 16,380 images written, 160 valid and
+# 40 labeled, so 16,220 // 768 = 21 train steps of the VAE arms and one of
+# 40 of the classifier; 1 valid and 3 test eval batches; and the VAE arms'
+# 4-image reconstruction grid at the first epoch
+LEARNING_STEPS = {"shot": 21, "m2": 21, "classifier": 1}
+LEARNING_EVAL_FORWARDS = 4
+
+
+def load_script(name: str):
+    """scripts/<name>.py of the checkout, as a fresh module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "scripts", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _numbers(tree):
+    """Every number in a JSON tree."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
+            yield from _numbers(v)
+    elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        yield tree
+
+
+def _same_keys(got: dict, want: dict, what: str) -> None:
+    check(set(got) == set(want), f"{what} has the keys {sorted(got)}, the "
+          f"JAX artifact's {sorted(want)}")
+
+
+def learning_phase(dev, base: str, card: str, *, epochs=LEARNING_EPOCHS,
+                   smooth_epochs=LEARNING_SMOOTH_EPOCHS, arms=LEARNING_ARMS,
+                   smooth_arms=LEARNING_SMOOTH_ARMS, lq_argv=(),
+                   smooth_argv=(), launches_expected=None) -> dict:
+    """Phase 17: ``torch_learning_quality.main`` at its full width (WRN-28-2,
+    768 + 768, 16,384 images) with ``--steps-per-call`` CHUNK_STEPS for
+    ``epochs`` an arm, and ``torch_smooth_elbo_learning.main`` for
+    ``smooth_epochs``, their artifacts under ``base``. Each artifact must
+    have the keys of the JAX package's (and ``device``, naming ``card``),
+    its arms those of the JAX artifact, every curve value finite and every
+    epoch's test top-1 in [0, 1]. Each arm's launches are counted; where
+    ``launches_expected`` (default: on a card) they must be its steps' and
+    eval forwards' exactly, on the CPU 0. Returns each arm's seconds,
+    epoch-train seconds and launches."""
+    import torch
+
+    lq, sel = (load_script("torch_learning_quality"),
+               load_script("torch_smooth_elbo_learning"))
+    cuda = dev.type == "cuda" if launches_expected is None \
+        else launches_expected
+    counters = kernel_counters()
+    arm_runs = {}
+    run_arm = lq.run_arm
+
+    def counted(arm, common, n_epochs, device):
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        res = run_arm(arm, common, n_epochs, device)
+        _sync(dev)
+        launches = read_counts(counters, torch.bfloat16)
+        # the f32 sampler under the bf16 trunk
+        launches["fused_joint_sample"] = read_counts(
+            counters, torch.float32)["fused_joint_sample"]
+        arm_runs[arm] = {"s": time.perf_counter() - t0,
+                         "epoch_train_s": [t["train_s"]
+                                           for t in res["epoch_times"]],
+                         "launches": launches}
+        return res
+
+    lq.run_arm = counted
+    out_lq = os.path.join(base, "learning_quality_torch.json")
+    lq.main(["--epochs", str(epochs), "--steps-per-call", str(CHUNK_STEPS),
+             "--device", str(dev), "--arms", ",".join(arms), "--out", out_lq,
+             *lq_argv])  # its exit code reads the 3-arm ordering
+    out_smooth = os.path.join(base, "smooth_elbo_learning_torch.json")
+    sel.main(["--epochs", str(smooth_epochs), "--device", str(dev),
+              "--arms", ",".join(smooth_arms), "--out", out_smooth,
+              *smooth_argv])
+    name = card.split(",")[0].strip()
+    arts, jax_arts = {}, {}
+    for kind, path in (("lq", out_lq), ("smooth", out_smooth)):
+        with open(path) as f:
+            arts[kind] = art = json.load(f)
+        with open(os.path.join(ROOT, LEARNING_JAX_ARTIFACTS[kind])) as f:
+            jax_arts[kind] = json.load(f)
+        _same_keys(art, dict(jax_arts[kind], device=None),
+                   f"the {kind} artifact")
+        check(art["device"]["name"] == name, f"the {kind} artifact names "
+              f"the device {art['device']['name']!r}, not {name!r}")
+    lq_art, want = arts["lq"], jax_arts["lq"]
+    check(set(lq_art["curves"]) == set(arms) == set(lq_art["summary"]),
+          f"the artifact's arms {sorted(lq_art['curves'])}, asked {arms}")
+    if "shot" in arms:
+        _same_keys(lq_art["verdict"]["shot_decomposition"],
+                   want["verdict"]["shot_decomposition"],
+                   "the SHOT arm's decomposition")
+    for arm, history in lq_art["curves"].items():
+        _same_keys(lq_art["summary"][arm], want["summary"][arm],
+                   f"the {arm} arm's summary")
+        check(len(history) == epochs, f"the {arm} arm ran {len(history)} "
+              f"epochs, not {epochs}")
+        for h in history:
+            _same_keys(h, want["curves"][arm][0], f"a {arm} arm epoch")
+            check(0.0 <= h["test_top1"] <= 1.0, f"the {arm} arm's epoch "
+                  f"{h['epoch']} gave test top-1 {h['test_top1']}")
+        check(all(math.isfinite(v) for v in _numbers(history)),
+              f"the {arm} arm's curve holds a value that is not finite")
+        expected_train, expected_eval = PATHS[arm]
+        steps = epochs * LEARNING_STEPS[arm]
+        forwards = epochs * LEARNING_EVAL_FORWARDS + (arm != "classifier")
+        want_counts = {k: (steps * n + forwards * expected_eval[k] if cuda
+                           else 0) for k, n in expected_train.items()}
+        got = arm_runs[arm]["launches"]
+        check(got == want_counts, f"the {arm} arm launched {got}, expected "
+              f"{want_counts} ({steps} steps, {forwards} eval forwards)")
+        arm_runs[arm]["test_top1"] = [h["test_top1"] for h in history]
+    if "shot" in arms and cuda:  # every kernel of the SHOT-VAE path moved
+        check(all(arm_runs["shot"]["launches"].values()),
+              f"the SHOT arm launched {arm_runs['shot']['launches']}")
+    smooth = arts["smooth"]
+    check(set(smooth["arms"]) == set(smooth_arms), f"the smooth artifact's "
+          f"arms {sorted(smooth['arms'])}, asked {smooth_arms}")
+    for arm, res in smooth["arms"].items():
+        _same_keys(res["verdict"], jax_arts["smooth"]["arms"][arm]["verdict"],
+                   f"the smooth {arm} arm's verdict")
+        check(len(res["curves"]) == smooth_epochs, f"the smooth {arm} arm "
+              f"ran {len(res['curves'])} epochs, not {smooth_epochs}")
+        for h in res["curves"]:
+            check(0.0 <= h["test_acc"] <= 1.0, f"the smooth {arm} arm's "
+                  f"epoch {h['epoch']} gave test top-1 {h['test_acc']}")
+        check(all(math.isfinite(v) for v in _numbers(res["curves"])),
+              f"the smooth {arm} arm's curve holds a value that is not "
+              f"finite")
+        arm_runs[f"smooth_{arm}"] = {"s": res["verdict"]["wall_s"],
+                                     "test_top1": [h["test_acc"] for h in
+                                                   res["curves"]]}
+    return {"arms": arm_runs, "device": lq_art["device"],
+            "timings_s": lq_art["timings_s"]}
+
+
+def learning_paths(learning: dict) -> dict:
+    """{path: the bf16 launches of each kernel}: phase 17's arms."""
+    return {f"learning_{arm}_bf16": learning["arms"][arm]["launches"]
+            for arm in LEARNING_ARMS}
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -4472,6 +4667,14 @@ def main() -> int:
     finally:
         shutil.rmtree(folder, ignore_errors=True)
     print(f"group chunk phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    folder = tempfile.mkdtemp(prefix="lq_", dir=os.path.join(ROOT, "build"))
+    try:  # phase 17
+        learning = learning_phase(dev, folder, smi)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    print("learning_phase " + json.dumps(dict(learning, card=smi)))
+    print(f"learning phase {time.perf_counter() - t0:.1f} s")
     conv_train = sum(r["launches"] for r in conv_bwd_rows)
     check(conv_train * TRAIN_STEPS == train["launches"]["fused_bn_act_conv"],
           f"the fused conv backward rows weigh {conv_train} launches per "
@@ -4531,6 +4734,7 @@ def main() -> int:
     paths.update(fused_paths(fused))
     paths.update(chunk_paths(chunk))
     paths.update(group_chunk_paths(group))
+    paths.update(learning_paths(learning))
     for path, counts in paths.items():
         if counts["fused_joint_sample"]:
             sampler["launches_by_path"][path] = counts["fused_joint_sample"]

@@ -14,10 +14,19 @@ The JAX package's subpixel split of the stride-2 ConvTranspose is a TPU
 workaround and is not ported: these are native ``ConvTranspose2d``, run by
 the library (cuDNN on the card) as the JAX package leaves them to XLA, in
 the compute ``dtype`` (None: float32).
+
+Init: each ConvTranspose weight is U(+-1/sqrt(fan_in)) with the JAX
+package's fan_in, its input channels times the kernel area
+(shotvae_tpu/models/layers.py:TorchConvTranspose, flax's variance scaling
+over the kernel's input-channel axis). torch's default takes the output
+channels instead, which draws the logits layer (64 -> 3) 4.6x wider, the
+four k4 s2 layers sqrt(2)x wider and the first (Dc + Dd -> 1024) 2.7x
+narrower than the JAX model.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -25,6 +34,17 @@ from torch import nn
 
 from shotvae_torch.models.layers import (RELU_SLOPE, BatchNorm, channels_last,
                                          conv)
+
+
+def conv_transpose(cin: int, cout: int, kernel_size, **kw
+                   ) -> nn.ConvTranspose2d:
+    """A bias-free ``ConvTranspose2d`` with the JAX package's init law."""
+    layer = nn.ConvTranspose2d(cin, cout, kernel_size, bias=False, **kw)
+    kh, kw_ = layer.kernel_size
+    bound = 1.0 / math.sqrt(cin * kh * kw_)
+    with torch.no_grad():
+        layer.weight.uniform_(-bound, bound)
+    return layer
 
 
 class Decoder(nn.Module):
@@ -35,16 +55,14 @@ class Decoder(nn.Module):
         self.dtype = dtype
         feats = [num_feature * 16, num_feature * 8, num_feature * 4,
                  num_feature * 2, num_feature]
-        layers = {"0": nn.ConvTranspose2d(latent_dim, feats[0], kernel_size,
-                                          bias=False),
+        layers = {"0": conv_transpose(latent_dim, feats[0], kernel_size),
                   "1": BatchNorm(feats[0], RELU_SLOPE, dtype)}
         for i in range(1, len(feats)):
-            layers[str(3 * i)] = nn.ConvTranspose2d(feats[i - 1], feats[i], 4,
-                                                    stride=2, padding=1,
-                                                    bias=False)
+            layers[str(3 * i)] = conv_transpose(feats[i - 1], feats[i], 4,
+                                                stride=2, padding=1)
             layers[str(3 * i + 1)] = BatchNorm(feats[i], RELU_SLOPE, dtype)
-        layers["15"] = nn.ConvTranspose2d(num_feature, num_channel, 4,
-                                          stride=2, padding=1, bias=False)
+        layers["15"] = conv_transpose(num_feature, num_channel, 4, stride=2,
+                                      padding=1)
         self.decoder = nn.ModuleDict(layers)
 
     def forward(self, latent: torch.Tensor) -> torch.Tensor:

@@ -3,10 +3,15 @@ classic input mixup helpers.
 
 Port of shotvae_tpu/ops/mixup.py:19-168. The optimal-match partner comes
 from the vectorised pairwise Gaussian KL with the diagonal masked, as in
-the JAX package; ``gather_mixup`` draws over the global batch of several
-ranks. ``mixup_data``, ``mixup_raw_labeled_data`` and
-``mixup_criterion`` are the reference's classic input mixup (its
-lib/utils/mixup.py, unused by its drivers but part of its surface).
+the JAX package, its three matrix products taking their operands rounded
+to bfloat16 and adding in float32 (``MATCH_OPERAND_DTYPE``): the
+arithmetic of XLA's default precision for a float32 matmul on a TPU,
+where the JAX package's learning results were taken. With exact float32
+products the SHOT-VAE recipe learns worse (ROADMAP queue 3, F6).
+``gather_mixup`` draws over the global batch of several ranks.
+``mixup_data``, ``mixup_raw_labeled_data`` and ``mixup_criterion`` are
+the reference's classic input mixup (its lib/utils/mixup.py, unused by
+its drivers but part of its surface).
 
 Randomness: ``generator`` is a host (CPU) ``torch.Generator`` or a train
 step's ``sampling.StepDraws``. The interpolation weight is drawn on the
@@ -41,8 +46,21 @@ class MixupBatch(NamedTuple):
     lam: object               # float, or the step's 0-d weight slot
 
 
-def pairwise_gaussian_kl(z_mean, z_log_sigma):
-    """KL[N_i || N_j] for every ordered pair, (B, B), as matrix products."""
+# the operands' dtype of the optimal match's KL products (None: float32)
+MATCH_OPERAND_DTYPE: Optional[torch.dtype] = torch.bfloat16
+
+
+def pairwise_gaussian_kl(z_mean, z_log_sigma,
+                         operand_dtype: Optional[torch.dtype] = None):
+    """KL[N_i || N_j] for every ordered pair, (B, B), as matrix products,
+    in float32; with ``operand_dtype`` each product's operands are first
+    rounded to it (the products of bfloat16 values are exact in float32,
+    the sums float32)."""
+    def mm(a, b):
+        if operand_dtype is not None:
+            a, b = a.to(operand_dtype).float(), b.to(operand_dtype).float()
+        return a @ b.T
+
     z_mean = z_mean.to(torch.float32)
     z_log_sigma = z_log_sigma.to(torch.float32)
     dim = z_mean.shape[1]
@@ -50,18 +68,18 @@ def pairwise_gaussian_kl(z_mean, z_log_sigma):
     inv_var = torch.exp(-2.0 * z_log_sigma)
     ls_row = z_log_sigma.sum(1)
     term_logdet = ls_row[None, :] - ls_row[:, None]
-    term_trace = 0.5 * (var @ inv_var.T)
+    term_trace = 0.5 * mm(var, inv_var)
     mu_sq = z_mean * z_mean
-    term_mahal = 0.5 * (mu_sq @ inv_var.T
-                        - 2.0 * (z_mean @ (z_mean * inv_var).T)
+    term_mahal = 0.5 * (mm(mu_sq, inv_var) - 2.0 * mm(z_mean, z_mean * inv_var)
                         + (mu_sq * inv_var).sum(1)[None, :])
     return term_logdet + term_trace + term_mahal - 0.5 * dim
 
 
 def optimal_match_index(z_mean, z_log_sigma):
-    """Partner = the smallest-KL *other* sample of each row; the diagonal
-    is masked, since the expanded KL has float32 noise there."""
-    kl = pairwise_gaussian_kl(z_mean, z_log_sigma)
+    """Partner = the smallest-KL *other* sample of each row, from the KL
+    with ``MATCH_OPERAND_DTYPE`` operands; the diagonal is masked, since
+    the expanded KL has rounding noise there."""
+    kl = pairwise_gaussian_kl(z_mean, z_log_sigma, MATCH_OPERAND_DTYPE)
     eye = torch.eye(kl.shape[0], dtype=kl.dtype, device=kl.device)
     return torch.argmin(kl + eye * 3.4e38, dim=1)
 

@@ -48,6 +48,7 @@ import jax.numpy as jnp
 from flax import traverse_util
 
 from shotvae_tpu.models import VariationalAutoEncoder as JaxVAE
+from torch_tpu_match import tpu_pairwise_gaussian_kl
 from shotvae_tpu.ops import mixup as jax_mixup
 from shotvae_tpu.ops import sampling as jax_sampling
 from shotvae_tpu.ops import schedules as jax_schedules
@@ -146,7 +147,9 @@ def _draws(rng, optimal_match: bool):
 def _jax_fused_step(jm, optimal_match: bool):
     """JAX's fused step, jitted, as ``run(state, img_l, lab_l, img_u,
     lab_u, sched, key, draws)``: the draws enter as arguments and reach
-    the step through the wrappers patched in while it is traced."""
+    the step through the wrappers patched in while it is traced, and the
+    optimal match takes the KL of a TPU's arithmetic
+    (``torch_tpu_match``), as the port's does."""
     step = jax_steps.make_shot_vae_train_step(
         jm, num_classes=K, bce=True, x_sigma=1.0, epsilon=0.1,
         optimal_match=optimal_match, fused_streams=True,
@@ -178,7 +181,9 @@ def _jax_fused_step(jm, optimal_match: bool):
             for module, name, fn in (
                     (jax_sampling, "joint_latent", forward_noise),
                     (jax_mixup, "label_smoothing", smoothing),
-                    (jax_mixup, "mixup_vae_data", posterior_mixup)):
+                    (jax_mixup, "mixup_vae_data", posterior_mixup),
+                    (jax_mixup, "pairwise_gaussian_kl",
+                     tpu_pairwise_gaussian_kl)):
                 patches.enter_context(mock.patch.object(module, name, fn))
             out = step(state, img_l, lab_l, img_u, lab_u, sched, key)
         assert not noises  # forwards A and B each took theirs

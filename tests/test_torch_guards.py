@@ -4,6 +4,7 @@ checks failing a wrong kernel, gradient or launch count, and its phases
 running on the CPU at a tiny size."""
 
 import importlib.util
+import json
 import math
 import os
 import shutil
@@ -1206,3 +1207,112 @@ def test_chip_smoke_fused_phase_fails_a_planted_fault(fault, match,
         _dgamma_doubled(monkeypatch, chip_smoke)
     with pytest.raises(RuntimeError, match=match):
         chip_smoke.fused_step_phase(torch.device("cpu"), _FUSED_BATCH)
+
+
+# phase 17 on the CPU at a tiny size: the harnesses' arms at WRN-10-1,
+# batch 32 on 128 images (one train step an epoch of 32 + 32), MNIST on 128
+# images and SVHN on 256 (one step of its unlabeled batch)
+_LEARNING_LQ_ARGV = ["--net-name", "wideresnet-10-1", "--batch-size", "32",
+                     "--n-train", "128", "--n-test", "64",
+                     "--valid-per-class", "2"]
+
+
+def _learning_phase(chip_smoke, monkeypatch, base,
+                    arms=("classifier", "m2", "shot"),
+                    smooth_arms=("mnist", "svhn"), epochs=2, **kw):
+    from shotvae_torch.io.tb import TBWriter
+    from shotvae_torch.train import loop
+
+    # the loops' TensorBoard writer off: TensorBoard pulls in TensorFlow
+    # here, which costs more than the tiny arms
+    monkeypatch.setattr(loop, "TBWriter",
+                        lambda log_dir, enabled=True: TBWriter(log_dir,
+                                                                False))
+    smooth_n = "256" if "svhn" in smooth_arms else "128"
+    return chip_smoke.learning_phase(
+        torch.device("cpu"), base, "cpu", epochs=epochs,
+        smooth_epochs=epochs,
+        arms=arms, smooth_arms=smooth_arms, lq_argv=_LEARNING_LQ_ARGV,
+        smooth_argv=["--n-train", smooth_n, "--n-test", "64"], **kw)
+
+
+def test_chip_smoke_learning_phase_runs_on_cpu(monkeypatch, tmp_path):
+    """Phase 17 on the CPU: the three harness arms and the two smooth arms
+    at a tiny size, their artifacts of the JAX artifacts' keys and the
+    device block, finite curves, no launch counted, each arm timed."""
+    chip_smoke = _chip_smoke(monkeypatch)
+    out = _learning_phase(chip_smoke, monkeypatch, str(tmp_path))
+    assert out["device"]["name"] == "cpu"
+    assert out["device"]["steps_per_call"] == chip_smoke.CHUNK_STEPS
+    for arm in ("classifier", "m2", "shot"):
+        res = out["arms"][arm]
+        assert set(res["launches"].values()) == {0}
+        assert len(res["epoch_train_s"]) == len(res["test_top1"]) == 2
+        assert res["s"] > 0
+    assert set(out["arms"]) == {"classifier", "m2", "shot", "smooth_mnist",
+                                "smooth_svhn"}
+    assert sorted(chip_smoke.learning_paths(out)) == [
+        "learning_classifier_bf16", "learning_m2_bf16", "learning_shot_bf16"]
+
+
+def _nan_curve(module):
+    """A harness whose SHOT arm's history holds a NaN term."""
+    run_arm = module.run_arm
+
+    def planted(arm, *args):
+        res = run_arm(arm, *args)
+        if arm == "shot":
+            res["history"][-1]["train_terms"]["recon_u"] = float("nan")
+        return res
+
+    module.run_arm = planted
+
+
+def _missing_key(module):
+    """A harness whose artifact loses its ``timings_s``."""
+    main = module.main
+
+    def planted(argv):
+        rc = main(argv)
+        out = argv[argv.index("--out") + 1]
+        with open(out) as f:
+            art = json.load(f)
+        del art["timings_s"]
+        with open(out, "w") as f:
+            json.dump(art, f)
+        return rc
+
+    module.main = planted
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("a NaN in a curve", "not finite"),
+    ("a key missing", "has the keys"),
+    ("still counters on a card stand-in", "the shot arm launched")])
+def test_chip_smoke_learning_phase_fails_a_planted_fault(fault, match,
+                                                         monkeypatch,
+                                                         tmp_path):
+    """Phase 17 with the SHOT arm alone for one epoch at the tiny size
+    fails an arm
+    whose curve holds a NaN, an artifact with a key missing, and a SHOT
+    arm whose hand-kernel counters stay at 0 where launches are expected
+    (a card stand-in: on the CPU the wrappers run their plain versions and
+    count nothing)."""
+    chip_smoke = _chip_smoke(monkeypatch)
+    load, kw = chip_smoke.load_script, {}
+    if fault == "still counters on a card stand-in":
+        kw["launches_expected"] = True
+    else:
+        plant = _nan_curve if fault == "a NaN in a curve" else _missing_key
+
+        def planted_load(name):
+            module = load(name)
+            if name == "torch_learning_quality":
+                plant(module)
+            return module
+
+        monkeypatch.setattr(chip_smoke, "load_script", planted_load)
+    with pytest.raises(RuntimeError, match=match):
+        _learning_phase(chip_smoke, monkeypatch, str(tmp_path),
+                        arms=("shot",), smooth_arms=("mnist",), epochs=1,
+                        **kw)

@@ -173,3 +173,33 @@ def test_from_checkpoint(pair, data, tmp_path):
     np.testing.assert_array_equal(
         api.classify(data["images"]).numpy(),
         ShotVaeInference(pm, device="cpu").classify(data["images"]).numpy())
+
+
+@pytest.mark.parametrize("net", [NET, "wideresnet-28-2"])
+def test_init_law_of_every_weight_is_the_jax_packages(net):
+    """A fresh port VAE draws every weight from the JAX package's law: the
+    largest |w| of each layer within 10 % of its JAX bound from below (the
+    JAX model's own largest, converted by ``state_dict_from_jax``), and
+    the variance of each wide layer within 10 % of the JAX layer's. A
+    ConvTranspose's bound is 1 / sqrt(input channels x kernel area) as in
+    flax, not torch's output channels (the decoder's logits layer at 4.6x,
+    ROADMAP queue 3 F5)."""
+    jm = JaxVAE(encoder_name=net, continuous_latent_dim=DC,
+                disc_latent_dim=K)
+    params, bs = init_model(jm, jax.random.key(3), jnp.zeros((2, 32, 32, 3)))
+    want = state_dict_from_jax(params, bs)
+    torch.manual_seed(3)
+    got = VariationalAutoEncoder(net, continuous_latent_dim=DC,
+                                 disc_latent_dim=K, device="cpu").state_dict()
+    assert set(got) == set(want)
+    weights = [k for k in want if k.endswith("weight") and want[k].dim() > 1]
+    assert sum("decoder" in k for k in weights) == 6
+    for k in weights:
+        g, w = got[k].double(), want[k].double()
+        assert float(g.abs().max()) <= 1.1 * float(w.abs().max()), k
+        assert float(g.abs().max()) >= 0.9 * float(w.abs().max()), k
+        if g.numel() > 2000:
+            assert abs(float(g.var()) / float(w.var()) - 1) < 0.1, k
+        if "decoder" in k:  # (in, out, kh, kw)
+            bound = 1.0 / np.sqrt(g.shape[0] * g.shape[2] * g.shape[3])
+            assert float(g.abs().max()) <= bound, k

@@ -64,6 +64,7 @@ import jax.numpy as jnp
 from flax import traverse_util
 
 import torch_parallel_workers as workers
+from torch_tpu_match import tpu_pairwise_gaussian_kl
 from shotvae_tpu.models import VariationalAutoEncoder as JaxVAE
 from shotvae_tpu.ops import mixup as jax_mixup
 from shotvae_tpu.ops import schedules as jax_schedules
@@ -439,7 +440,9 @@ def jax_wrapped(setup):
     call one form share its compilation. While the module runs, JAX's
     mixup takes an injected weight of shape (1,) as a scalar
     (``_jax_lam_squeezed``: under ``shard_map`` a per-replica weight
-    arrives as its replica's slice; a sync step's weight is 0-d)."""
+    arrives as its replica's slice; a sync step's weight is 0-d), and its
+    optimal match takes the KL of a TPU's arithmetic (``torch_tpu_match``),
+    as the port's does."""
     jm, params, bs = setup["jax"]
     jdp = JaxDataParallel(make_mesh(WORLD))
     made = {}
@@ -460,6 +463,9 @@ def jax_wrapped(setup):
         return made[replica, gm]
 
     with pytest.MonkeyPatch.context() as mp:
+        # the optimal match of a TPU's arithmetic, as the port's
+        mp.setattr(jax_mixup, "pairwise_gaussian_kl",
+                   tpu_pairwise_gaussian_kl)
         mp.setattr(jax_steps, "mixup", _jax_lam_squeezed())
         yield jdp, get, jdp.replicate(_jax_state(jm, params, bs))
 

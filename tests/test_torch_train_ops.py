@@ -225,3 +225,35 @@ def test_augment_batch_draws():
                              + (torch.ones(256, dtype=torch.bool),))
                == images.flip(2)).all()
     assert bool(flipped)
+
+
+def test_optimal_match_takes_bf16_operands_as_jax_on_a_tpu():
+    """F6 (ROADMAP queue 3): the optimal match picks the partners of the
+    JAX package's KL as a TPU computes it, its three products' operands
+    rounded to bfloat16 (``torch_tpu_match``), and not those of exact
+    float32 products where the two differ. Posteriors clustered as a
+    trained model's (ten classes, rows close within a class) make the two
+    arithmetics pick different partners on some rows; the exact KL stays
+    JAX's at 1e-4 (``pairwise_gaussian_kl`` without operands)."""
+    from torch_tpu_match import tpu_pairwise_gaussian_kl
+
+    rng = np.random.default_rng(6)
+    n, d = 96, 128
+    centers = rng.normal(0, 1.0, (10, d))
+    mean = (centers[rng.integers(0, 10, n)]
+            + rng.normal(0, 0.05, (n, d))).astype(np.float32)
+    ls = rng.normal(-0.1, 0.05, (n, d)).astype(np.float32)
+    mask = np.eye(n, dtype=np.float32) * np.float32(3.4e38)
+    tpu = np.asarray(tpu_pairwise_gaussian_kl(jnp.asarray(mean),
+                                              jnp.asarray(ls)))
+    exact = np.asarray(jax_mixup.pairwise_gaussian_kl(jnp.asarray(mean),
+                                                      jnp.asarray(ls)))
+    got = mixup.optimal_match_index(_t(mean), _t(ls)).numpy()
+    np.testing.assert_array_equal(got, np.argmin(tpu + mask, axis=1))
+    assert (got != np.argmin(exact + mask, axis=1)).sum() >= 5
+    np.testing.assert_allclose(
+        mixup.pairwise_gaussian_kl(_t(mean), _t(ls), torch.bfloat16).numpy(),
+        tpu, rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(mixup.pairwise_gaussian_kl(_t(mean),
+                                                          _t(ls)).numpy(),
+                               exact, rtol=1e-4, atol=1e-3)
