@@ -236,10 +236,20 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    kernel moved in the SHOT arm); the ``learning_phase`` line with each
    arm's seconds and epoch-train seconds; under ``build/lq_*``, removed
    after.
+18. The system run at a small depth (run after phase 17):
+   ``scripts/torch_run_repro.py --synthetic`` at full width (WRN-28-2,
+   768 + 768, ``--steps-per-call`` CHUNK_STEPS) on 12,000 synthetic
+   images for SYSTEM_RUN_EPOCHS epochs: the CLI child SIGKILLed once it
+   logs epoch SYSTEM_RUN_KILL_EPOCH, then in this process the probe's two
+   resumes and phase 2. Its verdict OK, a real SIGKILL, the probe bit for
+   bit, NaN-free, the last epoch reached, and the launches of each
+   in-process run exactly its steps' and eval forwards'; the
+   ``system_run_phase`` line with each part's seconds; under
+   ``build/repro_*``, removed after.
 10. Print the ``kernels`` JSON line (each kernel's launches on every path,
    the M2, classifier, encoder, data-parallel, fused and chunked paths,
-   in one process and over a group, and the learning harnesses' arms
-   included),
+   in one process and over a group, the learning harnesses' arms and the
+   system run's in-process part included),
    then the result line ``{"ok": true, "device": {...}}`` as the last
    line.
 
@@ -2294,11 +2304,14 @@ SMOOTH_MNIST_SIZES = (60000, 10000)
 SMOOTH_EPOCHS = 2
 # phase 12's epoch-1 average loss at each configuration (seed 1): the band
 # of the CPU's runs of the same configuration at seeds 1 to 5
-# (``python3 scripts/torch_smooth_epochs.py band``), widened by its own
-# width on each side (one run on the card is one more draw of a chaotic
-# spread); a run that leaves it, as a divergence by a factor does, fails
-SMOOTH_BANDS = {"mnist": (124.66153363284901, 126.62589687771268),
-                "svhn": (2002.8082427978516, 2014.1643829345703)}
+# (``python3 scripts/torch_smooth_epochs.py band``, the ConvTranspose
+# weights at the JAX package's init: MNIST 134.53471103896442 to
+# 136.7717044373863, SVHN 2037.9392395019531 to 2052.1817779541016),
+# widened by its own width on each side (one run on the card is one more
+# draw of a chaotic spread); a run that leaves it, as a divergence by a
+# factor does, fails
+SMOOTH_BANDS = {"mnist": (132.29771764054254, 139.00869783580816),
+                "svhn": (2023.6967010498047, 2066.42431640625)}
 # shotvae_tpu/train/loop.py:790-800: three lines and a blank one an epoch
 SMOOTH_LOG_LINES = [
     r"Epoch: \d+ Average loss: -?[\d.]+ Test Accuracy: [\d.]+",
@@ -4272,6 +4285,131 @@ def learning_paths(learning: dict) -> dict:
             for arm in LEARNING_ARMS}
 
 
+# ---------------------------------------------------------------- phase 18
+
+# the system run at a small depth: scripts/torch_run_repro.py --synthetic
+# at full width (WRN-28-2, 768 + 768) with --steps-per-call CHUNK_STEPS on
+# 12,000 synthetic images (7,000 unlabeled: 9 train steps an epoch; then
+# ceil(5,000 / 768) = 7 valid and ceil(3,000 / 768) = 4 test eval batches,
+# and the 4-image reconstruction grid every reconstruct_freq-th epoch), 5
+# epochs, the CLI child SIGKILLed once it logs epoch 1
+SYSTEM_RUN_EPOCHS = 5
+SYSTEM_RUN_KILL_EPOCH = 1
+SYSTEM_RUN_SIZE = 12_000
+SYSTEM_RUN_STEPS = 9
+SYSTEM_RUN_EVAL_FORWARDS = 11
+SYSTEM_RUN_GRID_EVERY = 20  # ShotVaeConfig.reconstruct_freq
+
+
+def system_run_argv(base: str, dev) -> list:
+    return ["--synthetic", "--base-path", base, "--device", str(dev),
+            "--epochs", str(SYSTEM_RUN_EPOCHS), "--kill-epoch",
+            str(SYSTEM_RUN_KILL_EPOCH), "--synthetic-size",
+            str(SYSTEM_RUN_SIZE), "--steps-per-call", str(CHUNK_STEPS)]
+
+
+def check_system_run(report: dict, runs: list, card: str, *, epochs: int,
+                     steps: int, eval_forwards: int, cuda: bool) -> dict:
+    """Phase 18's verdict on the script's ``report`` and the in-process
+    runs of ``run_shot_vae`` it made (``runs``: each one's epochs and
+    launches): status OK, a real SIGKILL of the CLI child, the probe bit
+    for bit, NaN-free, the last epoch reached, the device named, and each
+    run's launches its steps' and eval forwards' exactly (on a card;
+    ``cuda`` False: 0). Returns the launches summed over the runs."""
+    name = card.split(",")[0].strip()
+    check(report.get("status") == "OK", f"the system run's verdict is "
+          f"{report.get('status')!r}")
+    phase1 = report.get("phase1", {})
+    check(phase1.get("sigkilled") is True and "interrupted_by" not in phase1,
+          f"phase 1 was not a real SIGKILL of the CLI: {phase1}")
+    check(report.get("double_resume_bit_exact") is True,
+          "the double resume is not bit for bit")
+    phase2 = report.get("phase2", {})
+    check(phase2.get("nan_free") is True and all(
+        isinstance(phase2.get(k), float) and math.isfinite(phase2[k])
+        for k in ("train_loss_first", "train_loss_last")),
+        "phase 2's losses are not all finite")
+    check(phase2.get("final_epoch") == epochs - 1, f"phase 2 ended at epoch "
+          f"{phase2.get('final_epoch')}, not {epochs - 1}")
+    check(report.get("device", {}).get("name") == name, f"the report names "
+          f"the device {report.get('device')}, not {name!r}")
+    check(len(runs) == 3, f"{len(runs)} in-process runs (the probe's two "
+          f"and phase 2 expected)")
+    expected_train, expected_eval = PATHS["shot"]
+    total = {k: 0 for k in expected_train}
+    for run in runs:
+        grids = sum(e % SYSTEM_RUN_GRID_EVERY == 0 for e in run["epochs"])
+        forwards = len(run["epochs"]) * eval_forwards + grids
+        n = len(run["epochs"]) * steps
+        want = {k: (n * c + forwards * expected_eval[k] if cuda else 0)
+                for k, c in expected_train.items()}
+        check(run["launches"] == want, f"a run of epochs {run['epochs']} "
+              f"launched {run['launches']}, expected {want} ({n} steps, "
+              f"{forwards} eval forwards)")
+        total = {k: total[k] + v for k, v in run["launches"].items()}
+    return total
+
+
+def system_run_phase(dev, base: str, card: str, *, argv=None,
+                     epochs=SYSTEM_RUN_EPOCHS, steps=SYSTEM_RUN_STEPS,
+                     eval_forwards=SYSTEM_RUN_EVAL_FORWARDS,
+                     launches_expected=None) -> dict:
+    """Phase 18: ``torch_run_repro.main`` (``argv``, default
+    ``system_run_argv``) under ``base``: phase 1 a CLI child SIGKILLed
+    mid-flight, then in this process the probe's two resumes and phase 2,
+    each run of ``run_shot_vae`` counted from 0 on the wrappers' counters,
+    held by ``check_system_run``. Returns the report, each part's seconds
+    and the launches."""
+    import torch
+
+    from shotvae_torch.train import loop
+
+    script = load_script("torch_run_repro")
+    cuda = dev.type == "cuda" if launches_expected is None \
+        else launches_expected
+    counters = kernel_counters()
+    runs = []
+    run_shot_vae = loop.run_shot_vae
+
+    def counted(cfg, **kw):
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        res = run_shot_vae(cfg, **kw)
+        _sync(dev)
+        launches = read_counts(counters, torch.bfloat16)
+        # the f32 sampler under the bf16 trunk
+        launches["fused_joint_sample"] = read_counts(
+            counters, torch.float32)["fused_joint_sample"]
+        runs.append({"epochs": [h["epoch"] for h in res["history"]],
+                     "s": time.perf_counter() - t0, "launches": launches})
+        return res
+
+    loop.run_shot_vae = counted
+    t0 = time.perf_counter()
+    try:
+        rc = script.main(argv or system_run_argv(base, dev))
+    finally:
+        loop.run_shot_vae = run_shot_vae
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(base, "repro_synthetic.json")) as f:
+        report = json.load(f)
+    check(rc == 0, f"the system run exited {rc}")
+    launches = check_system_run(report, runs, card, epochs=epochs,
+                                steps=steps, eval_forwards=eval_forwards,
+                                cuda=cuda)
+    parts = {"phase1_s": report["phase1"]["seconds"],
+             "probe_s": [r["s"] for r in runs[:2]], "phase2_s": runs[2]["s"],
+             "total_s": seconds}
+    return {"report": report, "parts": parts, "launches": launches,
+            "runs": runs}
+
+
+def system_run_paths(system: dict) -> dict:
+    """{path: the bf16 launches of each kernel}: phase 18's in-process
+    runs."""
+    return {"system_run_bf16": system["launches"]}
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -4675,6 +4813,18 @@ def main() -> int:
         shutil.rmtree(folder, ignore_errors=True)
     print("learning_phase " + json.dumps(dict(learning, card=smi)))
     print(f"learning phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    folder = tempfile.mkdtemp(prefix="repro_", dir=os.path.join(ROOT,
+                                                                "build"))
+    try:  # phase 18
+        system = system_run_phase(dev, folder, smi)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    print("system_run_phase " + json.dumps(
+        {"parts": system["parts"], "launches": system["launches"],
+         "phase1": system["report"]["phase1"],
+         "phase2": system["report"]["phase2"], "card": smi}))
+    print(f"system run phase {time.perf_counter() - t0:.1f} s")
     conv_train = sum(r["launches"] for r in conv_bwd_rows)
     check(conv_train * TRAIN_STEPS == train["launches"]["fused_bn_act_conv"],
           f"the fused conv backward rows weigh {conv_train} launches per "
@@ -4735,6 +4885,7 @@ def main() -> int:
     paths.update(chunk_paths(chunk))
     paths.update(group_chunk_paths(group))
     paths.update(learning_paths(learning))
+    paths.update(system_run_paths(system))
     for path, counts in paths.items():
         if counts["fused_joint_sample"]:
             sampler["launches_by_path"][path] = counts["fused_joint_sample"]

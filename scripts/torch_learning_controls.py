@@ -15,11 +15,10 @@ Each CONTROL is one of
     precision runs a float32 matmul on a TPU (ROADMAP queue 3, F6);
   * ``f32_trunk``: the trunk in float32 (``bf16=False``) in place of
     bfloat16;
-  * ``bf16_heads``: the latent heads (every ``nn.Linear`` of the VAE) with
-    the operands of their forward and backward products rounded to
-    bfloat16 and float32 sums, as XLA's default precision runs the JAX
-    model's float32 ``TorchDense`` heads on a TPU; the port computes them
-    in float32.
+  * ``exact_heads``: the latent heads' products with float32 operands
+    (``layers.HEAD_OPERAND_DTYPE`` None), where the port rounds them to
+    bfloat16 as XLA's default precision runs the JAX model's float32
+    ``TorchDense`` heads on a TPU (ROADMAP queue 3, F7).
 
 The artifact is the harness's (the SHOT arm alone), its ``device`` block
 naming the controls. Runs on the card; ``--device cpu`` for tests.
@@ -37,7 +36,7 @@ ROOT = os.path.dirname(HERE)
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-CONTROLS = ("random_partner", "exact_match", "f32_trunk", "bf16_heads")
+CONTROLS = ("random_partner", "exact_match", "f32_trunk", "exact_heads")
 
 
 def _harness():
@@ -47,28 +46,6 @@ def _harness():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
-
-
-def _bf16_operand_linear():
-    """``nn.Linear.forward`` whose forward and backward products take
-    bfloat16-rounded operands and add in float32."""
-    import torch
-
-    def r(t):
-        return t.to(torch.bfloat16).float()
-
-    class Linear(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, x, w, b):
-            ctx.save_for_backward(r(x), r(w))
-            return r(x) @ r(w).T + b
-
-        @staticmethod
-        def backward(ctx, g):
-            x, w = ctx.saved_tensors
-            return r(g) @ w, r(g).T @ x, g.sum(0)
-
-    return lambda self, x: Linear.apply(x, self.weight, self.bias)
 
 
 def main(argv=None):
@@ -84,8 +61,7 @@ def main(argv=None):
                         "(after --)")
     args = p.parse_args(argv)
 
-    import torch
-
+    from shotvae_torch.models import layers
     from shotvae_torch.ops import mixup
 
     lq = _harness()
@@ -102,9 +78,9 @@ def main(argv=None):
     operands = mixup.MATCH_OPERAND_DTYPE
     if "exact_match" in controls:
         mixup.MATCH_OPERAND_DTYPE = None
-    linear = torch.nn.Linear.forward
-    if "bf16_heads" in controls:
-        torch.nn.Linear.forward = _bf16_operand_linear()
+    heads = layers.HEAD_OPERAND_DTYPE
+    if "exact_heads" in controls:
+        layers.HEAD_OPERAND_DTYPE = None
     device_block = lq.device_block
     lq.device_block = lambda *a: dict(device_block(*a), **block)
     try:
@@ -114,7 +90,7 @@ def main(argv=None):
                         "--out", args.out, *args.harness_argv])
     finally:
         mixup.MATCH_OPERAND_DTYPE = operands
-        torch.nn.Linear.forward = linear
+        layers.HEAD_OPERAND_DTYPE = heads
 
 
 if __name__ == "__main__":

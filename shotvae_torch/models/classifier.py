@@ -3,12 +3,14 @@ shotvae_tpu/models/classifier.py:1-109.
 
 ``WideResNetClassifier``: the WRN trunk of the VAE's encoder, its final
 BN+LeakyReLU, global average pooling, cast to f32, and a linear head with
-xavier-uniform weight and zero bias; it emits raw logits. Parameter paths
-are the reference classifier's (classifier_model/wideresnet.py:68-141), the
-names ``shotvae_tpu/io/torch_export.py`` emits for ``kind="classifier"``:
-the stem and units under ``encoder.``, the final BN at
-``global_avg.norm``, the head at ``classification.fc``; so an exported
-state_dict loads with ``strict=True``. The trunk is built from the VAE
+xavier-uniform weight and zero bias, its products at bfloat16 operands
+(``layers.HeadLinear``, as the VAE's heads); it emits raw logits.
+Parameter paths are the reference classifier's
+(classifier_model/wideresnet.py:68-141), the names
+``shotvae_tpu/io/torch_export.py`` emits for ``kind="classifier"``: the
+stem and units under ``encoder.``, the final BN at ``global_avg.norm``, the
+head at ``classification.fc``; so an exported state_dict loads with
+``strict=True``. The trunk is built from the VAE
 encoder's own units (``wideresnet.wrn_units``), so its BN sites run the
 same kernels: ``bn_leaky`` and the train-mode fused conv in train mode,
 ``bn_act`` and the eval-mode fused conv in eval mode.
@@ -37,7 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from shotvae_torch.device import DeviceLike, resolve_device
-from shotvae_torch.models.layers import (BatchNorm, channels_last, conv,
+from shotvae_torch.models.layers import (BatchNorm, HeadLinear,
+                                         channels_last, conv,
                                          global_avg_pool, linear,
                                          zero_biases_)
 from shotvae_torch.models.wideresnet import (parse_wideresnet_name,
@@ -58,7 +61,7 @@ class WideResNetClassifier(nn.Module):
         self.global_avg = nn.ModuleDict({"norm": BatchNorm(features,
                                                            dtype=dtype)})
         self.classification = nn.ModuleDict(
-            {"fc": nn.Linear(features, num_classes)})
+            {"fc": HeadLinear(features, num_classes)})
         zero_biases_(self)
         nn.init.xavier_uniform_(self.classification.fc.weight)
         self.to(device=resolve_device(device),

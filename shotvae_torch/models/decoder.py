@@ -36,10 +36,12 @@ from shotvae_torch.models.layers import (RELU_SLOPE, BatchNorm, channels_last,
                                          conv)
 
 
-def conv_transpose(cin: int, cout: int, kernel_size, **kw
-                   ) -> nn.ConvTranspose2d:
-    """A bias-free ``ConvTranspose2d`` with the JAX package's init law."""
-    layer = nn.ConvTranspose2d(cin, cout, kernel_size, bias=False, **kw)
+def conv_transpose(cin: int, cout: int, kernel_size, *, bias: bool = False,
+                   **kw) -> nn.ConvTranspose2d:
+    """A ``ConvTranspose2d`` (bias-free unless ``bias``) whose weight takes
+    the JAX package's init law; a bias is drawn by torch's law, which
+    ``layers.zero_biases_`` then zeroes."""
+    layer = nn.ConvTranspose2d(cin, cout, kernel_size, bias=bias, **kw)
     kh, kw_ = layer.kernel_size
     bound = 1.0 / math.sqrt(cin * kh * kw_)
     with torch.no_grad():

@@ -18,6 +18,11 @@
   own BatchNorm2d tracks the unbiased one). With a process group
   (``parallel.set_bn_group``) the train-mode statistics, and so the
   running statistics, are the global batch's (sync-BN).
+* ``HeadLinear``: the float32 heads (the VAE's three latent heads, the
+  WRN classifier's ``fc``), whose products take ``HEAD_OPERAND_DTYPE``
+  (bfloat16) operands and float32 sums, forward and backward, as XLA's
+  default precision runs the JAX package's float32 ``Dense`` heads on a
+  TPU.
 * Activations are NCHW tensors in ``channels_last`` memory format, whose
   memory is the (N*H*W, C) rows the kernels take.
 * Precision follows flax's ``dtype`` (not autocast): a module's ``dtype``
@@ -77,6 +82,44 @@ def zero_biases_(module: nn.Module) -> nn.Module:
 
 def channels_last(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous(memory_format=torch.channels_last)
+
+
+# the operands' dtype of the float32 heads' products (None: float32): the
+# JAX package computes its latent heads and the WRN classifier's ``fc`` as
+# float32 ``Dense`` products, which XLA's default precision runs on a TPU
+# with bfloat16 operands and float32 sums (ROADMAP queue 3, F7)
+HEAD_OPERAND_DTYPE: Optional[torch.dtype] = torch.bfloat16
+
+
+class _RoundedOperandLinear(torch.autograd.Function):
+    """``x @ w.T + b`` whose forward and backward products take operands
+    rounded to ``dtype`` and add in float32 (a product of two bfloat16
+    values is exact in float32)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, dtype):
+        x, w = x.to(dtype).float(), w.to(dtype).float()
+        ctx.save_for_backward(x, w)
+        ctx.dtype = dtype
+        return x @ w.T + b
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gr = g.to(ctx.dtype).float()
+        return gr @ w, gr.T @ x, g.sum(0), None
+
+
+class HeadLinear(nn.Linear):
+    """A float32 head (``nn.Linear``: the same parameters, keys and init)
+    whose products take ``HEAD_OPERAND_DTYPE`` operands, as the JAX
+    package's heads compute on a TPU."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if HEAD_OPERAND_DTYPE is None:
+            return super().forward(x)
+        return _RoundedOperandLinear.apply(x, self.weight, self.bias,
+                                           HEAD_OPERAND_DTYPE)
 
 
 def conv(module: nn.Module, x: torch.Tensor,

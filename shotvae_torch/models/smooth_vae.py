@@ -23,9 +23,11 @@ and the decoder's reshape are torch's (C, H, W) order; the JAX package's
 (H, W, C) order lives only in the weight bridge
 (``shotvae_torch.io.jax_weights.smooth_vae_state_dict_from_jax``).
 
-Init: torch's default weight init of each layer (U(+-1/sqrt(fan_in)) with
-torch's fan_in, which for a ConvTranspose2d is its *output* channels times
-the kernel area), zero biases (the JAX package's documented deviation 4).
+Init: torch's default weight init of each Conv2d and Linear
+(U(+-1/sqrt(fan_in))); each ConvTranspose2d weight U(+-1/sqrt(fan_in)) with
+the JAX package's fan_in, its *input* channels times the kernel area
+(``decoder.conv_transpose``; torch's default takes the output channels);
+zero biases (the JAX package's documented deviation 4).
 ``dtype`` (None: float32) is the compute dtype of the convs, the hidden
 layer and the decoder, as the JAX module's: the hidden activations return
 to float32 before the heads, and the Tanh output is float32. The convs are
@@ -42,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from shotvae_torch.device import DeviceLike, resolve_device
+from shotvae_torch.models.decoder import conv_transpose
 from shotvae_torch.models.layers import conv, linear, zero_biases_
 from shotvae_torch.ops import sampling
 
@@ -95,8 +98,8 @@ class SmoothVAE(nn.Module):
             nn.Linear(hidden_dim, reshape_channels * 4 * 4), nn.ReLU())
         layers, cin = [], reshape_channels
         for cout in (*decoder_channels, img_channels):
-            layers += [nn.ConvTranspose2d(cin, cout, 4, stride=2, padding=1),
-                       nn.ReLU()]
+            layers += [conv_transpose(cin, cout, 4, bias=True, stride=2,
+                                      padding=1), nn.ReLU()]
             cin = cout
         layers[-1] = nn.Tanh()
         self.features_to_img = nn.Sequential(*layers)

@@ -2,6 +2,9 @@
 
 encoder -> global average pool -> three linear heads (z mean, z log-sigma,
 y log-alpha via log-softmax), all f32 -> [z ; y] sample -> DCGAN decoder.
+The heads' products take bfloat16 operands and float32 sums
+(``layers.HeadLinear``), as the JAX package's float32 heads compute on a
+TPU at XLA's default precision.
 Parameter paths are the reference's (``feature_extractor``,
 ``continuous_inference.{mean,log_sigma}.fc``, ``disc_latent_inference.fc``,
 ``feature_reconstructor``), the names ``shotvae_tpu/io/torch_export.py``
@@ -41,8 +44,8 @@ from torch import nn
 from shotvae_torch.device import DeviceLike, resolve_device
 from shotvae_torch.models.decoder import Decoder
 from shotvae_torch.models.densenet import DenseNet, densenet_dict
-from shotvae_torch.models.layers import (channels_last, global_avg_pool,
-                                         zero_biases_)
+from shotvae_torch.models.layers import (HeadLinear, channels_last,
+                                         global_avg_pool, zero_biases_)
 from shotvae_torch.models.preactresnet import PreActResNet, preactresnet_dict
 from shotvae_torch.models.wideresnet import WideResNet, parse_wideresnet_name
 from shotvae_torch.ops import sampling
@@ -71,7 +74,7 @@ def build_encoder(encoder_name: str, *, num_input_channels: int = 3,
 
 
 def _linear_head(in_features: int, out_features: int) -> nn.ModuleDict:
-    return nn.ModuleDict({"fc": nn.Linear(in_features, out_features)})
+    return nn.ModuleDict({"fc": HeadLinear(in_features, out_features)})
 
 
 class VariationalAutoEncoder(nn.Module):

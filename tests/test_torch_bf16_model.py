@@ -23,6 +23,9 @@ the forward's difference (the decoder's 1024->512 ConvTranspose weight
 reads 1.2x of 2x JAX's distance). The port's own bf16-vs-f32 distance must
 lie within 0.25x to 4x of the JAX model's (each taken over all outputs
 together), which fails a port that silently runs f32.
+
+The JAX side computes its float32 heads as a TPU does, with bfloat16
+operands (``torch_tpu_match``), as the port's heads do.
 """
 
 import numpy as np
@@ -42,6 +45,7 @@ from shotvae_torch.models.vae import VariationalAutoEncoder
 from shotvae_torch.ops.schedules import multistep_lr
 from shotvae_torch.train.state import TrainState, sgd_torch
 from shotvae_torch.train.steps import make_shot_vae_train_step
+from torch_tpu_match import with_tpu_dense
 
 NET = "wideresnet-10-1"
 DC, K, B = 8, 10, 8
@@ -164,11 +168,12 @@ def test_bf16_vae_matches_jax_bf16(models, data, train):
     names = ("recon", "mean", "log_sigma", "log_alpha")
     jax_out, port_out = {}, {}
     for tag, jm in (("32", jm32), ("16", jm16)):
-        out = jm.apply({"params": params, "batch_stats": bs}, jnp.asarray(x),
-                       train=train,
-                       noise={k: jnp.asarray(v) for k, v in noise.items()},
-                       rngs={"sample": jax.random.key(0)},
-                       mutable=["batch_stats"] if train else False)
+        out = with_tpu_dense(jm.apply)(
+            {"params": params, "batch_stats": bs}, jnp.asarray(x),
+            train=train,
+            noise={k: jnp.asarray(v) for k, v in noise.items()},
+            rngs={"sample": jax.random.key(0)},
+            mutable=["batch_stats"] if train else False)
         outs, stats = (out if train else (out, None))
         jax_out[tag] = dict(zip(names, outs))
         jax_out[tag]["recon"] = np.asarray(jax_out[tag]["recon"]).transpose(
@@ -220,9 +225,9 @@ def test_bf16_train_step_matches_jax_bf16_step(models, data):
             apply_fn=jm.apply, params=params, batch_stats=bs,
             tx=jax_state.sgd_torch(jax_schedules.multistep_lr(
                 0.1, [1], steps_per_epoch=1)))
-        jstep = jax.jit(jax_steps.make_shot_vae_train_step(
+        jstep = with_tpu_dense(jax.jit(jax_steps.make_shot_vae_train_step(
             jm, num_classes=K, bce=True, x_sigma=1.0, epsilon=0.1,
-            optimal_match=True, aug=jax_steps.AugmentConfig(enabled=False)))
+            optimal_match=True, aug=jax_steps.AugmentConfig(enabled=False))))
         jstate, metrics = jstep(jstate, *map(jnp.asarray, batch), sched,
                                 jax.random.key(0),
                                 {k: jnp.asarray(v) for k, v in n.items()})

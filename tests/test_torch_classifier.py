@@ -10,7 +10,8 @@ and running statistics is converted with the port's
 ``WideResNetClassifier``. Both sides get the same numpy images and labels;
 the crops and flips are those the JAX step draws from its key, replayed in
 the port as ``aug``. On the CPU the port's kernel wrappers run their plain
-versions.
+versions. The JAX classifier's ``fc`` computes as on a TPU, with
+bfloat16 operands (``torch_tpu_match.tpu_dense``), as the port's does.
 
 Tolerances (f32): logits and running statistics within 1e-4; the train
 step's loss within 1e-4 relative, every parameter and running statistic
@@ -48,6 +49,7 @@ from shotvae_torch.models.classifier import (MLPClassifier,
 from shotvae_torch.ops.schedules import multistep_lr
 from shotvae_torch.train.loop import build_classifier_model, run_classifier
 from shotvae_torch.train.state import TrainState, sgd_torch
+from torch_tpu_match import port_head_operands, tpu_dense
 from shotvae_torch.train.steps import (make_classifier_eval_step,
                                        make_classifier_train_step,
                                        softmax_ce)
@@ -129,15 +131,21 @@ def _nchw(img):
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
 def test_wrn_classifier_matches_jax(jax_model, data, train):
     """The logits, and in train mode every running statistic after the
-    forward, against ``model.apply`` of the JAX classifier."""
+    forward, against ``model.apply`` of the JAX classifier; its ``fc``
+    takes the port's operands (``tpu_dense`` aligned), which its own hold
+    within the tolerance."""
     jm, params, bs = jax_model
     x = data["img"].astype(np.float32) / 255.0
-    out = jm.apply({"params": params, "batch_stats": bs}, jnp.asarray(x),
-                   train=train, mutable=["batch_stats"] if train else False)
-    want, stats = out if train else (out, None)
     pm = _port(params, bs).train(train)
-    with torch.no_grad():
+    with torch.no_grad(), port_head_operands(pm) as aligned:
         got = pm(_nchw(data["img"]))
+    gaps = []  # the fc's input and kernel, JAX's own against the port's
+    with tpu_dense(aligned, gaps):
+        out = jm.apply({"params": params, "batch_stats": bs},
+                       jnp.asarray(x), train=train,
+                       mutable=["batch_stats"] if train else False)
+    want, stats = out if train else (out, None)
+    assert len(gaps) == 2 and max(gaps) <= 1e-4, gaps
     assert got.shape == (B, K) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-4)
@@ -161,8 +169,9 @@ def test_bf16_wrn_classifier_matches_jax_bf16(jax_model, data):
     for tag, jdtype, tdtype in (("32", None, None),
                                 ("16", jnp.bfloat16, torch.bfloat16)):
         jm = jax_build_classifier(NET, K, dtype=jdtype)
-        logits, stats = jm.apply({"params": params, "batch_stats": bs}, x,
-                                 train=True, mutable=["batch_stats"])
+        with tpu_dense():
+            logits, stats = jm.apply({"params": params, "batch_stats": bs},
+                                     x, train=True, mutable=["batch_stats"])
         res["jax" + tag] = {"logits": logits,
                             **classifier_state_dict_from_jax(
                                 params, stats["batch_stats"])}
@@ -293,7 +302,8 @@ def test_classifier_step_lockstep_matches_jax(jax_model, data):
     batch = (data["img"], data["lab"])
     for i in range(STEPS):
         key = jax.random.key(20 + i)
-        jstate, want = jstep(jstate, *map(jnp.asarray, batch), key)
+        with tpu_dense():  # traced at the first step
+            jstate, want = jstep(jstate, *map(jnp.asarray, batch), key)
         key_aug, _ = jax.random.split(key)
         got = step(state, *map(torch.from_numpy, batch),
                    torch.Generator().manual_seed(i),
@@ -329,9 +339,11 @@ def test_eval_step_matches_jax_with_a_mask(data, num_classes):
     jstate = jax_state.TrainState.create(apply_fn=jm.apply, params=params,
                                          batch_stats=bs,
                                          tx=jax_state.sgd_torch(0.1))
-    want = jax_steps.make_classifier_eval_step(jm, num_classes=num_classes)(
-        jstate, jnp.asarray(data["img"]), jnp.asarray(lab),
-        jnp.asarray(weight))
+    with tpu_dense():
+        want = jax_steps.make_classifier_eval_step(
+            jm, num_classes=num_classes)(
+            jstate, jnp.asarray(data["img"]), jnp.asarray(lab),
+            jnp.asarray(weight))
     pm = build_classifier(NET, num_classes, device="cpu")
     pm.load_state_dict(classifier_state_dict_from_jax(params, bs),
                        strict=True)

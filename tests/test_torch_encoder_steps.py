@@ -19,6 +19,9 @@ Tolerances, as tests/test_torch_train.py holds the WideResNet step: the
 loss and every metric within 1e-4 relative, every parameter and running
 statistic within 1e-3 after each step; the eval step's sums within 1e-4
 relative and its reconstruction within 1e-4.
+
+The JAX side computes its float32 heads as a TPU does, with bfloat16
+operands (``torch_tpu_match``), as the port's heads do.
 """
 
 import os
@@ -45,6 +48,8 @@ from shotvae_torch.ops.schedules import multistep_lr
 from shotvae_torch.train.state import TrainState, sgd_torch
 from shotvae_torch.train.steps import (make_shot_vae_train_step,
                                        make_vae_eval_step)
+from torch_tpu_match import (port_head_operands, with_aligned_tpu_dense,
+                             with_tpu_dense)
 
 DC, K, B = 8, 10, 4
 STEPS = 2
@@ -155,15 +160,19 @@ def test_shot_vae_step_lockstep_matches_jax(jax_model, data):
     """SHOT-VAE steps (bce, optimal match, augmentation off, every draw
     injected; LR warmup then a decay): loss, metrics, parameters and
     running statistics after every step; DenseNet with ``efficient`` on
-    both sides, its running statistics tracked once a step."""
+    both sides, its running statistics tracked once a step. JAX's heads
+    take the port's operands (``tpu_dense`` aligned), which its own hold
+    within the state's 1e-3."""
     net, jm, params, bs = jax_model
     jax_lr = jax_schedules.multistep_lr(0.1, [1], steps_per_epoch=1)
     jstate = jax_state.TrainState.create(
         apply_fn=jm.apply, params=params, batch_stats=bs,
         tx=jax_state.sgd_torch(jax_lr))
-    jstep = jax.jit(jax_steps.make_shot_vae_train_step(
+    gaps = []  # the heads' inputs and kernels, JAX's own against the port's
+    jstep = jax.jit(with_aligned_tpu_dense(jax_steps.make_shot_vae_train_step(
         jm, num_classes=K, bce=True, x_sigma=1.0, epsilon=0.1,
-        optimal_match=True, aug=jax_steps.AugmentConfig(enabled=False)))
+        optimal_match=True, aug=jax_steps.AugmentConfig(enabled=False)),
+        gaps))
     pm = _port_model(net, params, bs)
     opt = sgd_torch(pm)
     state = TrainState(pm, opt, multistep_lr(0.1, [1], steps_per_epoch=1))
@@ -175,11 +184,15 @@ def test_shot_vae_step_lockstep_matches_jax(jax_model, data):
     batch = [data[k] for k in ("img_l", "lab_l", "img_u", "lab_u")]
     for i in range(STEPS):
         n = _draws(rng)
-        jstate, want = jstep(jstate, *map(jnp.asarray, batch), sched,
-                             jax.random.key(i),
+        with port_head_operands(pm) as aligned:
+            got = step(state, *map(torch.from_numpy, batch), SCHED,
+                       torch.Generator().manual_seed(i), inject=n)
+        gaps.clear()
+        jstate, want = jstep(aligned, jstate, *map(jnp.asarray, batch),
+                             sched, jax.random.key(i),
                              {k: jnp.asarray(v) for k, v in n.items()})
-        got = step(state, *map(torch.from_numpy, batch), SCHED,
-                   torch.Generator().manual_seed(i), inject=n)
+        assert len(gaps) == 2 * len(aligned) == 24 and max(gaps) <= 1e-3, \
+            gaps
         assert got.keys() == want.keys()
         for k in got:
             np.testing.assert_allclose(float(got[k]), float(want[k]),
@@ -202,8 +215,8 @@ def test_eval_step_matches_jax(jax_model, data):
     jstate = jax_state.TrainState.create(apply_fn=jm.apply, params=params,
                                          batch_stats=bs,
                                          tx=jax_state.sgd_torch(0.1))
-    jstep = jax_steps.make_vae_eval_step(jm, num_classes=K, bce=True,
-                                         x_sigma=1.0)
+    jstep = with_tpu_dense(jax_steps.make_vae_eval_step(
+        jm, num_classes=K, bce=True, x_sigma=1.0))
     want, want_recon = jstep(jstate, jnp.asarray(data["img_u"]),
                              jnp.asarray(data["lab_u"]), jnp.asarray(weight),
                              jax.random.key(0),

@@ -34,6 +34,9 @@ the port's own bf16-vs-f32 distance within 0.25x to 4x of JAX's, the
 median over the tensors of their ratio (a silent f32 step reads 0; the
 largest distance is a reconstruction sum of about 2,000, whose rounding
 one bf16 flip moves several-fold).
+
+The JAX side computes its float32 heads as a TPU does, with bfloat16
+operands (``torch_tpu_match``), as the port's heads do.
 """
 
 import contextlib
@@ -48,7 +51,6 @@ import jax.numpy as jnp
 from flax import traverse_util
 
 from shotvae_tpu.models import VariationalAutoEncoder as JaxVAE
-from torch_tpu_match import tpu_pairwise_gaussian_kl
 from shotvae_tpu.ops import mixup as jax_mixup
 from shotvae_tpu.ops import sampling as jax_sampling
 from shotvae_tpu.ops import schedules as jax_schedules
@@ -59,6 +61,8 @@ from shotvae_torch.models.vae import VariationalAutoEncoder
 from shotvae_torch.ops.schedules import multistep_lr
 from shotvae_torch.train.state import TrainState, sgd_torch
 from shotvae_torch.train.steps import make_shot_vae_train_step
+from torch_tpu_match import (port_head_operands, tpu_pairwise_gaussian_kl,
+                             with_aligned_tpu_dense, with_tpu_dense)
 
 NET = "wideresnet-10-1"
 DC, K, B = 8, 10, 8
@@ -144,7 +148,7 @@ def _draws(rng, optimal_match: bool):
     return n, jax_only
 
 
-def _jax_fused_step(jm, optimal_match: bool):
+def _jax_fused_step(jm, optimal_match: bool, gaps=None):
     """JAX's fused step, jitted, as ``run(state, img_l, lab_l, img_u,
     lab_u, sched, key, draws)``: the draws enter as arguments and reach
     the step through the wrappers patched in while it is traced, and the
@@ -189,7 +193,9 @@ def _jax_fused_step(jm, optimal_match: bool):
         assert not noises  # forwards A and B each took theirs
         return out
 
-    return jax.jit(run)
+    if gaps is not None:  # run(aligned, ...): the heads take the port's
+        return jax.jit(with_aligned_tpu_dense(run, gaps))
+    return with_tpu_dense(jax.jit(run))
 
 
 def _jax_state(jm, params, bs):
@@ -222,10 +228,10 @@ def _port_step(step, state, data, inject, seed=0):
                 torch.Generator().manual_seed(seed), inject=inject)
 
 
-def _jax_step(run, jstate, data, inject, jax_only, seed=0):
+def _jax_step(run, jstate, data, inject, jax_only, seed=0, aligned=None):
     sched = {k: jnp.float32(v) for k, v in SCHED.items()}
-    return run(jstate, *map(jnp.asarray, _batch(data)), sched,
-               jax.random.key(seed),
+    return run(*([] if aligned is None else [aligned]), jstate,
+               *map(jnp.asarray, _batch(data)), sched, jax.random.key(seed),
                {k: jnp.asarray(v) for k, v in {**inject, **jax_only}.items()})
 
 
@@ -251,9 +257,11 @@ def test_fused_step_lockstep_matches_jax(models, data, optimal_match):
     """Three fused steps (LR warmup then a decay: 0.02, 0.1, 0.01) against
     JAX's fused step with the same draws: the loss and every metric, every
     parameter and running statistic, and every parameter's update over
-    the first step."""
+    the first step. JAX's heads take the port's operands (``tpu_dense``
+    aligned), which its own hold within TOL."""
     jm, _, params, bs = models
-    run = _jax_fused_step(jm, optimal_match)
+    gaps = []  # the heads' inputs and kernels, JAX's own against the port's
+    run = _jax_fused_step(jm, optimal_match, gaps)
     jstate = _jax_state(jm, params, bs)
     pm, state, step = _port(params, bs, optimal_match=optimal_match)
     rng = np.random.default_rng(2)
@@ -261,8 +269,13 @@ def test_fused_step_lockstep_matches_jax(models, data, optimal_match):
         inject, jax_only = _draws(rng, optimal_match)
         want_before = _jax_sd(jstate)
         got_before = {k: v.clone() for k, v in pm.state_dict().items()}
-        jstate, want = _jax_step(run, jstate, data, inject, jax_only, i)
-        got = _port_step(step, state, data, inject, i)
+        with port_head_operands(pm) as aligned:
+            got = _port_step(step, state, data, inject, i)
+        gaps.clear()
+        jstate, want = _jax_step(run, jstate, data, inject, jax_only, i,
+                                 aligned)
+        assert len(gaps) == 2 * len(aligned) == 12 and max(gaps) <= TOL, \
+            gaps
         assert got.keys() == want.keys()
         for k in got:
             np.testing.assert_allclose(float(got[k]), float(want[k]),

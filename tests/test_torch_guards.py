@@ -1316,3 +1316,55 @@ def test_chip_smoke_learning_phase_fails_a_planted_fault(fault, match,
         _learning_phase(chip_smoke, monkeypatch, str(tmp_path),
                         arms=("shot",), smooth_arms=("mnist",), epochs=1,
                         **kw)
+
+
+def _system_report():
+    """A report and runs that phase 18's check passes on the CPU."""
+    report = {"status": "OK", "phase1": {"sigkilled": True},
+              "double_resume_bit_exact": True,
+              "phase2": {"nan_free": True, "final_epoch": 4,
+                         "train_loss_first": 2.5, "train_loss_last": 1.5},
+              "device": {"name": "cpu"}}
+    zeros = {k: 0 for k in ("fused_bn_act_conv", "bn_act_inference",
+                            "fused_joint_sample", "bn_stats", "bn_apply",
+                            "bn_bwd_reduce", "bn_bwd_apply")}
+    runs = [{"epochs": [2, 3], "launches": dict(zeros)} for _ in range(2)]
+    runs.append({"epochs": [2, 3, 4], "launches": dict(zeros)})
+    return report, runs
+
+
+def _plant(fault, report):
+    if fault == "probe not bit for bit":
+        report["double_resume_bit_exact"] = False
+    elif fault == "a NaN loss":
+        report["phase2"]["train_loss_last"] = float("nan")
+    elif fault == "no SIGKILL":
+        report["phase1"]["sigkilled"] = False
+    elif fault == "an outside interruption":
+        report["phase1"]["interrupted_by"] = "test"
+    elif fault == "an early end":
+        report["phase2"]["final_epoch"] = 3
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("probe not bit for bit", "not bit for bit"),
+    ("a NaN loss", "not all finite"),
+    ("no SIGKILL", "not a real SIGKILL"),
+    ("an outside interruption", "not a real SIGKILL"),
+    ("an early end", "ended at epoch 3"),
+    ("still counters on a card stand-in", "launched")])
+def test_chip_smoke_system_run_check_fails_a_planted_report(fault, match,
+                                                            monkeypatch):
+    """Phase 18's check passes the template report and fails each planted
+    fault: the probe not bit for bit, a NaN loss, a child not SIGKILLed or
+    stopped from outside, an early end, and hand-kernel counters that stay
+    at 0 where launches are expected (a card stand-in)."""
+    chip_smoke = _chip_smoke(monkeypatch)
+    kw = dict(epochs=5, steps=3, eval_forwards=9)
+    report, runs = _system_report()
+    chip_smoke.check_system_run(report, runs, "cpu", cuda=False, **kw)
+    _plant(fault, report)
+    with pytest.raises(RuntimeError, match=match):
+        chip_smoke.check_system_run(
+            report, runs, "cpu",
+            cuda=fault == "still counters on a card stand-in", **kw)

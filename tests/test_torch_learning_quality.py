@@ -9,7 +9,8 @@ package's loaders read from the same folder; the verdict functions equal
 to the JAX scripts' on the committed artifacts' own curves (200- and
 80-epoch histories, the SVHN arm's NaNs included); a tiny run on the CPU
 writing an artifact with the JAX artifact's keys plus ``device``. And an
-AST scan: neither port script imports JAX-side code.
+AST scan: no port script (these and scripts/torch_run_repro.py) imports
+JAX-side code.
 """
 
 import ast
@@ -28,6 +29,9 @@ LQ_ARTIFACTS = ["learning_quality.json", "learning_quality_seed2.json",
 SMOOTH_ARTIFACT = "smooth_elbo_learning.json"
 PORT_SCRIPTS = ["torch_learning_quality", "torch_smooth_elbo_learning",
                 "torch_learning_controls"]
+# the port's scripts whose imports are scanned: the harnesses and the
+# system run (tests/test_torch_run_repro.py drives it)
+SCANNED_SCRIPTS = PORT_SCRIPTS + ["torch_run_repro"]
 JAX_SIDE = {"jax", "jaxlib", "flax", "optax", "orbax", "shotvae_tpu",
             "ssl_value_bench", "learning_quality", "smooth_elbo_learning"}
 TINY = ["--device", "cpu", "--net-name", "wideresnet-10-1", "--batch-size",
@@ -290,7 +294,7 @@ def _scan(path):
     return modules, files
 
 
-@pytest.mark.parametrize("script", PORT_SCRIPTS)
+@pytest.mark.parametrize("script", SCANNED_SCRIPTS)
 def test_port_scripts_import_no_jax_side_code(script):
     modules, files = _scan(os.path.join(ROOT, "scripts", script + ".py"))
     assert any(m.startswith("shotvae_torch.") for m in modules)
@@ -332,6 +336,39 @@ def test_control_runs_the_shot_arm_and_restores_the_match(tmp_path):
     assert mixup.MATCH_OPERAND_DTYPE == torch.bfloat16
 
 
+def test_exact_heads_control_runs_exact_heads_and_restores_them(
+        monkeypatch, tmp_path):
+    """The ``exact_heads`` control (the heads' arithmetic before F7): the
+    SHOT arm's heads compute with float32 operands while it runs, and take
+    bfloat16 operands again after it."""
+    from shotvae_torch.models import layers
+
+    ctrl = _load("torch_learning_controls")
+    seen = []
+    main = ctrl._harness
+
+    def harness():
+        module = main()
+        run_arm = module.run_arm
+
+        def recorded(*args):
+            seen.append(layers.HEAD_OPERAND_DTYPE)
+            return run_arm(*args)
+
+        module.run_arm = recorded
+        return module
+
+    monkeypatch.setattr(ctrl, "_harness", harness)
+    out = str(tmp_path / "ctrl.json")
+    rc = ctrl.main(["exact_heads", "--device", "cpu", "--epochs", "1",
+                    "--steps-per-call", "1", "--out", out, "--",
+                    *TINY[2:-2]])
+    assert rc in (0, 1)
+    assert seen == [None]
+    assert json.load(open(out))["device"]["control"] == "exact_heads"
+    assert layers.HEAD_OPERAND_DTYPE == torch.bfloat16
+
+
 PORT_ARTIFACTS = {1: "learning_quality_torch.json",
                   2: "learning_quality_torch_seed2.json",
                   3: "learning_quality_torch_seed3.json"}
@@ -342,8 +379,10 @@ def test_committed_port_artifacts_meet_the_learning_bars(seed):
     """The port's committed card runs: the JAX artifact's keys and a
     device block naming the card, every curve value finite, SHOT's best
     test top-1 at least 0.85 and 0.40 above the better baseline, its
-    reconstruction improved and its ew ramped; the N = 1 run of seed 1
-    equal to the N = 8 run's SHOT arm epoch for epoch."""
+    final test top-1 within 0.05 of the JAX artifact's final at the same
+    seed (ROADMAP queue 3, F7), its reconstruction improved and its ew
+    ramped; the N = 1 run of seed 1 equal to the N = 8 run's SHOT arm
+    epoch for epoch."""
     art = _artifact(PORT_ARTIFACTS[seed])
     assert set(art) == set(_artifact(LQ_ARTIFACTS[0])) | {"device"}
     assert "H100" in art["device"]["name"] and art["device"]["power_limit"]
@@ -364,6 +403,9 @@ def test_committed_port_artifacts_meet_the_learning_bars(seed):
     assert best >= 0.85
     assert best - max(s["classifier"]["best_test_top1"],
                       s["m2"]["best_test_top1"]) >= 0.40
+    jax_final = _artifact(LQ_ARTIFACTS[seed - 1])["summary"]["shot"][
+        "final_test_top1"]
+    assert abs(s["shot"]["final_test_top1"] - jax_final) <= 0.05
     dec = art["verdict"]["shot_decomposition"]
     assert dec["recon_u_improved"] and dec["ew_ramped"]
     if seed == 1:

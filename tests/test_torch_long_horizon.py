@@ -33,6 +33,9 @@ port's init, as here, 1.44e-2.
 Each JAX step is compiled once in this file: its learning rate is an
 injected hyperparameter of the same SGD (``optax.inject_hyperparams``), so
 the control arm reuses the compiled step.
+
+The JAX side computes its float32 heads as a TPU does, with bfloat16
+operands (``torch_tpu_match``), as the port's heads do.
 """
 
 import jax
@@ -52,6 +55,7 @@ from shotvae_torch.models.vae import VariationalAutoEncoder
 from shotvae_torch.train.state import TrainState, sgd_torch
 from shotvae_torch.train.steps import (make_m2_train_step,
                                        make_shot_vae_train_step)
+from torch_tpu_match import with_tpu_dense
 
 NET = "wideresnet-10-1"
 DC, K, B = 8, 10, 8
@@ -91,11 +95,11 @@ def jax_side():
                                       jnp.zeros((2, 32, 32, 3)))
     off = jax_steps.AugmentConfig(enabled=False)
     steps = {
-        "shot": jax.jit(jax_steps.make_shot_vae_train_step(
+        "shot": with_tpu_dense(jax.jit(jax_steps.make_shot_vae_train_step(
             jm, num_classes=K, bce=True, x_sigma=1.0, epsilon=0.1,
-            optimal_match=False, aug=off)),
-        "m2": jax.jit(jax_steps.make_m2_train_step(
-            jm, num_classes=K, bce=True, x_sigma=1.0, aug=off))}
+            optimal_match=False, aug=off))),
+        "m2": with_tpu_dense(jax.jit(jax_steps.make_m2_train_step(
+            jm, num_classes=K, bce=True, x_sigma=1.0, aug=off)))}
     return jm, params, bs, steps
 
 

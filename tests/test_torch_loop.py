@@ -8,7 +8,11 @@ bit. Also the encoder's dropout against the JAX model and flax's law.
 The loop's size is the JAX package's ``_tiny_cfg`` (tests/test_loops_e2e.py:
 25-33) at batch 32 on 192 synthetic images (2 train steps, 4 valid and 8
 test batches per epoch), so that the eight epochs here stay within a few
-tens of seconds on one CPU thread."""
+tens of seconds on one CPU thread.
+
+The JAX side computes its float32 heads as a TPU does, with bfloat16
+operands (``torch_tpu_match``), as the port's heads do.
+"""
 
 import math
 import os
@@ -30,6 +34,7 @@ from shotvae_torch.models import wideresnet
 from shotvae_torch.models.layers import dropout
 from shotvae_torch.models.vae import VariationalAutoEncoder
 from shotvae_torch.train.loop import run_shot_vae
+from torch_tpu_match import with_tpu_dense
 
 MILESTONES = [1, 2, 3]  # the ewm bump at the end of epoch 1
 EPOCHS = 4
@@ -207,8 +212,8 @@ def test_dropout_eval_mode_matches_jax():
     x = rng.uniform(size=(4, 32, 32, 3)).astype(np.float32)
     noise = {"eps": rng.normal(size=(4, 8)).astype(np.float32),
              "unif": rng.uniform(size=(4, 10)).astype(np.float32)}
-    want = jax.jit(lambda v, x, n: jm.apply(
-        v, x, train=False, noise=n, rngs={"sample": jax.random.key(0)}))(
+    want = with_tpu_dense(jax.jit(lambda v, x, n: jm.apply(
+        v, x, train=False, noise=n, rngs={"sample": jax.random.key(0)})))(
             {"params": params, "batch_stats": bs}, jnp.asarray(x),
             {k: jnp.asarray(v) for k, v in noise.items()})
     with torch.no_grad():

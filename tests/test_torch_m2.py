@@ -19,6 +19,9 @@ bf16 step's own distance from the JAX f32 step), the bound of
 test_torch_bf16_model.py, with JAX's distance taken as its largest over
 three draws; and the port's own bf16-vs-f32 distance within 0.25x to 4x of
 JAX's.
+
+The JAX side computes its float32 heads as a TPU does, with bfloat16
+operands (``torch_tpu_match``), as the port's heads do.
 """
 
 import os
@@ -42,6 +45,7 @@ from shotvae_torch.ops.schedules import multistep_lr
 from shotvae_torch.train.loop import run_shot_vae
 from shotvae_torch.train.state import TrainState, sgd_torch
 from shotvae_torch.train.steps import make_m2_train_step
+from torch_tpu_match import with_tpu_dense
 
 NET = "wideresnet-10-1"
 DC, K, B = 8, 10, 8
@@ -140,8 +144,8 @@ def _jax_step(jm, params, bs, bce):
         apply_fn=jm.apply, params=params, batch_stats=bs,
         tx=jax_state.sgd_torch(jax_schedules.multistep_lr(
             0.1, [1], steps_per_epoch=1)))
-    return jstate, jax.jit(jax_steps.make_m2_train_step(
-        jm, num_classes=K, bce=bce, x_sigma=1.0))
+    return jstate, with_tpu_dense(jax.jit(jax_steps.make_m2_train_step(
+        jm, num_classes=K, bce=bce, x_sigma=1.0)))
 
 
 def _port_step(pm, bce):

@@ -6,6 +6,9 @@ random BN affines and running statistics is converted with the port's
 eval mode on the same numpy inputs. On the CPU the port's kernel wrappers
 take their plain versions.
 
+The JAX side computes its three latent heads as a TPU does, with
+bfloat16 operands (``torch_tpu_match.tpu_dense``), as the port's heads do.
+
 Tolerances (f32 throughout): 1e-4 for the encoder heads, 1e-3 for the
 decoder logits. The port folds each BatchNorm into one scale/shift
 (x * scale + shift) where flax computes (x - mean) * (gamma * invstd) + beta,
@@ -28,6 +31,7 @@ from shotvae_tpu.train.state import init_model
 from shotvae_torch.api import ShotVaeInference
 from shotvae_torch.io.jax_weights import state_dict_from_jax
 from shotvae_torch.models.vae import VariationalAutoEncoder
+from torch_tpu_match import tpu_dense
 
 NET = "wideresnet-10-1"
 DC, K, B = 8, 10, 4
@@ -98,8 +102,9 @@ def test_state_dict_matches_torch_export(pair):
 
 def test_encode_matches_jax(pair, data):
     jm, variables, pm = pair
-    want = jm.apply(variables, jnp.asarray(data["x"]), train=False,
-                    method=jm.encode)
+    with tpu_dense():
+        want = jm.apply(variables, jnp.asarray(data["x"]), train=False,
+                        method=jm.encode)
     with torch.no_grad():
         got = pm.encode(_nchw(data["x"]))
     for g, w in zip(got, want):
@@ -117,10 +122,11 @@ def test_decode_matches_jax(pair, data):
 
 def test_forward_with_injected_noise_matches_jax(pair, data):
     jm, variables, pm = pair
-    want = jm.apply(variables, jnp.asarray(data["x"]), train=False,
-                    noise={"eps": jnp.asarray(data["eps"]),
-                           "unif": jnp.asarray(data["unif"])},
-                    rngs={"sample": jax.random.key(0)})
+    with tpu_dense():
+        want = jm.apply(variables, jnp.asarray(data["x"]), train=False,
+                        noise={"eps": jnp.asarray(data["eps"]),
+                               "unif": jnp.asarray(data["unif"])},
+                        rngs={"sample": jax.random.key(0)})
     with torch.no_grad():
         got = pm(_nchw(data["x"]),
                  noise={"eps": torch.from_numpy(data["eps"]),
@@ -135,8 +141,11 @@ def test_api_classify_and_encode_match_jax(pair, data):
     ja = JaxInference(jm, variables["params"], variables["batch_stats"])
     pa = ShotVaeInference(pm, device="cpu")
     images = data["images"]
-    _close(pa.classify(images), ja.classify(jnp.asarray(images)), TOL_HEADS)
-    for g, w in zip(pa.encode(images), ja.encode(jnp.asarray(images))):
+    with tpu_dense():  # the endpoints are traced at their first call
+        want_classify = ja.classify(jnp.asarray(images))
+        want_encode = ja.encode(jnp.asarray(images))
+    _close(pa.classify(images), want_classify, TOL_HEADS)
+    for g, w in zip(pa.encode(images), want_encode):
         _close(g, w, TOL_HEADS)
 
 
@@ -168,8 +177,9 @@ def test_from_checkpoint(pair, data, tmp_path):
     assert api.model.continuous_latent_dim == DC
     assert api.model.disc_latent_dim == K
     ja = JaxInference(jm, variables["params"], variables["batch_stats"])
-    _close(api.classify(data["images"]),
-           ja.classify(jnp.asarray(data["images"])), TOL_HEADS)
+    with tpu_dense():
+        want = ja.classify(jnp.asarray(data["images"]))
+    _close(api.classify(data["images"]), want, TOL_HEADS)
     np.testing.assert_array_equal(
         api.classify(data["images"]).numpy(),
         ShotVaeInference(pm, device="cpu").classify(data["images"]).numpy())

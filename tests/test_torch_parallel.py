@@ -50,6 +50,9 @@ through the parameters after the update, as the port's lockstep tests hold
 them: at 4 rows a rank, the port's and JAX's decoder gradients already lie
 up to 4e-2 apart (max-norm) in one process on the same rows, with the
 parameters after the update within 1e-3.
+
+The JAX side computes its float32 heads as a TPU does, with bfloat16
+operands (``torch_tpu_match``), as the port's heads do.
 """
 
 import os
@@ -64,7 +67,6 @@ import jax.numpy as jnp
 from flax import traverse_util
 
 import torch_parallel_workers as workers
-from torch_tpu_match import tpu_pairwise_gaussian_kl
 from shotvae_tpu.models import VariationalAutoEncoder as JaxVAE
 from shotvae_tpu.ops import mixup as jax_mixup
 from shotvae_tpu.ops import schedules as jax_schedules
@@ -74,6 +76,7 @@ from shotvae_tpu.train import state as jax_state
 from shotvae_tpu.train import steps as jax_steps
 from shotvae_torch.io.jax_weights import state_dict_from_jax
 from shotvae_torch.parallel import spawn_ranks
+from torch_tpu_match import tpu_pairwise_gaussian_kl, with_tpu_dense
 
 WORLD = 2
 B = 8             # global rows of each stream
@@ -441,8 +444,8 @@ def jax_wrapped(setup):
     mixup takes an injected weight of shape (1,) as a scalar
     (``_jax_lam_squeezed``: under ``shard_map`` a per-replica weight
     arrives as its replica's slice; a sync step's weight is 0-d), and its
-    optimal match takes the KL of a TPU's arithmetic (``torch_tpu_match``),
-    as the port's does."""
+    optimal match takes the KL of a TPU's arithmetic and its heads the
+    TPU's products (``torch_tpu_match``), as the port's do."""
     jm, params, bs = setup["jax"]
     jdp = JaxDataParallel(make_mesh(WORLD))
     made = {}
@@ -455,7 +458,7 @@ def jax_wrapped(setup):
                 aug=jax_steps.AugmentConfig(enabled=False),
                 **({"axis_name": jdp.axis_name, "global_mixup": gm}
                    if replica else {}))
-            made[replica, gm] = (
+            made[replica, gm] = with_tpu_dense(
                 jdp.shard_map_step(jstep, batch_argnums=(0, 1, 2, 3, 6),
                                    donate_state=False) if replica else
                 jdp.jit_step(jstep, batch_argnums=(0, 1, 2, 3),

@@ -17,6 +17,9 @@ child to pin the rule there too. No reference checkout is needed.
 Tolerances: key sets and values exact; forwards at 1e-3 (abs + rel, the
 f32 goldens of PARITY.md:92); ``from_checkpoint`` bit for bit against the
 plain-key payload.
+
+The JAX side computes its float32 heads as a TPU does, with bfloat16
+operands (``torch_tpu_match``), as the port's heads do.
 """
 
 import re
@@ -46,6 +49,7 @@ from shotvae_torch.models.classifier import MLPClassifier, build_classifier
 from shotvae_torch.models.densenet import densenet_dict
 from shotvae_torch.models.smooth_vae import SmoothVAE, mnist_vae_config
 from shotvae_torch.models.vae import VariationalAutoEncoder
+from torch_tpu_match import with_tpu_dense
 
 DC, K, B = 8, 10, 2
 TOL = 1e-3
@@ -187,14 +191,14 @@ class Case:
     def jax_forward(self) -> list:
         x = jnp.asarray(self.x)
         if self.kind in VAES:
-            out = self.jm.apply(
+            out = with_tpu_dense(self.jm.apply)(
                 {"params": self.params, "batch_stats": self.bs}, x,
                 train=False, rngs={"sample": jax.random.key(0)},
                 noise={k: jnp.asarray(v) for k, v in self.noise.items()})
             return [np.asarray(out[0]).transpose(0, 3, 1, 2),
                     *map(np.asarray, out[1:])]
         if self.kind == "classifier":
-            return [np.asarray(self.jm.apply(
+            return [np.asarray(with_tpu_dense(self.jm.apply)(
                 {"params": self.params, "batch_stats": self.bs}, x,
                 train=False))]
         if self.kind == "mlp":

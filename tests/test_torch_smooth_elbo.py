@@ -358,30 +358,41 @@ def test_export_keys_load_strictly_and_round_trip(jax_models):
             assert torch.equal(back[k], sd[k]), k
 
 
-def test_init_law_is_torchs_default():
+def test_init_law_is_the_jax_packages():
     """Each conv, ConvTranspose and Linear weight is U(+-1/sqrt(fan_in))
-    with torch's fan_in (a ConvTranspose2d's is its output channels times
-    the kernel area), filling its range with that law's variance; every
-    bias 0; the Conv and Linear bounds are the JAX package's
-    ``torch_default_init`` ones. One seed gives one model."""
+    with the JAX package's fan_in (``torch_default_init``: the input
+    channels times the receptive field, for a ConvTranspose too, where
+    torch's default takes the output channels), filling its range with
+    that law's variance; every bias 0. Each bound is the one JAX's
+    ``torch_default_init`` draws within for the layer's flax kernel (for a
+    ConvTranspose, (4, 4, cin, cout)). One seed gives one model."""
+    from shotvae_tpu.models.layers import torch_default_init
+
     for name in CONFIGS:
         cfg = CONFIGS[name][0]()
         model = SmoothVAE(**cfg, device="cpu")
         layers = [m for m in model.modules() if isinstance(
             m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear))]
         assert len(layers) == 3 + 1 + 3 + 2 + 3
-        for m in layers:
+        for i, m in enumerate(layers):
             w = m.weight.detach()
-            fan_in, _ = torch.nn.init._calculate_fan_in_and_fan_out(w)
+            if isinstance(m, torch.nn.Linear):
+                flax_shape = (w.shape[1], w.shape[0])
+            elif isinstance(m, torch.nn.ConvTranspose2d):  # (cin, cout, k, k)
+                flax_shape = (*w.shape[2:], w.shape[0], w.shape[1])
+            else:  # (cout, cin, k, k)
+                flax_shape = (*w.shape[2:], w.shape[1], w.shape[0])
+            fan_in = math.prod(flax_shape[:-1])
             bound = 1.0 / math.sqrt(fan_in)
+            jax_w = np.asarray(torch_default_init(jax.random.key(i),
+                                                  flax_shape, jnp.float32))
+            assert float(np.abs(jax_w).max()) <= bound * (1 + 1e-6)
+            assert float(np.abs(jax_w).max()) > 0.99 * bound
             assert float(w.abs().max()) <= bound
             assert float(w.abs().max()) > 0.9 * bound
             if w.numel() > 2000:
                 assert abs(float(w.var()) / (bound**2 / 3) - 1) < 0.1
             assert not m.bias.any()
-            if not isinstance(m, torch.nn.ConvTranspose2d):
-                receptive = w[0, 0].numel() if w.dim() == 4 else 1
-                assert fan_in == w.shape[1] * receptive
     cfg = SmoothElboConfig()
     a, b = (loop.build_smooth_model(cfg, "mnist", "cpu") for _ in range(2))
     assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(),

@@ -27,7 +27,11 @@ against per-step dispatch and the JAX loop's chunked branch.
 
 The epochs' TensorBoard writer is off (TensorBoard pulls in TensorFlow,
 which costs more than the epochs; tests/test_torch_loop.py covers the
-writer)."""
+writer).
+
+The JAX side computes its float32 heads as a TPU does, with bfloat16
+operands (``torch_tpu_match``), as the port's heads do.
+"""
 
 import copy
 import os
@@ -56,6 +60,7 @@ from shotvae_torch.train import loop
 from shotvae_torch.train.chunk import LR, ChunkRunner
 from shotvae_torch.train.state import TrainState, sgd_torch
 from shotvae_torch.train.steps import make_shot_vae_train_step
+from torch_tpu_match import with_tpu_dense
 
 N = 4
 STEPS = 6          # 202 unlabeled images at batch 32: a chunk of 4 and of 2
@@ -276,9 +281,9 @@ def test_injected_chunk_matches_jax_steps():
         apply_fn=jm.apply, params=params, batch_stats=bs,
         tx=jax_state.sgd_torch(jax_schedules.multistep_lr(
             0.1, [1], steps_per_epoch=1)))
-    jstep = jax.jit(jax_steps.make_shot_vae_train_step(
+    jstep = with_tpu_dense(jax.jit(jax_steps.make_shot_vae_train_step(
         jm, num_classes=K, bce=True, x_sigma=1.0, epsilon=0.1,
-        optimal_match=True, aug=jax_steps.AugmentConfig(enabled=False)))
+        optimal_match=True, aug=jax_steps.AugmentConfig(enabled=False))))
     pm = VariationalAutoEncoder(NET, continuous_latent_dim=DC,
                                 disc_latent_dim=K, device="cpu")
     pm.load_state_dict(state_dict_from_jax(params, bs), strict=True)

@@ -16,6 +16,9 @@ Tolerances (f32 throughout, both sides on the CPU's convolutions):
   p - lr * (momentum buffer of grad + wd * p);
 * eval step: 1e-4 relative on the weighted sums, 1e-4 on the
   reconstruction.
+
+The JAX side computes its float32 heads as a TPU does, with bfloat16
+operands (``torch_tpu_match``), as the port's heads do.
 """
 
 import copy
@@ -38,6 +41,7 @@ from shotvae_torch.ops.schedules import multistep_lr
 from shotvae_torch.train.state import TrainState, sgd_torch
 from shotvae_torch.train.steps import (make_shot_vae_train_step,
                                        make_vae_eval_step)
+from torch_tpu_match import with_tpu_dense
 
 NET = "wideresnet-10-1"
 DC, K, B = 8, 10, 8
@@ -131,7 +135,7 @@ def test_train_forward_and_running_stats_match_jax(jax_model, data, case):
                     "mixup_lam": 0.3}}[case]
     noise = {"eps": data["eps"], "unif": data["unif"]}
     x = _x(data["img_u"])
-    want, updates = jm.apply(
+    want, updates = with_tpu_dense(jm.apply)(
         {"params": params, "batch_stats": bs}, jnp.asarray(x), train=True,
         noise={k: jnp.asarray(v) for k, v in noise.items()},
         rngs={"sample": jax.random.key(0), "dropout": jax.random.key(1)},
@@ -173,9 +177,9 @@ def test_train_step_lockstep_matches_jax(jax_model, data):
     jstate = jax_state.TrainState.create(
         apply_fn=jm.apply, params=params, batch_stats=bs,
         tx=jax_state.sgd_torch(jax_lr))
-    jstep = jax.jit(jax_steps.make_shot_vae_train_step(
+    jstep = with_tpu_dense(jax.jit(jax_steps.make_shot_vae_train_step(
         jm, num_classes=K, bce=True, x_sigma=1.0, epsilon=0.1,
-        optimal_match=True, aug=jax_steps.AugmentConfig(enabled=False)))
+        optimal_match=True, aug=jax_steps.AugmentConfig(enabled=False))))
     pm = _port_model(params, bs)
     opt = sgd_torch(pm)
     state = TrainState(pm, opt, multistep_lr(0.1, [1], steps_per_epoch=1))
@@ -237,8 +241,8 @@ def test_eval_step_matches_jax_with_a_mask(jax_model, data):
     jstate = jax_state.TrainState.create(apply_fn=jm.apply, params=params,
                                          batch_stats=bs,
                                          tx=jax_state.sgd_torch(0.1))
-    jstep = jax_steps.make_vae_eval_step(jm, num_classes=K, bce=True,
-                                         x_sigma=1.0)
+    jstep = with_tpu_dense(jax_steps.make_vae_eval_step(
+        jm, num_classes=K, bce=True, x_sigma=1.0))
     want, want_recon = jstep(jstate, jnp.asarray(data["img_u"]),
                              jnp.asarray(data["lab_u"]), jnp.asarray(weight),
                              jax.random.key(0),
