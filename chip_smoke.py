@@ -502,11 +502,40 @@ def host_ms(dev, fn, reps: int = 5) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+def busy_ns(intervals) -> int:
+    """The length of the union of (start, end) intervals: time covered by
+    at least one, overlaps counted once."""
+    total, reach = 0, None
+    for start, end in sorted(intervals):
+        if reach is None or start > reach:
+            total += end - start
+            reach = end
+        elif end > reach:
+            total += end - reach
+            reach = end
+    return total
+
+
+def device_busy_ms(prof) -> float:
+    """The union of the device's activity intervals in ``prof``'s trace
+    (kernels, copies and fills), in ms. User annotations mirrored on the
+    device's timeline (``Optimizer.step#SGD.step``) span activity that
+    is counted itself, so they are left out."""
+    from torch.autograd import DeviceType
+
+    return busy_ns((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA
+                   and not e.is_user_annotation()) / 1e6
+
+
 def device_breakdown(fn, top: int = 8) -> dict:
-    """One ``fn()`` under torch.profiler: wall time, device busy time and
-    the kernels that took the most device time. User annotations on the
-    device's timeline (``Optimizer.step#Adam.step``, ``#SGD.step``) span
-    kernels that are counted themselves, so they are left out."""
+    """One ``fn()`` under torch.profiler: wall time, device busy time (the
+    union of the device's activity intervals, so work that overlaps on
+    two streams counts once) and the kernels that took the most device
+    time. User annotations on the device's timeline
+    (``Optimizer.step#Adam.step``, ``#SGD.step``) span kernels that are
+    counted themselves, so they are left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -523,7 +552,7 @@ def device_breakdown(fn, top: int = 8) -> dict:
                if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     kernels.sort(key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    busy_ms = device_busy_ms(prof)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
@@ -3296,8 +3325,8 @@ def _chunk_stepper(kind: str, step, pool, batch: int):
 def replay_profile(fn, counters, dtype, top: int = 10) -> dict:
     """One ``fn()`` (a replay of a graph already captured and replayed)
     under torch.profiler, as ``device_breakdown`` reads it (wall time,
-    device busy time, idle share, the kernels that took the most device
-    time), with each wrapper's device kernels in the trace and its
+    device busy time as a union, idle share, the kernels that took the
+    most device time), with each wrapper's device kernels in the trace and its
     counter's launches over the same call."""
     import torch
     from torch.autograd import DeviceType
@@ -3315,7 +3344,7 @@ def replay_profile(fn, counters, dtype, top: int = 10) -> dict:
                if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     kernels.sort(key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    busy_ms = device_busy_ms(prof)
     names = [e.name for e in prof.events()
              if e.device_type == DeviceType.CUDA]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,

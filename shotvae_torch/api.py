@@ -28,6 +28,7 @@ from shotvae_torch.io.checkpoint import (CheckpointManager,
 from shotvae_torch.io.reference import strip_module_wrappers
 from shotvae_torch.models.vae import VariationalAutoEncoder
 from shotvae_torch.ops import sampling
+from shotvae_torch.utils.spans import span
 
 
 def _default_generator(generator: Optional[torch.Generator]):
@@ -84,15 +85,22 @@ class ShotVaeInference:
 
     def _images(self, images_u8) -> torch.Tensor:
         """uint8 NHWC -> float NCHW (channels_last) on the device."""
-        x = torch.as_tensor(images_u8).to(self.device)
+        x = torch.as_tensor(images_u8)
+        with span("serve.copy_in", bytes=x.nbytes):
+            x = x.to(self.device)
         return to_float(x).permute(0, 3, 1, 2)
 
     @exact_f32()
     @torch.inference_mode()
     def classify(self, images_u8) -> torch.Tensor:
-        """(B, H, W, C) uint8 -> (B, K) class probabilities."""
-        _, _, log_alpha = self.model.encode(self._images(images_u8))
-        return torch.exp(log_alpha)
+        """(B, H, W, C) uint8 -> (B, K) class probabilities. A profiler
+        sees the call as a ``serve.classify`` span around ``serve.copy_in``
+        (the batch's copy to the device) and ``serve.forward``."""
+        with span("serve.classify", images=len(images_u8)):
+            x = self._images(images_u8)
+            with span("serve.forward", images=len(x)):
+                _, _, log_alpha = self.model.encode(x)
+                return torch.exp(log_alpha)
 
     @exact_f32()
     @torch.inference_mode()

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from shotvae_torch.data.datasets import ArrayDataset
 from shotvae_torch.device import DeviceLike, resolve_device
+from shotvae_torch.utils.spans import span
 
 
 class DeviceDataset:
@@ -38,11 +39,12 @@ class DeviceDataset:
     def gather(self, indices) -> Tuple[torch.Tensor, torch.Tensor]:
         """(uint8 images, int64 labels) of ``indices`` (host or device
         integers), gathered on the dataset's device: the host sends only
-        the indices."""
-        idx = torch.as_tensor(indices).to(self.images.device, torch.int64,
-                                          non_blocking=True)
-        return (self.images.index_select(0, idx),
-                self.labels.index_select(0, idx))
+        the indices (a profiler's ``data.gather`` span)."""
+        with span("data.gather", rows=len(indices)):
+            idx = torch.as_tensor(indices).to(self.images.device,
+                                              torch.int64, non_blocking=True)
+            return (self.images.index_select(0, idx),
+                    self.labels.index_select(0, idx))
 
 
 def to_float(images: torch.Tensor, *, normalize: bool = False) -> torch.Tensor:

@@ -32,6 +32,8 @@ from typing import Optional
 
 import torch
 
+from shotvae_torch.utils.spans import span
+
 NAMES = ("checkpoint", "best")
 # the optimizer's implementation flags: the run's own, not the checkpoint's
 IMPLEMENTATION_FLAGS = ("fused", "foreach", "differentiable", "capturable")
@@ -68,6 +70,17 @@ def _host_copy(obj):
     if isinstance(obj, (list, tuple)):
         return type(obj)(_host_copy(v) for v in obj)
     return obj
+
+
+def _bytes(obj) -> int:
+    """The bytes of every tensor in ``obj``'s containers."""
+    if torch.is_tensor(obj):
+        return obj.nbytes
+    if isinstance(obj, dict):
+        return sum(_bytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_bytes(v) for v in obj)
+    return 0
 
 
 def _replace_atomically(path: str, write) -> None:
@@ -110,11 +123,16 @@ class CheckpointManager:
 
         Returns once the state is copied to the host; the file and the
         pointer are written in the background (``wait_until_finished``
-        blocks on them). Returns the path the checkpoint will land at."""
-        payload = {"state_dict": _host_copy(state.model.state_dict()),
-                   "optimizer": _host_copy(state.optimizer.state_dict()),
-                   "step": int(state.step), "epoch": int(epoch),
-                   "args": dict(config or {})}
+        blocks on them). Returns the path the checkpoint will land at.
+        A profiler sees the copy, the save's stall on the caller's thread,
+        as a ``ckpt.host_copy`` span."""
+        with span("ckpt.host_copy") as counts:
+            payload = {"state_dict": _host_copy(state.model.state_dict()),
+                       "optimizer": _host_copy(state.optimizer.state_dict()),
+                       "step": int(state.step), "epoch": int(epoch),
+                       "args": dict(config or {})}
+            if counts is not None:
+                counts["bytes"] = _bytes(payload)
         # one writer at a time, in order: the pointer follows the writes
         self.wait_until_finished()
         os.makedirs(self.folder, exist_ok=True)

@@ -61,6 +61,12 @@ collectives of its N steps, takes them back out (nothing ran) and adds
 them at each replay; chip_smoke.py holds these counts against the kernel
 nodes of each captured graph and the collectives against eager steps'.
 Nothing falls back: a failed capture or replay raises.
+
+Under a profiler each call records its spans (``utils.spans``):
+``chunk.run`` over the call, ``chunk.copy_in`` over each of its two copies
+from the host (the index rows, the scalars), ``chunk.seed`` over the
+seeding, ``chunk.replay`` over the replay's launch, ``chunk.eager`` over
+the first chunk and ``chunk.capture`` over a capture.
 """
 
 from __future__ import annotations
@@ -77,6 +83,7 @@ from shotvae_torch.ops.kernels import add_counts, held_counts
 from shotvae_torch.ops.sampling import LAM_SLOTS, StepDraws
 from shotvae_torch.parallel.mesh import DataParallel
 from shotvae_torch.train.state import TrainState
+from shotvae_torch.utils.spans import span
 
 SHARED = slice(LAM_SLOTS, 2 * LAM_SLOTS)  # the shared generator's weights
 LR = 2 * LAM_SLOTS  # the column of ``scalars`` that holds a step's rate
@@ -241,17 +248,24 @@ class ChunkRunner:
             raise TypeError("a chunk runner needs torch.optim.SGD with "
                             "fused=True (state.sgd_torch), whose update "
                             "reads its rate from a tensor")
-        self.idx[:n].copy_(torch.from_numpy(np.asarray(idx, np.int64)),
-                           non_blocking=True)
-        if self.plan is None:
-            self._warm_up(state, n, generators, injects)
-        else:
-            self._write(state, n, generators)
-            graph = self.graphs.get(n) or self._capture(state, n, injects)
-            graph.replay(state, injects)
-            add_counts(graph.launches)
-            DataParallel.collectives += graph.collectives
-        return self.out[:n].clone()
+        with span("chunk.run", steps=n):
+            rows = torch.from_numpy(np.asarray(idx, np.int64))
+            with span("chunk.copy_in", bytes=rows.nbytes):
+                self.idx[:n].copy_(rows, non_blocking=True)
+            if self.plan is None:
+                with span("chunk.eager", steps=n):
+                    self._warm_up(state, n, generators, injects)
+            else:
+                self._write(state, n, generators)
+                graph = self.graphs.get(n)
+                if graph is None:
+                    with span("chunk.capture", steps=n):
+                        graph = self._capture(state, n, injects)
+                with span("chunk.replay", steps=n):
+                    graph.replay(state, injects)
+                add_counts(graph.launches)
+                DataParallel.collectives += graph.collectives
+            return self.out[:n].clone()
 
     def _injected(self, injects, j: int):
         return None if injects is None else injects[j]
@@ -308,13 +322,15 @@ class ChunkRunner:
         """Seed each step's generators, each from its host generator in
         its own plan's order, and write its mixup weights and its rate
         (one copy)."""
-        rows = np.zeros((n, LR + 1), np.float32)
-        for j, (gen, shared) in enumerate(generators):
-            rows[j, :LAM_SLOTS] = _seeded(self.draws[j], self.plan, gen)
-            rows[j, SHARED] = _seeded(self.shared[j], self.shared_plan,
-                                      shared)
-            rows[j, LR] = self._rate(state, state.step + j)
-        self.scalars[:n].copy_(torch.from_numpy(rows), non_blocking=True)
+        with span("chunk.seed", steps=n):
+            rows = np.zeros((n, LR + 1), np.float32)
+            for j, (gen, shared) in enumerate(generators):
+                rows[j, :LAM_SLOTS] = _seeded(self.draws[j], self.plan, gen)
+                rows[j, SHARED] = _seeded(self.shared[j], self.shared_plan,
+                                          shared)
+                rows[j, LR] = self._rate(state, state.step + j)
+        with span("chunk.copy_in", bytes=rows.nbytes):
+            self.scalars[:n].copy_(torch.from_numpy(rows), non_blocking=True)
 
     def _deferred_steps(self, state: TrainState, n: int, injects) -> None:
         """Steps 0..n-1 reading only the static inputs: their draws

@@ -92,6 +92,7 @@ from shotvae_torch.train.steps import (make_classifier_eval_step,
                                        make_smooth_elbo_train_step,
                                        make_vae_eval_step)
 from shotvae_torch.utils.meters import AverageMeter, MetricAccumulator
+from shotvae_torch.utils.spans import span
 
 EVAL_KEY = 10_000   # eval batch j draws with step key EVAL_KEY + j
 GRID_KEY = 99_999   # the train reconstruction grid's step key
@@ -282,7 +283,13 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
     every global batch of ``batch_size`` (sync-BN, or ``bn_per_replica``
     with ``global_mixup``) and evaluates its rows of each eval batch, the
     sums added over the ranks; every rank restores ``resume``, and only the
-    first writes checkpoints, TensorBoard events and the log."""
+    first writes checkpoints, TensorBoard events and the log.
+
+    ``profile_dir``: the second epoch, whole, under torch.profiler, its
+    Chrome trace written there; a profiler sees each epoch's phases as the
+    spans ``epoch.train`` (the chunks), ``epoch.read`` (the one train
+    read), ``epoch.eval`` (grid, valid and test) and ``epoch.save`` (the
+    saves and TensorBoard's flush)."""
     dev = resolve_device(device)
     dp = setup(cfg, dev)
     if cfg.batch_size % dp.world_size:
@@ -353,94 +360,94 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
     total_epochs = max_epochs if max_epochs is not None else cfg.epochs
     for epoch in range(start_epoch, total_epochs):
         if cfg.profile_dir and epoch == start_epoch + 1 and dp.is_main:
-            # the second epoch's train steps (the first one compiles)
+            # the second epoch whole (the first one compiles and captures)
             profiler = _start_profile(dev)
         epoch_t0 = time.time()
         sched = shot_vae_epoch_schedules(epoch, cfg)
         batch_time = AverageMeter()
-        data_time = AverageMeter()
         step_metrics, n_steps = [], 0
-        if runner is not None:
-            runner.set_sched(sched)
-        steps = cfg.steps_per_call
-        chunks = list(shot_vae_chunks(cfg.seed, epoch, split.labeled,
-                                      split.unlabeled, batch, steps))
-        end = time.time()  # the epoch's index prep is not a step's
-        for c0, idx in chunks:
-            n = len(idx)
-            data_time.update((time.time() - end) / n, n)
-            step_metrics.append(_dispatch(runner, step_by_index, state, idx,
-                                          sched, cfg.seed, epoch, c0, dp, 2))
-            n_steps += n
-            batch_time.update((time.time() - end) / n, n)
-            end = time.time()
-            if (c0 // steps) % cfg.print_freq == 0:
-                # host-side times: the steps return before the card is done
-                log_fn(f"Epoch: [{epoch}][{c0 + n}/{steps_per_epoch}]\t"
-                       f"Time {batch_time.val:.3f} ({batch_time.avg:.3f})"
-                       f"\tData {data_time.val:.3f} ({data_time.avg:.3f})")
+        with span("epoch.train"):
+            if runner is not None:
+                runner.set_sched(sched)
+            steps = cfg.steps_per_call
+            chunks = list(shot_vae_chunks(cfg.seed, epoch, split.labeled,
+                                          split.unlabeled, batch, steps))
+            end = time.time()  # the epoch's index prep is not a step's
+            for c0, idx in chunks:
+                n = len(idx)
+                step_metrics.append(_dispatch(runner, step_by_index, state,
+                                              idx, sched, cfg.seed, epoch,
+                                              c0, dp, 2))
+                n_steps += n
+                batch_time.update((time.time() - end) / n, n)
+                end = time.time()
+                if (c0 // steps) % cfg.print_freq == 0:
+                    # the host's dispatch: the steps return before the card
+                    # is done
+                    log_fn(f"Epoch: [{epoch}][{c0 + n}/{steps_per_epoch}]\t"
+                           f"Time {batch_time.val:.3f} "
+                           f"({batch_time.avg:.3f})")
         idx_u = chunks[-1][1][-1, batch:]  # the reconstruction grid
-        if profiler is not None:
-            _stop_profile(profiler, cfg.profile_dir, epoch)
-            profiler = None
         train_sums = MetricAccumulator()
-        # the epoch's one read
-        train_sums.update(_summed(step_metrics,
-                                  runner and runner.keys))
+        with span("epoch.read"):  # the epoch's one read
+            train_sums.update(_summed(step_metrics,
+                                      runner and runner.keys))
         train_terms = {k: v / n_steps for k, v in train_sums.totals.items()}
         train_s = time.time() - epoch_t0
         writer.scalar("Train/KL_Inference",
                       train_terms.get("kl_inference", 0.0), epoch + 1)
-        log_images = epoch % cfg.reconstruct_freq == 0 and dp.is_main
-        if log_images:
-            # an eval-mode forward of 4 images of the last unlabeled batch
-            img4, lab4 = train_ds.gather(idx_u[:4])
-            _, recon4 = evaluate(img4, lab4, torch.ones(4, device=dev),
-                                 generator=step_generator(cfg.seed, epoch,
-                                                          GRID_KEY))
-            writer.image_grid("Train/Raw_Image", _host_images(img4) / 255.0,
-                              epoch + 1)
-            writer.image_grid("Train/Reconstruct_Image", _host_images(recon4),
-                              epoch + 1)
+        with span("epoch.eval"):  # the grid, valid and test
+            log_images = epoch % cfg.reconstruct_freq == 0 and dp.is_main
+            if log_images:
+                # an eval-mode forward of 4 images of the last unlabeled batch
+                img4, lab4 = train_ds.gather(idx_u[:4])
+                _, recon4 = evaluate(img4, lab4, torch.ones(4, device=dev),
+                                     generator=step_generator(cfg.seed, epoch,
+                                                              GRID_KEY))
+                writer.image_grid("Train/Raw_Image",
+                                  _host_images(img4) / 255.0, epoch + 1)
+                writer.image_grid("Train/Reconstruct_Image",
+                                  _host_images(recon4), epoch + 1)
 
-        results = {}
-        for split_name, indices, ds in (
-                ("Valid", split.valid, train_ds),
-                ("Test", np.arange(len(test_data.labels)), test_ds)):
-            batch_metrics, first = [], None
-            for j, (idx, weight) in enumerate(_padded_eval_batches(indices,
-                                                                   batch)):
-                img, lab = ds.gather(dp.shard(idx))
-                metrics, recon = evaluate(
-                    img, lab, torch.from_numpy(dp.shard(weight)).to(
-                        dev, non_blocking=True),
-                    generator=step_generators(cfg.seed, epoch, EVAL_KEY + j,
-                                              dp)[0])
-                batch_metrics.append(metrics)
-                if first is None:
-                    first = (img[:4], recon[:4])
-            acc = MetricAccumulator()
-            # the split's one read, of the sums over the ranks
-            acc.update(dp.sum_metrics(_summed(batch_metrics)))
-            avg = acc.averages()
-            results[split_name] = avg
-            writer.scalar(f"{split_name}/KL(q(z|X)||p(z))",
-                          avg["cont_kl_avg"], epoch + 1)
-            writer.scalar(f"{split_name}/KL(q(y|X)||p(y))",
-                          avg["disc_kl_avg"], epoch + 1)
-            writer.scalar(f"{split_name}/log(p(X|z,y))", avg["mse_avg"],
-                          epoch + 1)
-            writer.scalar(f"{split_name}/ELBO", avg["elbo_avg"], epoch + 1)
-            writer.scalar(f"{split_name}/top1 accuracy", avg["top1_rate"],
-                          epoch + 1)
-            if spec.name == "Cifar100":
-                writer.scalar(f"{split_name}/top 5 accuracy",
-                              avg["top5_rate"], epoch + 1)
-            if log_images and first is not None:
-                writer.image_grid(f"{split_name}/Raw_Image",
-                                  _host_images(first[0]) / 255.0, epoch + 1)
-                writer.image_grid(f"{split_name}/Reconstruct_Image",
-                                  _host_images(first[1]), epoch + 1)
+            results = {}
+            for split_name, indices, ds in (
+                    ("Valid", split.valid, train_ds),
+                    ("Test", np.arange(len(test_data.labels)), test_ds)):
+                batch_metrics, first = [], None
+                for j, (idx, weight) in enumerate(
+                        _padded_eval_batches(indices, batch)):
+                    img, lab = ds.gather(dp.shard(idx))
+                    metrics, recon = evaluate(
+                        img, lab, torch.from_numpy(dp.shard(weight)).to(
+                            dev, non_blocking=True),
+                        generator=step_generators(cfg.seed, epoch,
+                                                  EVAL_KEY + j, dp)[0])
+                    batch_metrics.append(metrics)
+                    if first is None:
+                        first = (img[:4], recon[:4])
+                acc = MetricAccumulator()
+                # the split's one read, of the sums over the ranks
+                acc.update(dp.sum_metrics(_summed(batch_metrics)))
+                avg = acc.averages()
+                results[split_name] = avg
+                writer.scalar(f"{split_name}/KL(q(z|X)||p(z))",
+                              avg["cont_kl_avg"], epoch + 1)
+                writer.scalar(f"{split_name}/KL(q(y|X)||p(y))",
+                              avg["disc_kl_avg"], epoch + 1)
+                writer.scalar(f"{split_name}/log(p(X|z,y))", avg["mse_avg"],
+                              epoch + 1)
+                writer.scalar(f"{split_name}/ELBO", avg["elbo_avg"], epoch + 1)
+                writer.scalar(f"{split_name}/top1 accuracy", avg["top1_rate"],
+                              epoch + 1)
+                if spec.name == "Cifar100":
+                    writer.scalar(f"{split_name}/top 5 accuracy",
+                                  avg["top5_rate"], epoch + 1)
+                if log_images and first is not None:
+                    writer.image_grid(f"{split_name}/Raw_Image",
+                                      _host_images(first[0]) / 255.0,
+                                      epoch + 1)
+                    writer.image_grid(f"{split_name}/Reconstruct_Image",
+                                      _host_images(first[1]), epoch + 1)
 
         valid_acc = results["Valid"]["top1_rate"]
         test_acc = results["Test"]["top1_rate"]
@@ -461,17 +468,21 @@ def run_shot_vae(cfg: ShotVaeConfig, *, m2: bool = False,
         if not m2 and spec.name == "Cifar10" and cfg.annotated_ratio >= 0.05 \
                 and epoch == cfg.adjust_lr[0]:
             cfg.ewm = cfg.ewm * 5
-        # ckpt_every <= 0 disables every save; the first rank saves
-        saves = cfg.ckpt_every > 0 and dp.is_main
-        if saves and ((epoch + 1) % cfg.ckpt_every == 0
-                      or epoch == total_epochs - 1):
-            ckpt.save(state, epoch=epoch + 1, config=cfg.asdict())
-        if valid_acc > best_valid_acc:
-            best_valid_acc = valid_acc
-            if saves and epoch >= cfg.adjust_lr[-1]:
-                ckpt.save(state, epoch=epoch + 1, config=cfg.asdict(),
-                          best=True)
-        writer.flush()
+        with span("epoch.save"):
+            # ckpt_every <= 0 disables every save; the first rank saves
+            saves = cfg.ckpt_every > 0 and dp.is_main
+            if saves and ((epoch + 1) % cfg.ckpt_every == 0
+                          or epoch == total_epochs - 1):
+                ckpt.save(state, epoch=epoch + 1, config=cfg.asdict())
+            if valid_acc > best_valid_acc:
+                best_valid_acc = valid_acc
+                if saves and epoch >= cfg.adjust_lr[-1]:
+                    ckpt.save(state, epoch=epoch + 1, config=cfg.asdict(),
+                              best=True)
+            writer.flush()
+        if profiler is not None:
+            _stop_profile(profiler, cfg.profile_dir, epoch)
+            profiler = None
 
     writer.close()
     ckpt.wait_until_finished()  # the last write lands before the return

@@ -59,6 +59,7 @@ from shotvae_torch.ops.sampling import (StepDraws, device_generator,
 from shotvae_torch.parallel.mesh import (BN_STATS_POLICIES, DataParallel,
                                          global_mean, set_bn_group)
 from shotvae_torch.train.state import TrainState
+from shotvae_torch.utils.spans import span
 
 
 def _device(model) -> torch.device:
@@ -515,12 +516,17 @@ def make_vae_eval_step(model, *, num_classes: int, bce: bool, x_sigma: float):
     kernel unless ``inject`` ({"eps", "unif"}) replays the draws.
     ``weight`` is a per-sample 0/1 mask, so a ragged tail batch padded to
     the full batch biases no metric; the metrics are weighted SUMS plus
-    the effective ``count``, as shotvae_tpu/train/steps.py:470-528.
+    the effective ``count``, as shotvae_tpu/train/steps.py:470-528. A
+    profiler sees each call as an ``eval.step`` span.
     """
 
     @torch.inference_mode()
     def step(img, lab, weight, generator: Optional[torch.Generator] = None,
              inject=None):
+        with span("eval.step", rows=len(img)):
+            return _step(img, lab, weight, generator, inject)
+
+    def _step(img, lab, weight, generator, inject):
         dev = _device(model)
         model.eval()
         x = _prepare(img, dev, augment=False)

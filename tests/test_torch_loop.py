@@ -14,6 +14,7 @@ The JAX side computes its float32 heads as a TPU does, with bfloat16
 operands (``torch_tpu_match``), as the port's heads do.
 """
 
+import json
 import math
 import os
 
@@ -98,8 +99,14 @@ def test_run_layout_checkpoint_and_trace(straight):
                        "checkpoint.current")
     assert os.path.isfile(open(pointer).read())
     assert os.path.isdir(_run_dir(base, "runs", "train_time:1"))
-    # --profile-dir traces the second epoch
+    # --profile-dir traces the second epoch whole: its train steps, the
+    # train read, the eval pass and the saves, each phase a span
     assert os.listdir(cfg.profile_dir) == ["epoch1.pt.trace.json"]
+    with open(os.path.join(cfg.profile_dir, "epoch1.pt.trace.json")) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"sv:epoch.train", "sv:epoch.read", "sv:epoch.eval",
+            "sv:epoch.save", "sv:eval.step", "sv:data.gather",
+            "sv:ckpt.host_copy"} <= names
     assert out["state"].step == EPOCHS * 2
 
 
