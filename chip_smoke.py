@@ -15,7 +15,9 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    distinct shape the serving forward gives it at batch 768, with its
    tolerance; each timed with CUDA events (kernel, plain version, and a
    one-call library yardstick where there is one); the fused conv also
-   held at ``CONV_CHECK_SHAPES`` in f32 and bf16. The sampler
+   held at ``CONV_CHECK_SHAPES`` in f32 and bf16, each bf16 call counted
+   on ``launches_bf16_packed`` exactly where its plan takes the packed
+   work item (``conv_plan``). The sampler
    (``csrc/fused_sample.cu``) is held to its plain version exactly where
    the draw cannot matter (a vanishing sigma, a decisive logit), by
    moments, in standard errors, against an independent draw, and draw for
@@ -111,10 +113,12 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    densenet161's narrow Cout (12 to 48), and in f32 at
    ``CONV_CHECK_SHAPES`` with ReLU and the identity. The bf16 SHOT-VAE
    step at 768 + 768 of preactresnet18, densenet121 and densenet121 with
-   --efficient
-   (``EXPECTED_ENCODER_LAUNCHES``, the recompute's launches included),
-   their times, a profiled step, peak memory and the eval step; each
-   family's step on the card against the CPU at 16 + 16 in f32 and bf16;
+   --efficient (``EXPECTED_ENCODER_LAUNCHES``, the recompute's launches
+   included; the bf16 conv's packed work item exactly at preactresnet18's
+   256- and 512-channel sites and densenet121's 4x4 block,
+   ``packed_conv_launches``, as it is nowhere in WRN-28-2's step), their
+   times, a profiled step, peak memory and the eval step; each family's
+   step on the card against the CPU at 16 + 16 in f32 and bf16;
    the efficient step against the plain one on the same draws (cuDNN
    deterministic): metrics and running statistics equal, gradients within
    one bf16 ulp. The M2 step over preactresnet18 and one bf16 epoch of
@@ -350,7 +354,9 @@ BN_TRAIN_SITES = lambda b: [  # noqa: E731
 # at 8x8) and a ragged one; then maps smaller than one tile (4x4, as in
 # PreActResNet's group 4, streamed at Cin 512, and DenseNet's block 4;
 # 2x2) and DenseNet-BC's narrow Cout (12, not a multiple of 8, stored
-# without the TMA; 24, 40, 48)
+# without the TMA; 24, 40, 48); then preactresnet18's deep stages at a
+# batch that leaves the packed work item's last images past B (4x4 maps
+# pack 8 images, 8x8 two a 128-pixel item)
 CONV_CHECK_SHAPES = [(8, 128, 8, 8, 128), (4, 64, 16, 16, 64),
                      (2, 32, 32, 32, 32), (6, 128, 8, 8, 64),
                      (1, 24, 13, 11, 32), (1, 8, 9, 17, 16),
@@ -359,7 +365,8 @@ CONV_CHECK_SHAPES = [(8, 128, 8, 8, 128), (4, 64, 16, 16, 64),
                      (1, 512, 4, 4, 512), (1, 64, 2, 2, 64),
                      (2, 48, 8, 8, 12), (2, 96, 16, 8, 24),
                      (1, 160, 4, 4, 40), (1, 192, 2, 2, 48),
-                     (1, 48, 5, 3, 12)]
+                     (1, 48, 5, 3, 12), (9, 512, 4, 4, 512),
+                     (3, 256, 8, 8, 256)]
 # kernel launches per train step at WRN-28-2, from the sites above: the
 # fused conv kernel at the 22 fused sites of each of 4 forwards (its
 # backward is cuDNN plus the bn_leaky kernels); statistics and apply at all
@@ -641,11 +648,14 @@ def conv_phase(dev, batch: int, dtype=None, cases=None, slope: float = 0.01,
     convolve in bf16. Both dtypes are also held at CONV_CHECK_SHAPES (not
     timed). ``cases`` (B, Cin, H, W, Cout, launches per forward) replace
     WRN-28-2's, and ``check_shapes`` the shapes held but not timed. An
-    f32 row carries the kernel's launch plan (``bn``, ``runs``, ``grid``)."""
+    f32 row carries the kernel's launch plan (``bn``, ``runs``, ``grid``).
+    Each bf16 call on the card is counted on ``launches_bf16_packed``
+    exactly where its plan takes the packed work item."""
     import torch
     import torch.nn.functional as F
 
     from shotvae_torch.ops.kernels.fused_conv import (conv_f32_plan,
+                                                      conv_plan,
                                                       fused_bn_act_conv,
                                                       fused_bn_act_conv_plain)
 
@@ -668,8 +678,16 @@ def conv_phase(dev, batch: int, dtype=None, cases=None, slope: float = 0.01,
         shift = torch.randn((cin,), generator=gen, device=dev) * 0.5  # != 0
         wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
               * (2.0 / (9 * cin)) ** 0.5).to(dtype).contiguous(**cl)
+        packed = fused_bn_act_conv.launches_bf16_packed
         got = fused_bn_act_conv(x, scale, shift, wt, slope=slope)
         check(got.dtype == dtype, f"fused conv gave {got.dtype} for {dtype}")
+        # the packed work item where the plan takes it, and only there
+        want = int(dev.type == "cuda" and dtype == torch.bfloat16
+                   and conv_plan(bb, h, w, cin, cout, _sms(dev))["packed"])
+        check(fused_bn_act_conv.launches_bf16_packed - packed == want,
+              f"fused conv at {(bb, cin, h, w, cout)} {dtype} counted "
+              f"{fused_bn_act_conv.launches_bf16_packed - packed} packed "
+              f"launches, expected {want}")
         pre = x.float() * scale[:, None, None] + shift[:, None, None]
         act = torch.where(pre > 0, pre, slope * pre).to(dtype)
         e = max_err(got, F.conv2d(act.float(), wt.float(), padding=1),
@@ -1563,6 +1581,8 @@ def train_phase(dev, batch: int, steps: int = TRAIN_STEPS, dtype=None,
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     zero_counts(counters)
+    conv = counters["fused_bn_act_conv"]
+    packed = conv.launches_bf16_packed
     metrics = [run() for _ in range(steps)]
     _sync(dev)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
@@ -1570,6 +1590,11 @@ def train_phase(dev, batch: int, steps: int = TRAIN_STEPS, dtype=None,
         counters, dtype, {name: n * steps if cuda else 0
                           for name, n in expected_train.items()},
         f"{kind} train steps")
+    packed = conv.launches_bf16_packed - packed
+    want = packed_conv_launches(net, batch, launches["fused_bn_act_conv"],
+                                _sms(dev)) if cuda and bf16 else 0
+    check(packed == want, f"{kind} train steps of {net['net']} took the "
+          f"bf16 conv's packed work item {packed} times, expected {want}")
     for m in metrics:
         check(all(bool(torch.isfinite(v)) for v in m.values()),
               f"non-finite {kind} train metrics {m}")
@@ -1608,7 +1633,8 @@ def train_phase(dev, batch: int, steps: int = TRAIN_STEPS, dtype=None,
 
     n = min(COMPARE_BATCH, batch)
     timing["peak_memory_gb"] = peak_gb
-    out = dict(launches=launches, eval_launches=eval_launches,
+    out = dict(launches=launches, packed_conv_launches=packed,
+               eval_launches=eval_launches,
                last_metrics=last, timing=timing, profile=profile,
                profile_bare_step_cudnn_tf32=profile_tf32)
     if not vs_cpu:
@@ -2036,6 +2062,23 @@ def encoder_sites(net: dict) -> dict:
     return sites
 
 
+def packed_conv_launches(net: dict, batch: int, fused: int,
+                         num_sms: int) -> int:
+    """Of ``fused`` launches of the bf16 fused conv over whole forwards of
+    ``net``'s encoder at ``batch``, those whose plan takes the packed work
+    item: their share of the encoder's fused sites (preactresnet18's 256-
+    and 512-channel layers, densenet121's 4x4 block; none of
+    WRN-28-2's)."""
+    from shotvae_torch.ops.kernels.fused_conv import conv_plan
+
+    sites = encoder_sites(net)["fused"]
+    packed = sum(conv_plan(batch, h, w, c, o, num_sms)["packed"]
+                 for c, h, w, o, _ in sites)
+    check(fused * packed % len(sites) == 0, f"{fused} fused conv launches "
+          f"are not whole forwards of {net['net']}'s {len(sites)} sites")
+    return fused * packed // len(sites)
+
+
 def _tally(items) -> dict:
     out = {}
     for item in items:
@@ -2183,8 +2226,9 @@ def encoder_train_phase(dev, batch: int, steps: int = TRAIN_STEPS) -> dict:
                                       "shot", net,
                                       EXPECTED_ENCODER_LAUNCHES[name],
                                       vs_cpu=not net["efficient"])
-        for key in ("launches", "eval_launches", "last_metrics", "timing",
-                    "profile", "vs_cpu", "vs_cpu_bf16"):
+        for key in ("launches", "packed_conv_launches", "eval_launches",
+                    "last_metrics", "timing", "profile", "vs_cpu",
+                    "vs_cpu_bf16"):
             if key in res:
                 print(f"{name}_shot_bf16_{key}_at_batch_{batch} "
                       + json.dumps(res[key]))
@@ -4759,8 +4803,8 @@ def main() -> int:
     print(f"train phase {time.perf_counter() - t0:.1f} s")
     with exact_f32():
         bf16 = bf16_phases(dev, BATCH)
-    for key in ("launches", "eval_launches", "last_metrics", "timing",
-                "profile"):
+    for key in ("launches", "packed_conv_launches", "eval_launches",
+                "last_metrics", "timing", "profile"):
         print(f"train_bf16_{key}_at_batch_{BATCH}+{BATCH} "
               + json.dumps(bf16["train"][key]))
     print(f"train_bf16_step_vs_cpu_at_{COMPARE_BATCH}+{COMPARE_BATCH} "

@@ -5,16 +5,20 @@ reductions, on one CUDA card (PERF.md Findings names what it printed).
     python3 scripts/torch_kernel_study.py [conv] [plans] [reduce] [sample]
                                           [f32 [PARENT]] [f32ablate]
 
-conv: the bf16 fused conv (csrc/fused_conv_bf16.cu) at the four encoder
-shapes at batch 768, as built and with phases compiled out (bits of
-``ABLATIONS``: 1 the products, 2 the activation, 4 the x loads, 8 the y
-stores), device ms per launch from CUDA-graph replay, and ms per encoder
-forward (22 launches). Each variant is a patched copy of the source,
-built by nvcc into build/study/ (it computes a wrong y); the product's
-source and build carry no such switch.
+conv: the bf16 fused conv (csrc/fused_conv_bf16.cu) at the four WRN-28-2
+shapes and preactresnet18's two deep shapes (256 at 8x8, 512 at 4x4, the
+packed work item) at batch 768, as built and with phases compiled out
+(bits of ``ABLATIONS``, in both work items: 1 the products, 2 the
+activation, 4 the x loads, 8 the y stores; 16 the packed item's weight
+loads), device ms per launch from CUDA-graph replay, and ms per WRN-28-2
+forward (22 launches) and per preactresnet18 forward of the deep stages
+(6 launches). Each variant is a patched copy of the source, built by nvcc
+into build/study/ (it computes a wrong y); the product's source and build
+carry no such switch.
 
-plans: the bf16 fused conv at the four encoder shapes under every launch
-plan that fits (slice width, chunk channels, stages), ms per launch.
+plans: the bf16 fused conv at the same six shapes under every launch plan
+that fits (tiled: slice width, chunk channels, stages; packed: slice
+width, x and weight stages), ms per launch.
 
 reduce: the bn_leaky statistics and backward reduce at every train-step
 site at batch 768, in f32 and bf16, ms per train step, with the program
@@ -67,18 +71,37 @@ def _chip_smoke():
 # found exactly once: the phase a variant compiles out
 ABLATIONS = {
     1: [("wgmma_bn<BN>(acc[u], da, db, (k | tap | j) != 0);",
-         "(void)da, (void)db;")],
+         "(void)da, (void)db;"),
+        ("wgmma_rs<BN>(acc, f[j],\n", "(void)f, (void)b, (void)(")],
     2: [("*reinterpret_cast<uint4*>(opnd + p * 16) = packed;",
-         "(void)packed;")],
+         "(void)packed;"),
+        ("*reinterpret_cast<uint4*>(stage + p * 128 +\n"
+         "                                      ((grp ^ (p & 7)) << 4)) = "
+         "packed;", "(void)packed;")],
     4: [("mbar_expect_tx(raw_full + 8 * s, n_sub * L.raw_sub);",
          "mbar_arrive(raw_full + 8 * s);"),
         ("tma_load_4d(raw_s + s * L.raw_bytes",
-         "if (false) tma_load_4d(raw_s + s * L.raw_bytes")],
+         "if (false) tma_load_4d(raw_s + s * L.raw_bytes"),
+        ("mbar_expect_tx(x_full + 8 * r.stage, n_pos * 128);",
+         "mbar_arrive(x_full + 8 * r.stage);"),
+        ("tma_load_4d(x_s + r.stage * L.x_bytes",
+         "if (false) tma_load_4d(x_s + r.stage * L.x_bytes")],
     8: [('asm volatile("st.shared.b32 [%0], %1;\\n"',
          'if (false) asm volatile("st.shared.b32 [%0], %1;\\n"'),
-        ("tma_store_4d(&y_map,", "if (false) tma_store_4d(&y_map,")],
+        ("tma_store_4d(&y_map,", "if (false) tma_store_4d(&y_map,"),
+        ("const bool ok = im < g.images && b0 + im < g.B && y0 + py < g.H;",
+         "const bool ok = false;")],
+    16: [("mbar_expect_tx(w_full + 8 * r.stage, L.w_bytes);",
+          "mbar_arrive(w_full + 8 * r.stage);"),
+         ("tma_load_3d(w_s + r.stage * L.w_bytes",
+          "if (false) tma_load_3d(w_s + r.stage * L.w_bytes")],
 }
-VARIANTS = (0, 1, 2, 4, 8, 3, 15, 0)  # in the order timed
+VARIANTS = (0, 1, 2, 4, 8, 16, 3, 20, 31, 0)  # in the order timed
+# (B, Cin, H, W, Cout, launches per forward) of the conv and plans studies:
+# WRN-28-2's four shapes, then preactresnet18's deep stages
+CONV_CASES = [(768, 16, 32, 32, 32, 1), (768, 32, 32, 32, 32, 7),
+              (768, 64, 16, 16, 64, 7), (768, 128, 8, 8, 128, 7),
+              (768, 256, 8, 8, 256, 3), (768, 512, 4, 4, 512, 3)]
 # the same for csrc/fused_sample.cu: the part a variant compiles out
 SAMPLE_ABLATIONS = {
     1: [("gumbel_row(log_alpha, out, Dc, Dd, row, seed, temperature);",
@@ -160,12 +183,10 @@ def conv_study(cs) -> None:
 
     from shotvae_torch.ops.kernels import fused_conv as fc
 
-    cases = [(768, 16, 32, 32, 32, 1), (768, 32, 32, 32, 32, 7),
-             (768, 64, 16, 16, 64, 7), (768, 128, 8, 8, 128, 7)]
     gen = torch.Generator(device="cuda").manual_seed(0)
     cl = dict(memory_format=torch.channels_last)
     inputs = []
-    for b, cin, h, w, cout, n in cases:
+    for b, cin, h, w, cout, n in CONV_CASES:
         x = torch.randn((b, cin, h, w), generator=gen, device="cuda").to(
             torch.bfloat16).contiguous(**cl)
         wt = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda").to(
@@ -174,16 +195,20 @@ def conv_study(cs) -> None:
         shift = torch.randn((cin,), generator=gen, device="cuda")
         inputs.append((x, scale, shift, wt, n))
     lib = fc._lib
-    built = lib(torch.bfloat16)
     with ThreadPoolExecutor(len(ABLATIONS) + 3) as pool:
         libs = dict(zip(set(VARIANTS) - {0}, pool.map(
             _build_variant, set(VARIANTS) - {0})))
+    built = {packed: lib(torch.bfloat16, packed) for packed in (False, True)}
+    entries = {False: fc._KERNELS[torch.bfloat16][1], True: fc._PACKED[1]}
     for variant in VARIANTS:
-        fn = built
+        fns = built
         if variant:
-            fn = libs[variant].fused_bn_act_conv3x3_bf16
-            fn.argtypes, fn.restype = built.argtypes, built.restype
-        fc._lib = lambda dtype, fn=fn: fn
+            fns = {packed: getattr(libs[variant], entries[packed])
+                   for packed in built}
+            for packed, fn in fns.items():
+                fn.argtypes = built[packed].argtypes
+                fn.restype = built[packed].restype
+        fc._lib = lambda dtype, packed=False, fns=fns: fns[packed]
         try:
             ms = [cs.time_ms(lambda a=a: fc.fused_bn_act_conv(*a[:4]))
                   for a in inputs]
@@ -191,18 +216,39 @@ def conv_study(cs) -> None:
             fc._lib = lib
         print("conv_bf16_ablate " + json.dumps(dict(
             ablate=variant, ms=ms,
-            per_encoder_forward_ms=sum(m * a[4] for m, a in zip(ms, inputs)))))
+            per_wrn_forward_ms=sum(m * a[4] for m, a in
+                                   zip(ms[:4], inputs[:4])),
+            per_preact_deep_forward_ms=sum(m * a[4] for m, a in
+                                           zip(ms[4:], inputs[4:])))))
 
 
 def swept_plans(b: int, cin: int, h: int, w: int, cout: int,
                 num_sms: int = 132):
-    """Every launch plan of the bf16 conv that fits at one shape (slice
-    width, chunk channels, stages; resident weights where the built plan
-    has them), each a ``conv_plan`` dict, and the built plan."""
+    """Every launch plan of the bf16 conv that fits at one shape, each a
+    ``conv_plan`` dict, and the built plan: of the built plan's work item,
+    for the packed item each slice width and some x and weight stages
+    (the built plan's among them), for the tiled item each slice width,
+    chunk channels and stages (resident weights where the built plan has
+    them)."""
     from shotvae_torch.ops.kernels import fused_conv as fc
 
     built = fc.conv_plan(b, h, w, cin, cout, num_sms)
     plans = []
+    if built["packed"]:
+        m_blocks = built["items"] // built["n_slices"]
+        stages = sorted({(2, 2), (2, 4), (2, 8), (3, 4), (3, 6), (3, 8),
+                         (built["x_stages"], built["w_stages"])})
+        for bn in fc.PACKED_BN:
+            for x_stages, w_stages in stages:
+                p = dict(built, bn=bn, x_stages=x_stages, w_stages=w_stages,
+                         n_slices=-(-cout // bn))
+                p["items"] = m_blocks * p["n_slices"]
+                p["grid"] = min(p["items"], num_sms)
+                p["smem_bytes"] = fc.packed_smem_bytes(
+                    bn, p["images"], p["rows"], w, x_stages, w_stages)
+                if p["smem_bytes"] <= fc.SMEM_LIMIT:
+                    plans.append(p)
+        return plans, built
     for bn in (32, 64):
         for cc in (16, 32, 64):
             for stages in (2, 4, 6, 8):
@@ -227,8 +273,7 @@ def plans_study(cs) -> None:
     plan = fc.conv_plan
     gen = torch.Generator(device="cuda").manual_seed(0)
     cl = dict(memory_format=torch.channels_last)
-    for b, cin, h, w, cout in [(768, 16, 32, 32, 32), (768, 32, 32, 32, 32),
-                               (768, 64, 16, 16, 64), (768, 128, 8, 8, 128)]:
+    for b, cin, h, w, cout, _ in CONV_CASES:
         x = torch.randn((b, cin, h, w), generator=gen, device="cuda").to(
             torch.bfloat16).contiguous(**cl)
         wt = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda").to(
@@ -243,9 +288,11 @@ def plans_study(cs) -> None:
                     lambda: fc.fused_bn_act_conv(x, scale, shift, wt))
             finally:
                 fc.conv_plan = plan
+            knobs = (("bn", "x_stages", "w_stages") if p["packed"]
+                     else ("bn", "cc", "stages"))
             print("conv_bf16_plan " + json.dumps(dict(
-                shape=[b, cin, h, w, cout], bn=p["bn"], cc=p["cc"],
-                stages=p["stages"], built=p == built, ms=ms)))
+                shape=[b, cin, h, w, cout], packed=p["packed"],
+                **{k: p[k] for k in knobs}, built=p == built, ms=ms)))
 
 
 def scaled_reduce_plan(factor: float):

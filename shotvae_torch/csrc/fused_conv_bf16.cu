@@ -79,10 +79,65 @@
 // A wait on a pipeline barrier that takes more than about 8 seconds traps
 // (a launch error) instead of hanging the card.
 //
+//
+// A second work item, packed whole images (fused_bn_act_conv3x3_bf16_
+// kernel_packed), for the deep stages. The tiled item above was made for
+// WRN-28-2's wide maps and narrow channels; at preactresnet18's 256 and
+// 512 channels on 8x8 and 4x4 maps it does the same work in the worst way
+// (H100, batch 768, scripts/torch_kernel_study.py):
+//   * 4x4 maps, Cin 512: one image fills 16 of an 8x8 tile's 64 rows (75 %
+//     of the products idle) and a 10x10 halo is staged and activated for
+//     16 pixels; no 64-channel weight slice (590 KB) fits, so it streams
+//     again for every item: 3,072 items x 590 KB = 1.81 GB read from L2 a
+//     launch, for a conv of 12.6 MB. 0.938 ms a launch against a bound of
+//     0.0586 (operations) and F.conv2d's 0.0955;
+//   * 8x8 maps, Cin 256: no resident 64-wide slice fits, so slices of 32:
+//     each x chunk is loaded, activated and staged 8 times, once a slice,
+//     and each product is m64n32, where reading A costs as much as the
+//     product. About 0.40 ms.
+// The packed item is 128 output pixels of whole images packed one after
+// another (8 images of 4x4, 2 of 8x8; a band of rows of one image where
+// an image has more than 128 pixels) by a slice of BN = 128 output
+// channels (32 or 64 where Cout is small), with K streamed:
+//   * M: a row of the products is an output pixel, and the A operand
+//     comes from registers, loaded by ldmatrix with one row address a
+//     pixel: each tap's shifted window is other addresses into the same
+//     activated halos, so any packing of small images fills every row.
+//     Inside an image its even rows go first, then its odd ones, so the 8
+//     rows of each ldmatrix matrix fall in 8 banks at 4x4 (the halo's
+//     pitch is 6);
+//   * x: one 4-D TMA box a chunk of 64 input channels, the item's halos
+//     ((H + 2) x (W + 2) an image, 128B-swizzled, one 128-byte row a
+//     position), activated in place once by an activation warpgroup and
+//     read by every tap and every output channel of the slice;
+//   * weights: a stage is one (chunk, tap): 64 k by BN rows, one TMA box
+//     (128B-swizzled; the B descriptor steps 32 bytes a k16), loaded once
+//     an item and read by all its 128 rows. Weight bytes from L2 at 4x4 /
+//     512: 384 items x 1.18 MB = 0.45 GB a launch (from 1.81);
+//   * two consumer warpgroups take rows 0-63 and 64-127 of every item
+//     (m64nBNk16, f32 accumulators); a producer warp each for x and for
+//     the weights, so neither waits behind the other's ring;
+//   * the epilogue stores y from registers, clipped to the items' pixels
+//     and to Cout; where Cout is a multiple of 8, the 4 lanes of a row
+//     trade their bf16 pairs first (a 4x4 transpose by two xor shuffles)
+//     and store 16 bytes each.
+// BN stops at 128: an m64n256 accumulator needs more than the 128
+// registers a thread of a 512-thread block has to compile. Measured in
+// this form: 512 -> 512 at 4x4 0.103 ms, 256 at 8x8 0.093 (F.conv2d 0.097
+// and 0.091; bound 0.0586 each). Learned on the way: ring indices by
+// division cost about 600 cycles a step (now counters); 4-byte stores of
+// y took a third of the launch (now 16-byte stores); releasing an x stage
+// at its last ldmatrix, before the products that read those registers
+// were done, let its next chunk overwrite it under them (now released
+// once they are done); and each warp converges again (__syncwarp) after a
+// barrier wait or a lane-0 arrival, before its next .aligned instruction.
+//
 // The launch plan (N slices, chunk channels, ring stages, resident or
 // streamed weights, shared-memory bytes, grid) is computed by conv_plan()
 // in ops/kernels/fused_conv.py and passed in; the launcher recomputes the
-// layout and refuses a plan that does not match it. The three TMA tensor
+// layout and refuses a plan that does not match it; for the packed item
+// (slice width, images and rows an item, x and weight stages,
+// shared-memory bytes, grid) by packed_plan(). The three TMA tensor
 // maps are encoded on the host, each kept in a small per-thread cache
 // keyed by everything it encodes, so a call whose tensors sit where an
 // earlier call's did encodes none.
@@ -174,6 +229,14 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
+// one arrival for the warp, by lane 0, with the warp converged before and
+// after (so that the .aligned instructions that follow see all its lanes)
+__device__ __forceinline__ void arrive_warp(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+  __syncwarp();
+}
+
 // wait until the barrier's phase differs from `parity`
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   long long start = 0;
@@ -203,6 +266,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
       "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
       : "memory");
 }
 
@@ -257,6 +331,10 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
+// the layout-type field of a descriptor of a 128B-swizzled operand: 8-row
+// groups of 128-byte rows, 16-byte chunk c of row r at c ^ (r % 8)
+constexpr uint64_t DESC_SWIZZLE_128B = 1ull << 62;
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -290,6 +368,15 @@ __device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// keep the compiler from moving or reusing an A fragment's registers
+// while products that read it may run
+__device__ __forceinline__ void fence_frag(uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) asm volatile("" : "+r"(f[j][q])::"memory");
+}
+
 // D (+)= A * B, m64n64k16
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a,
                                           uint64_t b, int accumulate) {
@@ -317,6 +404,102 @@ __device__ __forceinline__ void wgmma_bn(float (&d)[BN / 2], uint64_t a,
   } else {
     wgmma_n64(d, a, b, accumulate);
   }
+}
+
+// D (+)= A * B, m64n32k16, A from registers (ldmatrix), B K-major in
+// shared memory, f32 D
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D (+)= A * B, m64n64k16, A from registers (ldmatrix), B K-major in
+// shared memory, f32 D
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D (+)= A * B, m64n128k16, A from registers (ldmatrix), B K-major in
+// shared memory, f32 D
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  if constexpr (BN == 32) {
+    wgmma_rs_n32(d, a, b, accumulate);
+  } else if constexpr (BN == 64) {
+    wgmma_rs_n64(d, a, b, accumulate);
+  } else {
+    wgmma_rs_n128(d, a, b, accumulate);
+  }
+}
+
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// four 8x8 b16 matrices from shared memory, one 16-byte row address a lane:
+// lanes 8q..8q+7 give matrix q's rows, register q holds its fragment
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
 }
 
 // ---------------------------------------------------------------- kernel
@@ -626,6 +809,406 @@ fused_bn_act_conv3x3_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
+// ------------------------------------------------- packed whole images
+//
+// The second work item (see the header): PK_ROWS output pixels of whole
+// images packed one after another (or a band of rows of one image) by a
+// slice of BN output channels, K streamed in chunks of (tap, 64 input
+// channels). One x box a chunk, its halos activated in place; one weight
+// box a (chunk, tap); the A operand from registers by ldmatrix, one row
+// address an output pixel.
+
+constexpr int PK_THREADS = 512;  // consumers 0-1, activation 2, producers 3
+constexpr int PK_ROWS = 128;     // output pixels of an item, 64 a consumer
+constexpr int PK_CC = 64;        // input channels of a chunk: 128 bytes
+constexpr int PK_CONSUMER_WARPS = 8;
+
+__host__ __device__ constexpr int align1024(int v) {
+  return (v + 1023) / 1024 * 1024;
+}
+
+// Dynamic shared memory of the packed kernel, in bytes: the same arithmetic
+// as packed_smem_bytes() in ops/kernels/fused_conv.py. x stages of the
+// item's halos, one 128-byte row (64 channels) a position; weight stages
+// of bn rows of 64 k (128 bytes); both 128B-swizzled; the barriers
+struct PackedLayout {
+  int x_bytes, w_bytes, w_off, bar_off, total;
+};
+
+__host__ __device__ inline PackedLayout packed_layout(int bn, int images,
+                                                      int rows, int W,
+                                                      int x_stages,
+                                                      int w_stages) {
+  PackedLayout L;
+  L.x_bytes = align1024(images * (rows + 2) * (W + 2) * 128);
+  L.w_bytes = PK_CC * bn * 2;
+  L.w_off = x_stages * L.x_bytes;
+  L.bar_off = L.w_off + w_stages * L.w_bytes;
+  L.total = L.bar_off + 8 * (3 * x_stages + 2 * w_stages);
+  return L;
+}
+
+// a ring's next stage and the parity of its phase there, advanced without
+// a division
+struct Ring {
+  int stage = 0, phase = 0;
+  __device__ __forceinline__ void next(int stages) {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+struct PackedGeometry {
+  int B, H, W, Cin, Cout, images, rows, bands, n_slices, items, chunks,
+      x_stages, w_stages;
+};
+
+// The output pixel of row m of an item: image im of the item, row py of
+// the image (or band), column px. Images one after another; inside one,
+// its even rows, then its odd rows, so that the 8 rows of each ldmatrix
+// matrix lie in 8 banks at a 4x4 map (halo pitch 6; rows 2 apart are 12
+// positions apart, 4 mod 8)
+__device__ __forceinline__ void packed_pixel(const PackedGeometry& g, int m,
+                                             int& im, int& py, int& px) {
+  const int per_image = g.rows * g.W;
+  im = m / per_image;
+  const int r = m - im * per_image;
+  const int q = r / g.W, evens = (g.rows + 1) / 2;
+  px = r - q * g.W;
+  py = q < evens ? 2 * q : 2 * (q - evens) + 1;
+}
+
+template <int BN>
+__global__ void __launch_bounds__(PK_THREADS, 1)
+fused_bn_act_conv3x3_bf16_kernel_packed(
+    const __grid_constant__ CUtensorMap x_map,
+    const __grid_constant__ CUtensorMap w_map,
+    const float* __restrict__ scale, const float* __restrict__ shift,
+    __nv_bfloat16* __restrict__ y, const PackedGeometry g, float slope) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const PackedLayout L =
+      packed_layout(BN, g.images, g.rows, g.W, g.x_stages, g.w_stages);
+  const int XS = g.x_stages, WS = g.w_stages;
+  const uint32_t x_s = smem_u32(smem), w_s = x_s + L.w_off;
+  // barriers, 8 bytes each: x full (the TMA), activated (the activation
+  // warps), empty (the consumer warps); weights full, empty
+  const uint32_t x_full = x_s + L.bar_off, x_act = x_full + 8 * XS;
+  const uint32_t x_empty = x_act + 8 * XS, w_full = x_empty + 8 * XS;
+  const uint32_t w_empty = w_full + 8 * WS;
+  const int pitch = g.W + 2;              // halo positions of a row
+  const int halo = (g.rows + 2) * pitch;  // of an image (or band)
+  const int n_pos = g.images * halo;      // of an item
+  const int n_items = static_cast<int>(blockIdx.x) < g.items
+                          ? (g.items - 1 - blockIdx.x) / gridDim.x + 1
+                          : 0;
+  // the block's i-th item: its first image and row, its first channel
+  auto item = [&](int i, int& b0, int& y0, int& n0) {
+    const int t = blockIdx.x + i * gridDim.x;
+    const int mb = t / g.n_slices;
+    n0 = (t - mb * g.n_slices) * BN;
+    b0 = mb / g.bands * g.images;
+    y0 = mb % g.bands * g.rows;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < XS; ++s) {
+      mbar_init(x_full + 8 * s, 1);  // the producer's expect_tx
+      mbar_init(x_act + 8 * s, ACT_WARPS);
+      mbar_init(x_empty + 8 * s, PK_CONSUMER_WARPS);
+    }
+    for (int s = 0; s < WS; ++s) {
+      mbar_init(w_full + 8 * s, 1);
+      mbar_init(w_empty + 8 * s, PK_CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 3) {
+    // ------------------------------------------------------ producers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int t = threadIdx.x % 128;
+    if (t == 0) {
+      // x: one 4-D box a chunk, the item's images (or band) with their
+      // halos; the map's zero fill covers borders, channels past Cin and
+      // images past B
+      Ring r;
+      for (int i = 0; i < n_items; ++i) {
+        int b0, y0, n0;
+        item(i, b0, y0, n0);
+        for (int k = 0; k < g.chunks; ++k, r.next(XS)) {
+          mbar_wait(x_empty + 8 * r.stage, r.phase ^ 1);
+          mbar_expect_tx(x_full + 8 * r.stage, n_pos * 128);
+          tma_load_4d(x_s + r.stage * L.x_bytes, &x_map,
+                      x_full + 8 * r.stage, k * PK_CC, -1, y0 - 1, b0);
+        }
+      }
+    } else if (t == 32) {
+      // weights: a (chunk, tap) stage, one box of BN rows of 64 k (128
+      // bytes, 128B-swizzled), zero past cin_pad and Cout
+      Ring r;
+      for (int i = 0; i < n_items; ++i) {
+        int b0, y0, n0;
+        item(i, b0, y0, n0);
+        for (int k = 0; k < g.chunks; ++k) {
+          for (int tap = 0; tap < 9; ++tap, r.next(WS)) {
+            mbar_wait(w_empty + 8 * r.stage, r.phase ^ 1);
+            mbar_expect_tx(w_full + 8 * r.stage, L.w_bytes);
+            tma_load_3d(w_s + r.stage * L.w_bytes, &w_map,
+                        w_full + 8 * r.stage, k * PK_CC, tap, n0);
+          }
+        }
+      }
+    }
+  } else if (wg == 2) {
+    // ----------------------------------------------------- activation
+    // In place: each 16-byte group of 8 channels of a position becomes
+    // bf16(leaky(x * scale + shift)), 0 outside the image. The TMA's 128B
+    // swizzle put channel group c of position p at 16-byte slot c ^ (p % 8)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 80;\n" ::: "memory");
+    const int tid = threadIdx.x - 256;
+    const int grp = tid & 7;     // this thread's channel group
+    const int first = tid >> 3;  // and first position; 16 a pass
+    constexpr int BATCH = 4;
+    Ring r;
+    for (int i = 0; i < n_items; ++i) {
+      int b0, y0, n0;
+      item(i, b0, y0, n0);
+      const int images = min(g.images, g.B - b0);
+      // bit n: position first + 16n lies inside an image (at most 64 of
+      // them: the launcher takes at most 1024 positions an item)
+      uint64_t inside = 0;
+      for (int n = 0, p = first; p < n_pos; ++n, p += 16) {
+        const int im = p / halo, rest = p - im * halo;
+        const int hy = rest / pitch, hx = rest - hy * pitch;
+        const int iy = y0 + hy - 1;
+        if (im < images && hx >= 1 && hx <= g.W && iy >= 0 && iy < g.H)
+          inside |= 1ull << n;
+      }
+      for (int k = 0; k < g.chunks; ++k, r.next(XS)) {
+        const int ci = k * PK_CC + 8 * grp;
+        const bool live = ci < g.Cin;  // Cin is a multiple of 8
+        const uint64_t in_mask = live ? inside : 0;
+        float sc[8], sh[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          sc[e] = live ? __ldg(scale + ci + e) : 0.f;
+          sh[e] = live ? __ldg(shift + ci + e) : 0.f;
+        }
+        mbar_wait(x_full + 8 * r.stage, r.phase);
+        uint8_t* stage = smem + r.stage * L.x_bytes;
+        for (int p0 = first, nb = 0; p0 < n_pos;
+             p0 += 16 * BATCH, nb += BATCH) {
+          uint4 v[BATCH];  // a batch's loads issued before its arithmetic
+          bool in[BATCH];
+#pragma unroll
+          for (int u = 0; u < BATCH; ++u) {
+            const int p = p0 + 16 * u;
+            in[u] = p < n_pos && ((in_mask >> (nb + u)) & 1);
+            v[u] = in[u] ? *reinterpret_cast<const uint4*>(
+                               stage + p * 128 + ((grp ^ (p & 7)) << 4))
+                         : make_uint4(0u, 0u, 0u, 0u);
+          }
+#pragma unroll
+          for (int u = 0; u < BATCH; ++u) {
+            const int p = p0 + 16 * u;
+            if (p >= n_pos) continue;
+            uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+            if (in[u]) {
+              const __nv_bfloat162* xv =
+                  reinterpret_cast<const __nv_bfloat162*>(&v[u]);
+              __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float2 f = __bfloat1622float2(xv[e]);
+                out[e] = __floats2bfloat162_rn(
+                    act(f.x, sc[2 * e], sh[2 * e], slope),
+                    act(f.y, sc[2 * e + 1], sh[2 * e + 1], slope));
+              }
+            }
+            *reinterpret_cast<uint4*>(stage + p * 128 +
+                                      ((grp ^ (p & 7)) << 4)) = packed;
+          }
+        }
+        // generic-proxy stores, overwritten next by the TMA (async proxy)
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncwarp();
+        if (tid % 32 == 0) mbar_arrive(x_act + 8 * r.stage);
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    // consumer wg takes rows 64 * wg .. 64 * wg + 63 of every item
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 192;\n" ::: "memory");
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    // this lane's ldmatrix row (output pixel of the item) and k8 half:
+    // lanes 8q..8q+7 address matrix q, rows 0-7 / 8-15, k 0-7 / 8-15
+    const int row = 64 * wg + 16 * warp + (lane & 15);
+    const int half = lane >> 4;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    uint32_t fa[4][4], fb[4][4];  // a tap's A fragments, two in turn
+    Ring rx, rw;                  // the next chunk's x and tap's weights
+    int w_last = 0, x_last = 0;   // the last step's weight and x stages
+    for (int i = 0; i < n_items; ++i) {
+      int b0, y0, n0;
+      item(i, b0, y0, n0);
+      // the halo position of this lane's pixel at tap (0, 0); a row past
+      // the item's pixels reads position 0 and is not stored
+      int pos0 = 0;
+      {
+        int im, py, px;
+        packed_pixel(g, row, im, py, px);
+        if (im < g.images && b0 + im < g.B && y0 + py < g.H)
+          pos0 = im * halo + py * pitch + px;
+      }
+      // one (chunk, tap) step: the tap's A fragments into f, its 4 k16
+      // products; the item's first product overwrites the accumulators.
+      // The products read f after they are issued: fp, the previous
+      // step's fragments, stays live until its products are done, so the
+      // compiler gives f other registers
+      auto step = [&](int tap, bool first, uint32_t (&f)[4][4],
+                      uint32_t (&fp)[4][4]) {
+        const int pos = pos0 + (tap / 3) * pitch + tap % 3;
+        const uint32_t a_row = x_s + rx.stage * L.x_bytes + pos * 128;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          ldmatrix_x4(f[j], a_row + (((2 * j + half) ^ (pos & 7)) << 4));
+        // every lane converged again before each .aligned instruction
+        // (ldmatrix, wgmma)
+        mbar_wait(w_full + 8 * rw.stage, rw.phase);
+        __syncwarp();
+        // B: the stage's BN rows of 128 bytes, 128B-swizzled (8-row
+        // groups 1024 bytes apart); k16 step j starts 32j bytes in
+        const uint32_t b = w_s + rw.stage * L.w_bytes;
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          wgmma_rs<BN>(acc, f[j],
+                       desc(b + 32 * j, 16, 1024) | DESC_SWIZZLE_128B,
+                       !first || j > 0);
+        wgmma_commit();
+        wgmma_wait1();  // the previous step's products are done
+        fence_acc(acc);
+        fence_frag(fp);
+        if (!first) {
+          arrive_warp(w_empty + 8 * w_last, lane);
+          // the previous chunk's last products are done: its x stage is
+          // free (released no earlier: released at its last ldmatrix, the
+          // stage was seen overwritten under products still to run)
+          if (tap == 0) arrive_warp(x_empty + 8 * x_last, lane);
+        }
+        w_last = rw.stage;
+        rw.next(WS);
+      };
+      // a chunk's 9 taps, their fragments in f0, f1, f0, ..., f0; so a
+      // fragment is loaded again only after the products that read it are
+      // done on every path (else ptxas serialises the products)
+      auto chunk = [&](bool first, uint32_t (&f0)[4][4],
+                       uint32_t (&f1)[4][4]) {
+        mbar_wait(x_act + 8 * rx.stage, rx.phase);
+        __syncwarp();
+        step(0, first, f0, f1);
+        step(1, false, f1, f0);
+        step(2, false, f0, f1);
+        step(3, false, f1, f0);
+        step(4, false, f0, f1);
+        step(5, false, f1, f0);
+        step(6, false, f0, f1);
+        step(7, false, f1, f0);
+        step(8, false, f0, f1);
+        x_last = rx.stage;
+        rx.next(XS);
+      };
+      for (int k = 0; k + 1 < g.chunks; k += 2) {
+        chunk(k == 0, fa, fb);
+        chunk(false, fb, fa);
+      }
+      if (g.chunks & 1) chunk(g.chunks == 1, fa, fb);
+      wgmma_wait0();
+      fence_acc(acc);
+      fence_frag(fa);
+      fence_frag(fb);
+      arrive_warp(w_empty + 8 * w_last, lane);
+      arrive_warp(x_empty + 8 * x_last, lane);
+      // epilogue: accumulator 4j + 2h + e is row 64 * wg + 16 * warp + 8h +
+      // lane / 4 of the item, channel n0 + 8j + 2 * (lane % 4) + e; each
+      // to y itself, clipped to the item's pixels and to Cout. Where Cout
+      // is a multiple of 8, the 4 lanes of a row first trade their bf16
+      // pairs (a 4x4 transpose by two xor shuffles), so that each stores
+      // 8 channels, 16 bytes, at once: 4-byte stores of half sectors
+      // measured a third of the launch (scripts/torch_kernel_study.py
+      // conv, ablation 8)
+      const int t = lane & 3;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int im, py, px;
+        packed_pixel(g, 64 * wg + 16 * warp + 8 * h + (lane >> 2), im, py,
+                     px);
+        const bool ok = im < g.images && b0 + im < g.B && y0 + py < g.H;
+        __nv_bfloat16* out =
+            y + (ok ? ((static_cast<size_t>(b0 + im) * g.H + y0 + py) * g.W +
+                       px) * g.Cout
+                    : 0);
+        if (g.Cout % 8 == 0) {
+#pragma unroll
+          for (int q = 0; q < BN / 32; ++q) {
+            // v[i]: this lane's pair of 8-channel group 4q + i
+            uint32_t v[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const __nv_bfloat162 pair =
+                  __floats2bfloat162_rn(acc[4 * (4 * q + i) + 2 * h],
+                                        acc[4 * (4 * q + i) + 2 * h + 1]);
+              v[i] = *reinterpret_cast<const uint32_t*>(&pair);
+            }
+#pragma unroll
+            for (int i = 0; i < 4; i += 2) {  // lanes t, t ^ 1
+              const uint32_t got = __shfl_xor_sync(
+                  0xffffffffu, (t & 1) ? v[i] : v[i + 1], 1);
+              v[i] = (t & 1) ? got : v[i];
+              v[i + 1] = (t & 1) ? v[i + 1] : got;
+            }
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {  // lanes t, t ^ 2
+              const uint32_t got = __shfl_xor_sync(
+                  0xffffffffu, (t & 2) ? v[i] : v[i + 2], 2);
+              v[i] = (t & 2) ? got : v[i];
+              v[i + 2] = (t & 2) ? v[i + 2] : got;
+            }
+            // now lane t holds the pairs of all 4 lanes for group 4q + t
+            const int c = n0 + 32 * q + 8 * t;
+            if (ok && c < g.Cout)
+              *reinterpret_cast<uint4*>(out + c) =
+                  make_uint4(v[0], v[1], v[2], v[3]);
+          }
+          continue;
+        }
+        if (!ok) continue;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int c = n0 + 8 * j + 2 * t;
+          const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if (g.Cout % 2 == 0) {
+            if (c < g.Cout)
+              *reinterpret_cast<__nv_bfloat162*>(out + c) =
+                  __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (c < g.Cout) out[c] = __float2bfloat16_rn(v0);
+            if (c + 1 < g.Cout) out[c + 1] = __float2bfloat16_rn(v1);
+          }
+        }
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------------ host
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -719,6 +1302,24 @@ int launch(const CUtensorMap& x_map, const CUtensorMap& w_map,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int BN>
+int launch_packed(const CUtensorMap& x_map, const CUtensorMap& w_map,
+                  const float* scale, const float* shift, void* y,
+                  const PackedGeometry& g, int smem_bytes, int grid,
+                  float slope, cudaStream_t stream) {
+  static bool attr = false;
+  auto kernel = fused_bn_act_conv3x3_bf16_kernel_packed<BN>;
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr = true;
+  }
+  kernel<<<grid, PK_THREADS, smem_bytes, stream>>>(
+      x_map, w_map, scale, shift, static_cast<__nv_bfloat16*>(y), g, slope);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x: (B, H, W, Cin) bf16; scale, shift: (Cin,) f32; w: the K-major (Cout,
@@ -801,5 +1402,71 @@ extern "C" int fused_bn_act_conv3x3_bf16(const void* x, const float* scale,
     case 6416: return launch<64, 16>(x_map, w_map, y_map, scale, shift, y, g, smem_bytes, grid, slope, s);
     case 6432: return launch<64, 32>(x_map, w_map, y_map, scale, shift, y, g, smem_bytes, grid, slope, s);
     default: return launch<64, 64>(x_map, w_map, y_map, scale, shift, y, g, smem_bytes, grid, slope, s);
+  }
+}
+
+// The packed work item (fused_bn_act_conv3x3_bf16_kernel_packed): the same
+// x, scale, shift, w and y. (cin_pad, bn, images, rows, x_stages, w_stages,
+// smem_bytes, grid) is conv_plan()'s packed launch plan: an item is
+// `images` whole images (rows == H) or a band of `rows` rows of one image,
+// at most 128 output pixels, by bn output channels.
+extern "C" int fused_bn_act_conv3x3_bf16_packed(
+    const void* x, const float* scale, const float* shift, const void* w,
+    void* y, int B, int H, int W, int Cin, int Cout, int cin_pad, int bn,
+    int images, int rows, int x_stages, int w_stages, int smem_bytes,
+    int grid, float slope, void* stream) {
+  PackedGeometry g;
+  g.B = B, g.H = H, g.W = W, g.Cin = Cin, g.Cout = Cout;
+  g.images = images, g.rows = rows;
+  g.bands = rows > 0 ? (H + rows - 1) / rows : 0;
+  g.n_slices = bn > 0 ? (Cout + bn - 1) / bn : 0;
+  g.items = images > 0 ? (B + images - 1) / images * g.bands * g.n_slices
+                       : 0;
+  g.chunks = (cin_pad + PK_CC - 1) / PK_CC;
+  g.x_stages = x_stages, g.w_stages = w_stages;
+  const bool plan_ok =
+      B > 0 && H > 0 && W > 0 && Cin > 0 && Cin % 8 == 0 && Cout > 0 &&
+      (bn == 32 || bn == 64 || bn == 128) &&
+      cin_pad % 16 == 0 && cin_pad >= Cin && cin_pad - Cin < 16 &&
+      images >= 1 && images <= 256 && rows >= 1 && rows <= H &&
+      (images == 1 || rows == H) && images * rows * W <= PK_ROWS &&
+      images * (rows + 2) * (W + 2) <= 1024 &&
+      x_stages >= 2 && x_stages <= 4 && w_stages >= 2 && w_stages <= 8 &&
+      packed_layout(bn, images, rows, W, x_stages, w_stages).total ==
+          smem_bytes &&
+      smem_bytes <= MAX_SMEM && grid >= 1 && grid <= g.items;
+  if (!plan_ok) return -1;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -2;
+
+  // x: the item's images (or band) with their one-pixel halos, 64
+  // channels a box; w: (Cout, 9, cin_pad), 64 k by bn; both 128B-swizzled
+  CUtensorMap x_map, w_map;
+  const cuuint64_t x_dims[4] = {static_cast<cuuint64_t>(Cin),
+                                static_cast<cuuint64_t>(W),
+                                static_cast<cuuint64_t>(H),
+                                static_cast<cuuint64_t>(B)};
+  const cuuint64_t x_strides[3] = {
+      static_cast<cuuint64_t>(Cin) * 2, static_cast<cuuint64_t>(W) * Cin * 2,
+      static_cast<cuuint64_t>(H) * W * Cin * 2};
+  const cuuint32_t x_box[4] = {PK_CC, static_cast<cuuint32_t>(W + 2),
+                               static_cast<cuuint32_t>(rows + 2),
+                               static_cast<cuuint32_t>(images)};
+  const cuuint64_t w_dims[3] = {static_cast<cuuint64_t>(cin_pad), 9,
+                                static_cast<cuuint64_t>(Cout)};
+  const cuuint64_t w_strides[2] = {static_cast<cuuint64_t>(cin_pad) * 2,
+                                   static_cast<cuuint64_t>(9) * cin_pad * 2};
+  const cuuint32_t w_box[3] = {PK_CC, 1, static_cast<cuuint32_t>(bn)};
+  if (!encode_bf16(encode, &x_map, x, 4, x_dims, x_strides, x_box,
+                   CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_bf16(encode, &w_map, w, 3, w_dims, w_strides, w_box,
+                   CU_TENSOR_MAP_SWIZZLE_128B))
+    return -3;
+
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bn) {
+    case 32: return launch_packed<32>(x_map, w_map, scale, shift, y, g, smem_bytes, grid, slope, s);
+    case 64: return launch_packed<64>(x_map, w_map, scale, shift, y, g, smem_bytes, grid, slope, s);
+    default: return launch_packed<128>(x_map, w_map, scale, shift, y, g, smem_bytes, grid, slope, s);
   }
 }

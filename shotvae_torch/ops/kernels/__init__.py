@@ -1,6 +1,8 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version and a
 launch counter per data type (``<wrapper>.launches`` for float32,
-``<wrapper>.launches_bf16`` for bfloat16).
+``<wrapper>.launches_bf16`` for bfloat16), and, where a kernel has more
+than one work item, a counter of the launches that took one of them (its
+``extra`` counters, e.g. ``fused_bn_act_conv.launches_bf16_packed``).
 
 A wrapper counts in Python as it launches, so a CUDA graph's replay moves
 no counter by itself: ``held_counts`` takes a capture's counts back out
@@ -20,29 +22,40 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def count_launch(wrapper, dtype: torch.dtype) -> None:
-    """Count one launch of ``wrapper``'s kernel for ``dtype`` data."""
+def count_launch(wrapper, dtype: torch.dtype,
+                 extra: str | None = None) -> None:
+    """Count one launch of ``wrapper``'s kernel for ``dtype`` data, and on
+    its ``extra`` counter where given."""
     if dtype == torch.bfloat16:
         wrapper.launches_bf16 += 1
     else:
         wrapper.launches += 1
+    if extra is not None:
+        setattr(wrapper, extra, getattr(wrapper, extra) + 1)
 
 
 _COUNTED: list = []  # every wrapper with launch counters
+_EXTRA: list = []    # (wrapper, counter) of every extra counter
 
 
-def init_counts(*wrappers) -> None:
+def init_counts(*wrappers, extra: tuple = ()) -> None:
     for wrapper in wrappers:
         wrapper.launches = wrapper.launches_bf16 = 0
         if not any(w is wrapper for w in _COUNTED):
             _COUNTED.append(wrapper)
+        for name in extra:
+            setattr(wrapper, name, 0)
+            if not any(w is wrapper and n == name for w, n in _EXTRA):
+                _EXTRA.append((wrapper, name))
 
 
 @contextlib.contextmanager
 def held_counts():
     """Counts made inside are taken back out on leaving, and the yielded
-    dict then holds them: {wrapper: (float32, bfloat16) launches}."""
+    dict then holds them: {wrapper: (float32, bfloat16) launches} and
+    {(wrapper, extra counter): launches}."""
     before = [(w, w.launches, w.launches_bf16) for w in _COUNTED]
+    extras = [(w, name, getattr(w, name)) for w, name in _EXTRA]
     made: dict = {}
     try:
         yield made
@@ -50,13 +63,21 @@ def held_counts():
         for w, f32, bf16 in before:
             made[w] = (w.launches - f32, w.launches_bf16 - bf16)
             w.launches, w.launches_bf16 = f32, bf16
+        for w, name, n in extras:
+            made[(w, name)] = getattr(w, name) - n
+            setattr(w, name, n)
 
 
 def add_counts(made: dict) -> None:
     """Add ``held_counts``' launches to the counters."""
-    for w, (f32, bf16) in made.items():
-        w.launches += f32
-        w.launches_bf16 += bf16
+    for key, counts in made.items():
+        if isinstance(key, tuple):
+            w, name = key
+            setattr(w, name, getattr(w, name) + counts)
+        else:
+            f32, bf16 = counts
+            key.launches += f32
+            key.launches_bf16 += bf16
 
 
 def refuse_grad(name: str, training_path: str, *tensors) -> None:

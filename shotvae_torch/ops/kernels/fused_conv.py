@@ -12,9 +12,13 @@ dtype, each counted on its own counter:
   and x activated once into padded rows whose zeros are SAME's padding
   (``fused_bn_act_conv.launches``);
 * bfloat16: ``shotvae_torch/csrc/fused_conv_bf16.cu``, an implicit GEMM on
-  the tensor cores (``fused_bn_act_conv.launches_bf16``). As the TPU kernel
-  does in bf16, the activation is computed in f32 and rounded to bf16 before
-  the product (fused_conv.py:115), the weight is cast to bf16 (:167), the
+  the tensor cores (``fused_bn_act_conv.launches_bf16``), with two work
+  items: pairs of 8x8 tiles by a resident weight slice, and, where those
+  waste work (maps below 8x8, Cin of 256 and more), 128 pixels of packed
+  whole images by a 128-channel slice with K streamed (also counted on
+  ``fused_bn_act_conv.launches_bf16_packed``). As the TPU kernel does in
+  bf16, the activation is computed in f32 and rounded to bf16 before the
+  product (fused_conv.py:115), the weight is cast to bf16 (:167), the
   sums are f32 and y is bf16.
 
 Each source's header says what bounds it on the H100 and how its design
@@ -30,14 +34,15 @@ launcher. The bf16 kernel reads the weight as it lies: a
 ``channels_last`` (Cout, Cin, 3, 3) weight is the K-major (Cout, 9*Cin)
 matrix ``wgmma`` takes, so the wrapper copies it only where it is not
 ``channels_last`` or Cin is not a multiple of 16 (then its input channels
-are padded with zeros). The bf16 kernel's launch plan (``conv_plan``: N
-slices, chunk channels, ring stages, shared-memory bytes, grid) is computed
-here and checked again by its launcher. Any Cin that is a multiple of 8
-is taken: where the weight slice does not fit in shared memory beside
-the rings, the plan streams it through the stages. Any Cout is taken: where it
-is not a multiple of 8 (DenseNet-BC 100's 12), y's rows are not 16-byte
-strided, so the kernel's epilogue stores y itself in place of the TMA
-store (csrc/fused_conv_bf16.cu, ``direct``).
+are padded with zeros). The bf16 kernel's launch plan (``conv_plan``: the
+work item, then N slices, chunk channels or images an item, ring stages,
+shared-memory bytes, grid) is computed here and checked again by its
+launcher. Any Cin that is a multiple of 8 is taken: where the tiled item's
+weight slice does not fit in shared memory beside the rings, the plan
+streams it through the stages. Any Cout is taken: where it is not a
+multiple of 8 (DenseNet-BC 100's 12), y's rows are not 16-byte strided, so
+the kernel's epilogue stores y itself in place of the TMA store
+(csrc/fused_conv_bf16.cu, ``direct``).
 
 Two differentiable sites launch the kernel:
 
@@ -115,6 +120,10 @@ _KERNELS = {torch.float32: ("fused_conv", "fused_bn_act_conv3x3_f32", 4, 4,
             torch.bfloat16: ("fused_conv_bf16", "fused_bn_act_conv3x3_bf16",
                              8, 1, ("cin_pad", "bn", "cc", "stages",
                                     "streamed", "smem_bytes", "grid"))}
+# the bf16 kernel's packed work item: its entry point and plan entries
+_PACKED = ("fused_conv_bf16", "fused_bn_act_conv3x3_bf16_packed", 8, 1,
+           ("cin_pad", "bn", "images", "rows", "x_stages", "w_stages",
+            "smem_bytes", "grid"))
 _PLAN_ERRORS = {-1: "the launcher refused the launch plan",
                 -2: "the driver has no cuTensorMapEncodeTiled",
                 -3: "a TMA tensor map was refused"}
@@ -144,25 +153,23 @@ def conv_smem_bytes(cin_pad: int, bn: int, cc: int, stages: int,
             + 8 * (1 + 4 * stages))
 
 
-@functools.lru_cache(maxsize=None)
-def conv_plan(b: int, h: int, w: int, cin: int, cout: int,
+def tile_plan(b: int, h: int, w: int, cin: int, cout: int,
               num_sms: int = 132) -> dict:
-    """The bf16 kernel's launch plan for x (b, cin, h, w) and cout output
-    channels on a card with ``num_sms`` SMs. Work items are pairs of 8x8
-    output tiles by a slice of ``bn`` output channels; each block keeps
-    its slice of the (9 * cin_pad) x bn weight in shared memory and walks
-    every (grid / n_slices)-th tile, two at a time, so the grid covers each
-    (tile, slice) once. Each of the two consumer warpgroups stages its y
-    tiles for the TMA store. x is staged in chunks of ``cc`` input channels
-    through two rings (one per consumer warpgroup) of stages / 2 raw and
-    as many activated buffers: the widest slice, then the widest chunk,
-    then as many stages as fit, up to 8 (measured: a wider chunk beats
-    deeper rings, scripts/torch_kernel_study.py plans). Where no resident
-    slice fits (Cin above 320), the weights are ``streamed``: each stage
-    also carries its chunk's 9 * cc x bn weights, chosen by the same
-    order. ``smem_bytes`` is the kernel's layout
-    (csrc/fused_conv_bf16.cu:layout). Cached per shape, as the wrapper
-    asks on every call: read the plan, do not change it."""
+    """The bf16 kernel's tiled launch plan for x (b, cin, h, w) and cout
+    output channels on a card with ``num_sms`` SMs. Work items are pairs
+    of 8x8 output tiles by a slice of ``bn`` output channels; each block
+    keeps its slice of the (9 * cin_pad) x bn weight in shared memory and
+    walks every (grid / n_slices)-th tile, two at a time, so the grid
+    covers each (tile, slice) once. Each of the two consumer warpgroups
+    stages its y tiles for the TMA store. x is staged in chunks of ``cc``
+    input channels through two rings (one per consumer warpgroup) of
+    stages / 2 raw and as many activated buffers: the widest slice, then
+    the widest chunk, then as many stages as fit, up to 8 (measured: a
+    wider chunk beats deeper rings, scripts/torch_kernel_study.py plans).
+    Where no resident slice fits (Cin above 320), the weights are
+    ``streamed``: each stage also carries its chunk's 9 * cc x bn weights,
+    chosen by the same order. ``smem_bytes`` is the kernel's layout
+    (csrc/fused_conv_bf16.cu:layout)."""
     cin_pad = -(-cin // 16) * 16
     fits = [(streamed, bn, cc, s) for streamed in (False, True)
             for bn in ((32,) if cout <= 32 else (64, 32))
@@ -173,10 +180,104 @@ def conv_plan(b: int, h: int, w: int, cin: int, cout: int,
     n_slices = -(-cout // bn)
     tiles = b * -(-h // 8) * -(-w // 8)
     grid = n_slices * min(tiles, max(1, num_sms // n_slices))
-    return dict(cin_pad=cin_pad, bn=bn, cc=cc, stages=stages,
+    return dict(packed=False, cin_pad=cin_pad, bn=bn, cc=cc, stages=stages,
                 streamed=streamed,
                 smem_bytes=conv_smem_bytes(cin_pad, bn, cc, stages, streamed),
                 grid=grid, n_slices=n_slices, tiles=tiles)
+
+
+# the packed work item (csrc/fused_conv_bf16.cu,
+# fused_bn_act_conv3x3_bf16_kernel_packed): output pixels an item (64 a
+# consumer warpgroup), input channels a chunk, the slice widths it takes
+PACKED_ROWS, PACKED_CC, PACKED_BN = 128, 64, (128, 64, 32)
+PACKED_MAX_POS = 1024  # halo positions an item: 64 an activation thread
+# the cost of an item beyond its products, in output channels of slice:
+# staging and activating its x chunks, the epilogue. Fitted to the slice
+# sweep at preactresnet18's deep stages (scripts/torch_kernel_study.py
+# plans, H100: slices of 128, 64 and 32 took 1 : 1.6 : 2.7)
+PACKED_ITEM_OVERHEAD = 128
+
+
+def packed_smem_bytes(bn: int, images: int, rows: int, w: int,
+                      x_stages: int, w_stages: int) -> int:
+    """The packed kernel's shared memory (csrc/fused_conv_bf16.cu:
+    packed_layout): ``x_stages`` x stages of the item's halos, one 128-byte
+    row of 64 channels a position, each rounded up to 1024 bytes for the
+    128B swizzle; ``w_stages`` weight stages of 64 k by bn; the
+    barriers."""
+    x = -(-images * (rows + 2) * (w + 2) * 128 // 1024) * 1024
+    return (x_stages * x + w_stages * PACKED_CC * bn * 2
+            + 8 * (3 * x_stages + 2 * w_stages))
+
+
+def packed_plan(b: int, h: int, w: int, cin: int, cout: int,
+                num_sms: int = 132) -> dict | None:
+    """The packed launch plan, or None where no packed item fits. An item
+    is ``images`` whole images packed one after another (or, where one
+    image has more than 128 pixels, a band of ``rows`` image rows) by a
+    slice of ``bn`` output channels; its x goes through ``x_stages`` stages
+    a chunk of 64 input channels at a time, its weights through
+    ``w_stages`` stages a (chunk, tap) at a time. The most images that fit
+    128 rows (fewer where their halos leave no room for two stages of
+    each); the slice whose items finish soonest on the card
+    (``PACKED_ITEM_OVERHEAD``), the widest on a tie; three x stages where
+    they fit beside four weight stages; then as many weight stages as fit,
+    up to 8 (measured: the slice width decides, the stages hardly move it,
+    scripts/torch_kernel_study.py plans)."""
+    cin_pad = -(-cin // 16) * 16
+    if w > PACKED_ROWS:
+        return None
+    rows = h if h * w <= PACKED_ROWS else PACKED_ROWS // w
+    images = min(b, PACKED_ROWS // (rows * w)) if rows == h else 1
+    # the widest slice under twice Cout, and half of it
+    bns = [bn for bn in PACKED_BN if bn < 2 * cout][:2] or [PACKED_BN[-1]]
+    while (packed_smem_bytes(min(bns), images, rows, w, 2, 2) > SMEM_LIMIT
+           or images * (rows + 2) * (w + 2) > PACKED_MAX_POS):
+        if images == 1:
+            return None
+        images -= 1
+    bands = -(-h // rows)
+    m_blocks = -(-b // images) * bands
+
+    def finish(bn):  # the items of the busiest block, in channel units
+        items = m_blocks * -(-cout // bn)
+        return -(-items // min(items, num_sms)) * (bn + PACKED_ITEM_OVERHEAD)
+
+    fits = [bn for bn in bns
+            if packed_smem_bytes(bn, images, rows, w, 2, 2) <= SMEM_LIMIT]
+    bn = min(fits, key=lambda n: (finish(n), -n))
+    x_stages = 3 if packed_smem_bytes(bn, images, rows, w, 3,
+                                      4) <= SMEM_LIMIT else 2
+    w_stages = max(s for s in range(2, 9) if packed_smem_bytes(
+        bn, images, rows, w, x_stages, s) <= SMEM_LIMIT)
+    n_slices = -(-cout // bn)
+    items = m_blocks * n_slices
+    return dict(packed=True, cin_pad=cin_pad, bn=bn, images=images,
+                rows=rows, x_stages=x_stages, w_stages=w_stages,
+                smem_bytes=packed_smem_bytes(bn, images, rows, w, x_stages,
+                                             w_stages),
+                grid=min(items, num_sms), n_slices=n_slices, items=items)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(b: int, h: int, w: int, cin: int, cout: int,
+              num_sms: int = 132) -> dict:
+    """The bf16 kernel's launch plan for x (b, cin, h, w) and cout output
+    channels on a card with ``num_sms`` SMs: ``packed_plan`` where the
+    tiled item wastes work, ``tile_plan`` elsewhere. The tiled item (two
+    8x8 tiles by a resident slice) wastes work where the map is smaller
+    than its 8x8 tile (h and w below 8: most of its rows idle) and where
+    no resident slice of 64 output channels fits beside its rings (Cin
+    padded to 16 is 256 or more: narrower slices each stage and activate
+    x again, or the weights stream again for every item). Both plans carry
+    ``packed``. Cached per shape, as the wrapper asks on every call: read
+    the plan, do not change it."""
+    cin_pad = -(-cin // 16) * 16
+    if (h < 8 and w < 8) or cin_pad >= 256:
+        plan = packed_plan(b, h, w, cin, cout, num_sms)
+        if plan is not None:
+            return plan
+    return tile_plan(b, h, w, cin, cout, num_sms)
 
 
 # the f32 kernel (csrc/fused_conv.cu): input channels per step, ring
@@ -232,8 +333,8 @@ def conv_f32_plan(b: int, h: int, w: int, cout: int,
     return plan
 
 
-def _lib(dtype):
-    source, entry, _, _, plan_args = _KERNELS[dtype]
+def _lib(dtype, packed: bool = False):
+    source, entry, _, _, plan_args = _PACKED if packed else _KERNELS[dtype]
     fn = getattr(_build.load(source), entry)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5
@@ -288,20 +389,23 @@ def _fused_conv_forward(x, scale, shift, weight, slope: float):
     else:
         plan = conv_f32_plan(b, h, w, cout, sm_count(x.device.index))
         w2 = weight.permute(2, 3, 1, 0).reshape(9 * cin, cout).contiguous()
-    args = [int(plan[k]) for k in _KERNELS[x.dtype][4]]
+    packed = x.dtype == torch.bfloat16 and plan["packed"]
+    entries = (_PACKED if packed else _KERNELS[x.dtype])[4]
+    args = [int(plan[k]) for k in entries]
     scale, shift = scale.contiguous(), shift.contiguous()
     y = torch.empty((b, cout, h, w), device=x.device, dtype=x.dtype,
                     memory_format=torch.channels_last)
     if any(t.data_ptr() % 16 for t in (x, scale, shift, w2, y)):
         raise ValueError("fused_conv kernel needs 16-byte aligned tensors")
-    err = _lib(x.dtype)(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                        w2.data_ptr(), y.data_ptr(), b, h, w, cin, cout,
-                        *args, slope,
-                        torch.cuda.current_stream(x.device).cuda_stream)
+    err = _lib(x.dtype, packed)(
+        x.data_ptr(), scale.data_ptr(), shift.data_ptr(), w2.data_ptr(),
+        y.data_ptr(), b, h, w, cin, cout, *args, slope,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_conv kernel launch failed: "
                            f"{_PLAN_ERRORS.get(err, f'CUDA error {err}')}")
-    count_launch(fused_bn_act_conv, x.dtype)
+    count_launch(fused_bn_act_conv, x.dtype,
+                 "launches_bf16_packed" if packed else None)
     return y
 
 
@@ -349,7 +453,7 @@ def fused_bn_act_conv(x, scale, shift, weight, *, slope: float = LEAKY_SLOPE):
     return _FusedBnActConv.apply(x, scale, shift, weight.to(x.dtype), slope)
 
 
-init_counts(fused_bn_act_conv)
+init_counts(fused_bn_act_conv, extra=("launches_bf16_packed",))
 
 
 class _FusedBnActConvTrain(torch.autograd.Function):

@@ -565,7 +565,8 @@ def test_chip_smoke_bf16_conv_check_fails_at_ragged_shapes(wrong,
     monkeypatch.setattr(fused_conv, "_fused_conv_forward", wrap(forward))
     monkeypatch.setattr(chip_smoke, "CONV_CHECK_SHAPES",
                         [s for s in chip_smoke.CONV_CHECK_SHAPES
-                         if s[0] > 1 and s[1] % 16 == 0])
+                         if s[0] > 1 and s[1] % 16 == 0
+                         and s[2] % 8 == 0 and s[3] % 8 == 0])
     chip_smoke.conv_phase(torch.device("cpu"), 2, torch.bfloat16)  # passes
     monkeypatch.undo()
     chip_smoke = _chip_smoke(monkeypatch)
@@ -591,7 +592,8 @@ def test_chip_smoke_f32_conv_check_fails_at_ragged_shapes(wrong,
     monkeypatch.setattr(fused_conv, "_fused_conv_forward", wrap(forward))
     monkeypatch.setattr(chip_smoke, "CONV_CHECK_SHAPES",
                         [s for s in chip_smoke.CONV_CHECK_SHAPES
-                         if s[0] > 1 and s[1] % 16 == 0])
+                         if s[0] > 1 and s[1] % 16 == 0
+                         and s[2] % 8 == 0 and s[3] % 8 == 0])
     chip_smoke.conv_phase(torch.device("cpu"), 2)  # passes
     monkeypatch.undo()
     chip_smoke = _chip_smoke(monkeypatch)

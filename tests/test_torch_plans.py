@@ -48,8 +48,12 @@ CONV_SHAPES = [(768, 16, 32, 32, 32), (768, 32, 32, 32, 32),
 @pytest.mark.parametrize("shape", CONV_SHAPES)
 @pytest.mark.parametrize("num_sms", [132, 114])
 def test_conv_plan_fits_and_covers_every_tile_once(shape, num_sms):
+    """The tiled work item's plan at every shape: the plan itself where
+    ``conv_plan`` keeps the tiled item, the one it would take elsewhere."""
     b, cin, h, w, cout = shape
-    plan = fc.conv_plan(b, h, w, cin, cout, num_sms)
+    plan = fc.tile_plan(b, h, w, cin, cout, num_sms)
+    built = fc.conv_plan(b, h, w, cin, cout, num_sms)
+    assert built["packed"] or built == plan
     assert plan["smem_bytes"] <= fc.SMEM_LIMIT == 232_448
     assert plan["cin_pad"] % 16 == 0 and 0 <= plan["cin_pad"] - cin < 16
     assert plan["cin_pad"] % plan["cc"] == 0 and plan["bn"] in (32, 64)
@@ -89,18 +93,209 @@ def test_conv_plan_at_the_main_path():
 
 def test_conv_plan_refuses_a_weight_that_does_not_fit():
     """A weight slice that does not fit in shared memory is not kept
-    resident: it streams through the stages, at any Cin that is a multiple
-    of 8 (WRN-28-10's 640, and 1024)."""
+    resident by the tiled item: it streams through the stages, at any Cin
+    that is a multiple of 8 (WRN-28-10's 640, and 1024). At these widths
+    (Cin padded to 256 or more) ``conv_plan`` takes the packed item, whose
+    weights always stream."""
     for cin, want in ((320, False), (336, True), (640, True), (1024, True)):
-        plan = fc.conv_plan(2, 8, 8, cin, 64)
+        plan = fc.tile_plan(2, 8, 8, cin, 64)
         assert plan["streamed"] == want
         assert plan["smem_bytes"] <= fc.SMEM_LIMIT
         # streamed exactly where the least resident plan is too big
         assert (fc.conv_smem_bytes(cin, 32, 16, 2) > fc.SMEM_LIMIT) == want
-    assert fc.conv_plan(2, 8, 8, 640, 640) == dict(
-        cin_pad=640, bn=64, cc=32, stages=2, streamed=True,
+        assert fc.conv_plan(2, 8, 8, cin, 64)["packed"]
+    assert fc.tile_plan(2, 8, 8, 640, 640) == dict(
+        packed=False, cin_pad=640, bn=64, cc=32, stages=2, streamed=True,
         smem_bytes=32_768 + 2 * (12_800 + 12_928 + 36_864) + 72, grid=20,
         n_slices=10, tiles=2)
+
+
+# (B, Cin, H, W, Cout) at which conv_plan takes the packed work item:
+# preactresnet18's deep stages at batch 768 and at batches that leave an
+# item's last images past B, densenet121's 4x4 block, maps of 2x2, 5x9
+# and 7x5, DenseNet-BC's Cout of 12, WRN-28-10's widths (8-row bands of a
+# 16x16 map at 320 channels)
+PACKED_SHAPES = [(768, 256, 8, 8, 256), (768, 512, 4, 4, 512),
+                 (9, 512, 4, 4, 512), (3, 256, 8, 8, 256),
+                 (768, 128, 4, 4, 32), (1, 64, 2, 2, 64), (7, 192, 2, 2, 48),
+                 (1, 360, 5, 9, 40), (3, 40, 7, 5, 72), (1, 48, 5, 3, 12),
+                 (2, 320, 16, 16, 320), (2, 640, 8, 8, 640)]
+
+
+def packed_rows(plan: dict, w: int):
+    """csrc/fused_conv_bf16.cu:packed_pixel for the 128 rows of an item:
+    (image of the item, row, column) of each, images one after another,
+    inside one its even rows, then its odd rows."""
+    m = np.arange(fc.PACKED_ROWS)
+    im, r = np.divmod(m, plan["rows"] * w)
+    q, px = np.divmod(r, w)
+    evens = (plan["rows"] + 1) // 2
+    return im, np.where(q < evens, 2 * q, 2 * (q - evens) + 1), px
+
+
+def packed_items(plan: dict, h: int):
+    """The packed walk (csrc/fused_conv_bf16.cu): block j takes items j,
+    j + grid, ...; item t is slice t % n_slices of m-block t // n_slices,
+    whose first image and row are b0 and y0. Yields (block, b0, y0,
+    slice)."""
+    bands = -(-h // plan["rows"])
+    for t in range(plan["items"]):
+        mb, sl = divmod(t, plan["n_slices"])
+        yield (t % plan["grid"], mb // bands * plan["images"],
+               mb % bands * plan["rows"], sl)
+
+
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+@pytest.mark.parametrize("num_sms", [132, 114])
+def test_packed_plan_fits_and_covers_every_output_once(shape, num_sms):
+    """The packed item's walk covers every (image, output pixel, output
+    channel) exactly once, blocks differ by at most one item, the layout
+    fits, and every tap of every row reads its own image's halo inside the
+    item's x stage."""
+    b, cin, h, w, cout = shape
+    plan = fc.conv_plan(b, h, w, cin, cout, num_sms)
+    assert plan["packed"] and plan["bn"] in fc.PACKED_BN
+    images, rows, bn = plan["images"], plan["rows"], plan["bn"]
+    # whole images, or a band of rows of one image; at most 128 pixels
+    assert images * rows * w <= fc.PACKED_ROWS and 1 <= rows <= h
+    assert images == 1 or rows == h
+    pitch, halo = w + 2, (rows + 2) * (w + 2)
+    assert images * halo <= fc.PACKED_MAX_POS
+    assert plan["smem_bytes"] == fc.packed_smem_bytes(
+        bn, images, rows, w, plan["x_stages"], plan["w_stages"]) \
+        <= fc.SMEM_LIMIT
+    assert plan["x_stages"] in (2, 3) and 2 <= plan["w_stages"] <= 8
+    # an x stage holds the TMA box: 64 channels of every halo position
+    x_stage = (plan["smem_bytes"] - plan["w_stages"] * 128 * bn
+               - 8 * (3 * plan["x_stages"] + 2 * plan["w_stages"])) \
+        // plan["x_stages"]
+    assert x_stage % 1024 == 0 and x_stage >= images * halo * 64 * 2
+    assert plan["n_slices"] == -(-cout // bn)
+    assert plan["grid"] == min(plan["items"], num_sms)
+    im, py, px = packed_rows(plan, w)
+    cover = np.zeros((b, h, w, plan["n_slices"]), np.int32)
+    per_block = np.zeros(plan["grid"], np.int32)
+    for block, b0, y0, sl in packed_items(plan, h):
+        per_block[block] += 1
+        ok = (im < images) & (b0 + im < b) & (y0 + py < h)
+        np.add.at(cover, (b0 + im[ok], y0 + py[ok], px[ok], sl), 1)
+    assert (cover == 1).all()
+    assert per_block.max() - per_block.min() <= 1
+    # tap (dy, dx) of a row reads halo position pos0 + dy * pitch + dx:
+    # input pixel (y0 + py + dy - 1, px + dx - 1) of the same image
+    pos0 = im * halo + py * pitch + px
+    for dy in range(3):
+        for dx in range(3):
+            pos = pos0 + dy * pitch + dx
+            hi, hr = np.divmod(pos, halo)
+            assert (hi == im).all() and (hr // pitch == py + dy).all()
+            assert (hr % pitch == px + dx).all()
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES + PACKED_SHAPES)
+def test_conv_plan_takes_the_packed_item_where_the_tile_wastes_work(shape):
+    """The packed item exactly where the tiled one wastes work: maps below
+    its 8x8 tile, or Cin padded to 256 or more (no resident 64-channel
+    slice fits)."""
+    b, cin, h, w, cout = shape
+    wastes = (h < 8 and w < 8) or -(-cin // 16) * 16 >= 256
+    assert fc.conv_plan(b, h, w, cin, cout)["packed"] == wastes
+
+
+def test_conv_plan_packs_the_deep_stages_and_no_wrn_shape():
+    """preactresnet18's 256- and 512-channel layers and densenet121's 4x4
+    block take the packed item; none of WRN-28-2's four shapes does."""
+    assert not any(fc.conv_plan(b, h, w, cin, cout)["packed"]
+                   for b, cin, h, w, cout in CONV_SHAPES[:4])
+    assert all(fc.conv_plan(b, h, w, cin, cout)["packed"]
+               for b, cin, h, w, cout in [(768, 256, 8, 8, 256),
+                                          (768, 512, 4, 4, 512),
+                                          (768, 128, 4, 4, 32)])
+
+
+@pytest.mark.parametrize("w", [4, 8])
+def test_packed_rows_fall_in_eight_banks(w):
+    """The 8 rows of each ldmatrix matrix (8 rows of a warp's 16) read 8
+    halo positions that differ mod 8 at every tap, at preactresnet18's 4x4
+    and 8x8 maps: 128-byte rows with the 128B swizzle, so no two of them
+    share a bank."""
+    plan = fc.conv_plan(768, w, w, 512, 512)
+    im, py, px = packed_rows(plan, w)
+    pos0 = im * (w + 2) ** 2 + py * (w + 2) + px
+    for k in range(0, fc.PACKED_ROWS, 8):
+        assert len(set(pos0[k:k + 8] % 8)) == 8
+
+
+def packed_kernel_model(x, scale, shift, weight, slope: float, plan: dict):
+    """The packed kernel's arithmetic in numpy, item by item: per chunk of
+    64 input channels, the TMA box of the item's halos (zero past the
+    image, Cin and B), activated in place and set to 0 outside the images
+    and past Cin; per tap, each row's A row at its halo position times the
+    (chunk, tap) weights of the item's slice (0 past Cin and Cout), summed
+    in f32; each valid row stored to its pixel. Returns y (B, Cout, H,
+    W)."""
+    b, cin, h, w = x.shape
+    cout = weight.shape[0]
+    images, rows, bn = plan["images"], plan["rows"], plan["bn"]
+    pitch, halo = w + 2, (rows + 2) * (w + 2)
+    chunks = -(-plan["cin_pad"] // fc.PACKED_CC)
+    width = chunks * fc.PACKED_CC
+    xp = np.zeros((b + images, h + rows + 2, w + 2, width), np.float32)
+    xp[:b, 1:h + 1, 1:w + 1, :cin] = x.permute(0, 2, 3, 1).numpy()
+    inside = np.zeros_like(xp, bool)
+    inside[:b, 1:h + 1, 1:w + 1, :cin] = True
+    sc = np.zeros(width, np.float32)
+    sh = np.zeros(width, np.float32)
+    sc[:cin], sh[:cin] = scale.numpy(), shift.numpy()
+    wk = np.zeros((9, width, -(-cout // bn) * bn), np.float32)
+    wk[:, :cin, :cout] = weight.permute(2, 3, 1, 0).reshape(
+        9, cin, cout).numpy()
+    y = np.zeros((b, h, w, cout), np.float32)
+    im, py, px = packed_rows(plan, w)
+    for _, b0, y0, sl in packed_items(plan, h):
+        # the item's halos: images b0.., rows y0 - 1 .. y0 + rows
+        box = xp[b0:b0 + images, y0:y0 + rows + 2].reshape(images * halo,
+                                                            width)
+        pre = box * sc + sh
+        act = np.where(inside[b0:b0 + images, y0:y0 + rows + 2].reshape(
+            images * halo, width), np.where(pre > 0, pre, slope * pre), 0)
+        ok = (im < images) & (b0 + im < b) & (y0 + py < h)
+        pos0 = np.where(ok, im * halo + py * pitch + px, 0)
+        acc = np.zeros((fc.PACKED_ROWS, bn), np.float32)
+        n0 = sl * bn
+        for tap in range(9):
+            a = act[pos0 + (tap // 3) * pitch + tap % 3]
+            acc += a @ wk[tap, :, n0:n0 + bn]
+        keep = min(bn, cout - n0)
+        y[b0 + im[ok], y0 + py[ok], px[ok], n0:n0 + keep] = acc[ok, :keep]
+    return torch.from_numpy(y).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("slope", [0.01, 0.0])
+@pytest.mark.parametrize("shape", [(3, 64, 4, 4, 32), (9, 72, 4, 4, 40),
+                                   (2, 24, 2, 2, 16), (1, 40, 5, 9, 24),
+                                   (3, 16, 7, 5, 12), (1, 24, 16, 13, 8)])
+def test_packed_walk_matches_the_plain_version(shape, slope):
+    """The numpy model of the packed kernel's walk and arithmetic against
+    fused_bn_act_conv_plain within TOL_CONV: 4x4 maps packed 8 to an item
+    with images past B, Cin not a multiple of the 64-channel chunk, 2x2,
+    5x9 and 7x5 maps, Cout of 12, bands of a 16x13 map, each with a slice
+    that runs past Cout. A shift that is not 0 makes padding before the
+    activation show."""
+    b, cin, h, w, cout = shape
+    rng = np.random.default_rng(cin + h + w)
+    x = torch.from_numpy(rng.normal(size=(b, cin, h, w)).astype(np.float32))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, cin).astype(np.float32))
+    shift = torch.from_numpy(rng.normal(size=cin).astype(np.float32) * 0.5)
+    weight = torch.from_numpy(
+        (rng.normal(size=(cout, cin, 3, 3)) * (2 / (9 * cin)) ** 0.5)
+        .astype(np.float32))
+    plan = fc.packed_plan(b, h, w, cin, cout)
+    got = packed_kernel_model(x, scale, shift, weight, slope, plan)
+    want = fc.fused_bn_act_conv_plain(x, scale, shift, weight, slope=slope)
+    tol = CHIP.TOL_CONV
+    assert torch.allclose(got, want, rtol=tol, atol=tol), \
+        float((got - want).abs().max())
 
 
 @pytest.mark.parametrize("cin, layout", [(32, "channels_last"),
@@ -227,7 +422,7 @@ def test_kernel_study_f32_sweep_uses_the_current_plans(net):
         assert [(p["bn"], p["runs"]) for p in plans] == list(fc.F32_TILES)
 
 
-@pytest.mark.parametrize("shape", CONV_SHAPES[:4])
+@pytest.mark.parametrize("shape", CONV_SHAPES[:4] + PACKED_SHAPES[:2])
 def test_kernel_study_sweeps_use_the_current_plans(shape):
     """The study's plan sweep holds the built plan among plans that fit,
     and its scaled reduction plans still cover every row block once."""
