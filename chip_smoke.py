@@ -17,7 +17,8 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    one-call library yardstick where there is one); the fused conv also
    held at ``CONV_CHECK_SHAPES`` in f32 and bf16, each bf16 call counted
    on ``launches_bf16_packed`` exactly where its plan takes the packed
-   work item (``conv_plan``). The sampler
+   work item (``conv_plan``), and on ``launches_bf16_banded`` exactly where
+   that item cuts an image into bands of rows. The sampler
    (``csrc/fused_sample.cu``) is held to its plain version exactly where
    the draw cannot matter (a vanishing sigma, a decisive logit), by
    moments, in standard errors, against an independent draw, and draw for
@@ -106,10 +107,13 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    encoder once (13 fused, 7 standalone of which 3 identity; 58 fused, 62
    standalone). Every kernel against its plain version at every distinct
    shape they give it at batch 768, with ReLU (slope 0) and the identity
-   site (slope 1): the four ``bn_leaky`` kernels, ``bn_act`` in bf16 and
+   site (slope 1), and so at every distinct shape of wideresnet-28-10
+   (phase 19's encoder: 160 to 640 channels, its LeakyReLU): the four
+   ``bn_leaky`` kernels, ``bn_act`` in bf16 and
    f32, the fused conv in bf16 and f32 (timed beside its bound and
-   ``F.conv2d``; 4x4 maps and Cin 512 included) and the train-mode fused
-   site's backward; the fused conv also held at DenseNet-BC's and
+   ``F.conv2d``; 4x4 maps and Cin 512 included; the tiled item at Cin
+   160, the packed one in row bands at 320 and K-streamed at 640) and the
+   train-mode fused site's backward; the fused conv also held at DenseNet-BC's and
    densenet161's narrow Cout (12 to 48), and in f32 at
    ``CONV_CHECK_SHAPES`` with ReLU and the identity. The bf16 SHOT-VAE
    step at 768 + 768 of preactresnet18, densenet121 and densenet121 with
@@ -250,6 +254,19 @@ Phases, each of which raises (exit code not 0, no result line) on failure:
    in-process run exactly its steps' and eval forwards'; the
    ``system_run_phase`` line with each part's seconds; under
    ``build/repro_*``, removed after.
+19. wideresnet-28-10, the SHOT-VAE paper's headline encoder (run after
+   phase 18): a seeded model at 768 + 768 in bf16 through ``ChunkRunner``
+   at ``--steps-per-call`` CHUNK_STEPS, its eager first chunk and its
+   capture with the first replay, each with every kernel's launches
+   counted and the bf16 conv's packed (14 of 22 fused sites a forward, 56
+   a step) and banded (7 a forward, 28 a step) launches asserted, the
+   graph's kernel nodes, finite metrics and peak memory; the eval step
+   with its launches; f32 ``classify`` of 768 images through
+   ``ShotVaeInference`` (the f32 conv at Cin 16 to 640), 16 of them
+   against the CPU; one SHOT step at 16 + 16 against the CPU in f32 and in
+   bf16, as phase 11 holds its encoders; the
+   ``wrn28_10_at_batch_768+768`` line with a replay's, the eval step's and
+   a ``classify``'s times.
 10. Print the ``kernels`` JSON line (each kernel's launches on every path,
    the M2, classifier, encoder, data-parallel, fused and chunked paths,
    in one process and over a group, the learning harnesses' arms and the
@@ -349,14 +366,18 @@ BN_TRAIN_SITES = lambda b: [  # noqa: E731
 # (tests/test_pallas.py:135-136), then ragged ones: H and W not multiples
 # of the kernel's 8x8 tile, B = 1, Cin a multiple of 8 but not of 16 (the
 # wrapper pads the weight's input channels), a last N slice of 8 channels;
-# then Cin past the 320 whose weight slice stays in shared memory, so the
-# weights stream through the stages: WRN-28-10's third group (640 -> 640
-# at 8x8) and a ragged one; then maps smaller than one tile (4x4, as in
-# PreActResNet's group 4, streamed at Cin 512, and DenseNet's block 4;
-# 2x2) and DenseNet-BC's narrow Cout (12, not a multiple of 8, stored
-# without the TMA; 24, 40, 48); then preactresnet18's deep stages at a
-# batch that leaves the packed work item's last images past B (4x4 maps
-# pack 8 images, 8x8 two a 128-pixel item)
+# then Cin padded to 256 or more, which the packed work item takes with K
+# streamed a (tap, 64-channel chunk) at a time: WRN-28-10's third group
+# (640 -> 640 at 8x8, two whole images an item) and a ragged one; then
+# maps smaller than one tile (4x4, as in PreActResNet's group 4, and
+# DenseNet's block 4; 2x2) and DenseNet-BC's narrow Cout (12, not a
+# multiple of 8, stored without the TMA; 24, 40, 48); then
+# preactresnet18's deep stages at a batch that leaves the packed work
+# item's last images past B (4x4 maps pack 8 images, 8x8 two a 128-pixel
+# item); then the packed item's row bands, where an image has more than
+# 128 pixels: WRN-28-10's second group (320 -> 320 at 16x16, bands of 8
+# rows) and a ragged map (13x11, bands of 11 rows of 13); and WRN-28-10's
+# third group at a batch whose last item is half empty
 CONV_CHECK_SHAPES = [(8, 128, 8, 8, 128), (4, 64, 16, 16, 64),
                      (2, 32, 32, 32, 32), (6, 128, 8, 8, 64),
                      (1, 24, 13, 11, 32), (1, 8, 9, 17, 16),
@@ -366,7 +387,8 @@ CONV_CHECK_SHAPES = [(8, 128, 8, 8, 128), (4, 64, 16, 16, 64),
                      (2, 48, 8, 8, 12), (2, 96, 16, 8, 24),
                      (1, 160, 4, 4, 40), (1, 192, 2, 2, 48),
                      (1, 48, 5, 3, 12), (9, 512, 4, 4, 512),
-                     (3, 256, 8, 8, 256)]
+                     (3, 256, 8, 8, 256), (2, 320, 16, 16, 320),
+                     (1, 256, 13, 11, 64), (3, 640, 8, 8, 640)]
 # kernel launches per train step at WRN-28-2, from the sites above: the
 # fused conv kernel at the 22 fused sites of each of 4 forwards (its
 # backward is cuDNN plus the bn_leaky kernels); statistics and apply at all
@@ -650,14 +672,16 @@ def conv_phase(dev, batch: int, dtype=None, cases=None, slope: float = 0.01,
     WRN-28-2's, and ``check_shapes`` the shapes held but not timed. An
     f32 row carries the kernel's launch plan (``bn``, ``runs``, ``grid``).
     Each bf16 call on the card is counted on ``launches_bf16_packed``
-    exactly where its plan takes the packed work item."""
+    exactly where its plan takes the packed work item, and on
+    ``launches_bf16_banded`` exactly where that item is a band of rows."""
     import torch
     import torch.nn.functional as F
 
     from shotvae_torch.ops.kernels.fused_conv import (conv_f32_plan,
                                                       conv_plan,
                                                       fused_bn_act_conv,
-                                                      fused_bn_act_conv_plain)
+                                                      fused_bn_act_conv_plain,
+                                                      launch_counters)
 
     dtype = dtype or torch.float32
     size, peak = ((2, BF16_FLOPS) if dtype == torch.bfloat16
@@ -678,16 +702,19 @@ def conv_phase(dev, batch: int, dtype=None, cases=None, slope: float = 0.01,
         shift = torch.randn((cin,), generator=gen, device=dev) * 0.5  # != 0
         wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev)
               * (2.0 / (9 * cin)) ** 0.5).to(dtype).contiguous(**cl)
-        packed = fused_bn_act_conv.launches_bf16_packed
+        extra = ("launches_bf16_packed", "launches_bf16_banded")
+        before = {k: getattr(fused_bn_act_conv, k) for k in extra}
         got = fused_bn_act_conv(x, scale, shift, wt, slope=slope)
         check(got.dtype == dtype, f"fused conv gave {got.dtype} for {dtype}")
-        # the packed work item where the plan takes it, and only there
-        want = int(dev.type == "cuda" and dtype == torch.bfloat16
-                   and conv_plan(bb, h, w, cin, cout, _sms(dev))["packed"])
-        check(fused_bn_act_conv.launches_bf16_packed - packed == want,
-              f"fused conv at {(bb, cin, h, w, cout)} {dtype} counted "
-              f"{fused_bn_act_conv.launches_bf16_packed - packed} packed "
-              f"launches, expected {want}")
+        # the packed work item where the plan takes it, and only there;
+        # its bands where the plan cuts an image into bands of rows
+        moved = (launch_counters(conv_plan(bb, h, w, cin, cout, _sms(dev)), h)
+                 if dev.type == "cuda" and dtype == torch.bfloat16 else ())
+        for k in extra:
+            got_n = getattr(fused_bn_act_conv, k) - before[k]
+            check(got_n == int(k in moved),
+                  f"fused conv at {(bb, cin, h, w, cout)} {dtype} counted "
+                  f"{got_n} on {k}, expected {int(k in moved)}")
         pre = x.float() * scale[:, None, None] + shift[:, None, None]
         act = torch.where(pre > 0, pre, slope * pre).to(dtype)
         e = max_err(got, F.conv2d(act.float(), wt.float(), padding=1),
@@ -1582,7 +1609,7 @@ def train_phase(dev, batch: int, steps: int = TRAIN_STEPS, dtype=None,
         torch.cuda.reset_peak_memory_stats(dev)
     zero_counts(counters)
     conv = counters["fused_bn_act_conv"]
-    packed = conv.launches_bf16_packed
+    packed, banded = conv.launches_bf16_packed, conv.launches_bf16_banded
     metrics = [run() for _ in range(steps)]
     _sync(dev)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
@@ -1591,10 +1618,12 @@ def train_phase(dev, batch: int, steps: int = TRAIN_STEPS, dtype=None,
                           for name, n in expected_train.items()},
         f"{kind} train steps")
     packed = conv.launches_bf16_packed - packed
+    banded = conv.launches_bf16_banded - banded
     want = packed_conv_launches(net, batch, launches["fused_bn_act_conv"],
-                                _sms(dev)) if cuda and bf16 else 0
-    check(packed == want, f"{kind} train steps of {net['net']} took the "
-          f"bf16 conv's packed work item {packed} times, expected {want}")
+                                _sms(dev)) if cuda and bf16 else (0, 0)
+    check((packed, banded) == want, f"{kind} train steps of {net['net']} "
+          f"took the bf16 conv's packed work item {packed} times, in bands "
+          f"{banded} times, expected {want}")
     for m in metrics:
         check(all(bool(torch.isfinite(v)) for v in m.values()),
               f"non-finite {kind} train metrics {m}")
@@ -1634,7 +1663,7 @@ def train_phase(dev, batch: int, steps: int = TRAIN_STEPS, dtype=None,
     n = min(COMPARE_BATCH, batch)
     timing["peak_memory_gb"] = peak_gb
     out = dict(launches=launches, packed_conv_launches=packed,
-               eval_launches=eval_launches,
+               banded_conv_launches=banded, eval_launches=eval_launches,
                last_metrics=last, timing=timing, profile=profile,
                profile_bare_step_cudnn_tf32=profile_tf32)
     if not vs_cpu:
@@ -1969,6 +1998,15 @@ def baseline_loop_phase(dev, base: str, kind: str, config: dict, steps: int,
 PREACT = dict(net="preactresnet18", dataset="Cifar100", efficient=False)
 DENSE = dict(net="densenet121", dataset="Cifar100", efficient=False)
 DENSE_EFF = dict(DENSE, efficient=True)
+# wideresnet-28-10, the SHOT-VAE paper's headline encoder (widths 160, 320
+# and 640) on CIFAR-10's shape: WRN-28-2's 22 fused and 6 standalone BN
+# sites a forward, so its launches a step, an eval forward and a
+# ``classify``; of the 22 fused convs (launches a forward) the 7 at 320 ->
+# 320 on 16x16 maps and the 7 at 640 -> 640 on 8x8 take the packed work
+# item, the 7 at 320 in bands of 8 rows; the 8 at 32x32 (16 -> 160 and
+# 160 -> 160) take the tiled item
+WRN10 = dict(net="wideresnet-28-10", dataset="Cifar10", efficient=False)
+WRN10_PACKED = {"launches_bf16_packed": 14, "launches_bf16_banded": 7}
 ENCODER_PATHS = {"preactresnet18": PREACT, "densenet121": DENSE,
                  "densenet121_efficient": DENSE_EFF}
 
@@ -2030,7 +2068,8 @@ GRAD_EQ_ULPS = 1.0  # efficient against plain: gradients within one bf16 ulp
 def encoder_sites(net: dict) -> dict:
     """The BN sites of one forward of ``net``'s encoder (batch 1, eval
     mode, on the CPU), in order and with repeats: 'fused' (Cin, H, W, Cout,
-    in a dense block) and 'alone' (C, H, W, slope, in a dense block)."""
+    in a dense block, slope) and 'alone' (C, H, W, slope, in a dense
+    block)."""
     import torch
 
     from shotvae_torch.models.layers import BatchNorm
@@ -2049,7 +2088,7 @@ def encoder_sites(net: dict) -> dict:
     def fused(self, x, conv):
         sites["fused"].append((x.shape[1], x.shape[2], x.shape[3],
                                conv.weight.shape[0],
-                               "denseblock" in names[id(self)]))
+                               "denseblock" in names[id(self)], self.slope))
         return act_conv(self, x, conv)
 
     BatchNorm.forward, BatchNorm.act_conv = alone, fused
@@ -2063,20 +2102,23 @@ def encoder_sites(net: dict) -> dict:
 
 
 def packed_conv_launches(net: dict, batch: int, fused: int,
-                         num_sms: int) -> int:
+                         num_sms: int) -> tuple:
     """Of ``fused`` launches of the bf16 fused conv over whole forwards of
-    ``net``'s encoder at ``batch``, those whose plan takes the packed work
-    item: their share of the encoder's fused sites (preactresnet18's 256-
-    and 512-channel layers, densenet121's 4x4 block; none of
-    WRN-28-2's)."""
-    from shotvae_torch.ops.kernels.fused_conv import conv_plan
+    ``net``'s encoder at ``batch``, (those whose plan takes the packed work
+    item, those of them in bands of rows): their shares of the encoder's
+    fused sites (preactresnet18's 256- and 512-channel layers,
+    densenet121's 4x4 block, wideresnet-28-10's 320- and 640-channel
+    layers, the 320 in bands; none of WRN-28-2's)."""
+    from shotvae_torch.ops.kernels.fused_conv import (conv_plan,
+                                                      launch_counters)
 
     sites = encoder_sites(net)["fused"]
-    packed = sum(conv_plan(batch, h, w, c, o, num_sms)["packed"]
-                 for c, h, w, o, _ in sites)
-    check(fused * packed % len(sites) == 0, f"{fused} fused conv launches "
-          f"are not whole forwards of {net['net']}'s {len(sites)} sites")
-    return fused * packed // len(sites)
+    moved = [launch_counters(conv_plan(batch, h, w, c, o, num_sms), h)
+             for c, h, w, o, *_ in sites]
+    check(fused % len(sites) == 0, f"{fused} fused conv launches are not "
+          f"whole forwards of {net['net']}'s {len(sites)} sites")
+    return tuple(fused // len(sites) * sum(k in m for m in moved)
+                 for k in ("launches_bf16_packed", "launches_bf16_banded"))
 
 
 def _tally(items) -> dict:
@@ -2088,24 +2130,30 @@ def _tally(items) -> dict:
 
 def encoder_kernel_phase(dev, batch: int) -> dict:
     """Every kernel against its plain version at every distinct shape the
-    two encoders give it at ``batch`` (the ReLU and identity sites):
-    the bf16 bn_leaky kernels (train), bn_act in bf16 (eval step) and f32
-    (serving), the fused conv forward in bf16 and f32 with ReLU, timed
-    beside its bound and F.conv2d, and held at DENSE_BC_CONV_SHAPES, and
-    the bf16 train-mode fused site forward and backward. Rows carry their
-    launches per forward (bn_act, conv) or per SHOT train step
-    (bn_leaky, the fused site)."""
+    encoders give it at ``batch`` (preactresnet18's and densenet121's ReLU
+    and identity sites, wideresnet-28-10's LeakyReLU sites at 160 to 640
+    channels): the bf16 bn_leaky kernels (train), bn_act in bf16 (eval
+    step) and f32 (serving), the fused conv forward in bf16 and f32 with
+    the encoder's activation, timed beside its bound and F.conv2d, and
+    held at DENSE_BC_CONV_SHAPES, and the bf16 train-mode fused site
+    forward and backward. Rows carry their launches per forward (bn_act,
+    conv) or per SHOT train step (bn_leaky, the fused site)."""
     import torch
 
     bf16 = torch.bfloat16
     sites = {name: encoder_sites(net) for name, net in
-             (("preactresnet18", PREACT), ("densenet121", DENSE))}
+             (("preactresnet18", PREACT), ("densenet121", DENSE),
+              ("wideresnet-28-10", WRN10))}
     out = {}
     for name, st in sites.items():
-        bn = _tally((c, h * w, slope) for c, h, w, slope, _ in st["alone"])
-        for c, h, w, _, _ in st["fused"]:
-            bn[(c, h * w, 0.0)] = bn.get((c, h * w, 0.0), 0) + 1
-        conv = _tally((c, h, w, o) for c, h, w, o, _ in st["fused"])
+        slopes = {x[5] for x in st["fused"]}
+        check(len(slopes) == 1, f"{name}'s fused sites have the slopes "
+              f"{slopes}, expected one")
+        slope = slopes.pop()
+        bn = _tally((c, h * w, a) for c, h, w, a, _ in st["alone"])
+        for c, h, w, *_ in st["fused"]:
+            bn[(c, h * w, slope)] = bn.get((c, h * w, slope), 0) + 1
+        conv = _tally((c, h, w, o) for c, h, w, o, *_ in st["fused"])
         alone = _tally((c, h * w, slope) for c, h, w, slope, _ in st["alone"])
         bn_sites = [(batch * hw, c, slope, n, 4 * n)
                     for (c, hw, slope), n in sorted(bn.items())]
@@ -2125,11 +2173,11 @@ def encoder_kernel_phase(dev, batch: int) -> dict:
         res["bn_act_inference_f32"] = bn_act_phase(dev, batch, None,
                                                    act_cases)
         res["fused_bn_act_conv"] = conv_phase(dev, batch, bf16, conv_cases,
-                                              0.0, [])
+                                              slope, [])
         res["fused_bn_act_conv_f32"] = conv_phase(dev, batch, None,
-                                                  conv_cases, 0.0, [])
+                                                  conv_cases, slope, [])
         res["fused_bn_act_conv_train"] = conv_bwd_phase(dev, batch, bf16,
-                                                        conv_cases, 0.0)
+                                                        conv_cases, slope)
         out[name] = res
     out["dense_bc_conv"] = [conv_phase(dev, 1, dtype, [(1, 48, 8, 8, 12, 0)],
                                        0.0, DENSE_BC_CONV_SHAPES)[1]
@@ -2226,9 +2274,9 @@ def encoder_train_phase(dev, batch: int, steps: int = TRAIN_STEPS) -> dict:
                                       "shot", net,
                                       EXPECTED_ENCODER_LAUNCHES[name],
                                       vs_cpu=not net["efficient"])
-        for key in ("launches", "packed_conv_launches", "eval_launches",
-                    "last_metrics", "timing", "profile", "vs_cpu",
-                    "vs_cpu_bf16"):
+        for key in ("launches", "packed_conv_launches", "banded_conv_launches",
+                    "eval_launches", "last_metrics", "timing", "profile",
+                    "vs_cpu", "vs_cpu_bf16"):
             if key in res:
                 print(f"{name}_shot_bf16_{key}_at_batch_{batch} "
                       + json.dumps(res[key]))
@@ -4483,6 +4531,149 @@ def system_run_paths(system: dict) -> dict:
     return {"system_run_bf16": system["launches"]}
 
 
+# ---------------------------------------------------------------- phase 19
+
+def wrn28_10_phase(dev, batch: int, n: int = CHUNK_STEPS,
+                   net: dict = WRN10) -> dict:
+    """Phase 19: a seeded wideresnet-28-10 SHOT-VAE at ``batch`` +
+    ``batch`` in bf16 through ``ChunkRunner`` as ``--steps-per-call n``
+    runs it: the eager first chunk of ``n`` steps and the capture with its
+    first replay, each with every kernel's launches (WRN-28-2's a step)
+    and the bf16 conv's packed and banded launches (``WRN10_PACKED`` a
+    forward, 4 forwards a step) counted, finite metrics and the peak
+    memory; the eval step with its launches; then ``classify`` of
+    ``batch`` images in f32 through ``ShotVaeInference`` (the f32 conv at
+    Cin 16 to 640, no bf16 launch), 16 of them against the same model on
+    the CPU within TOL_E2E; times of a replay, the eval step and a
+    ``classify``; last one SHOT step at 16 + 16 against the CPU in f32
+    (``vs_cpu``) and in bf16 (``vs_cpu_bf16``), as ``train_phase`` holds
+    the other encoders. ``net``: a narrower WideResNet where no counter
+    moves (the CPU)."""
+    import numpy as np
+    import torch
+
+    from shotvae_torch.api import ShotVaeInference
+    from shotvae_torch.train.steps import make_vae_eval_step
+
+    counters = kernel_counters()
+    conv = counters["fused_bn_act_conv"]
+    cuda = dev.type == "cuda"
+    extra = tuple(WRN10_PACKED)
+
+    def extras() -> dict:
+        return {k: getattr(conv, k) for k in extra}
+
+    def counted(before: dict, forwards: int, what: str) -> dict:
+        got = {k: getattr(conv, k) - before[k] for k in extra}
+        want = {k: forwards * v if cuda else 0
+                for k, v in WRN10_PACKED.items()}
+        check(got == want, f"{what} of {net['net']} moved the bf16 "
+              f"conv's work item counters by {got}, expected {want}")
+        return got
+
+    pool, row = _chunk_pool(dev, batch, "shot")
+    gen = lambda i: torch.Generator().manual_seed(SEED + 50 + i)  # noqa
+    state, step, sched = trainer(random_model(dev.type, torch.bfloat16,
+                                              net=net))
+    runner = measured_runner()(_chunk_stepper("shot", step, pool, batch),
+                               dev, steps=n, width=2 * batch)
+    runner.set_sched(sched)
+
+    def chunk(c0: int):
+        return runner.run(state, np.stack([row(i) for i in
+                                           range(c0, c0 + n)]),
+                          [(gen(i), None) for i in range(c0, c0 + n)])
+
+    out, peaks, metrics = {"net": net["net"], "steps_per_call": n}, {}, []
+    for tag, c0 in (("eager_chunk", 0), ("capture_and_replay", n)):
+        zero_counts(counters)
+        before = extras()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        metrics.append(chunk(c0))
+        _sync(dev)
+        out[f"{tag}_s"] = time.perf_counter() - t0
+        peaks[tag] = (torch.cuda.max_memory_allocated(dev) / 1e9 if cuda
+                      else None)
+        out[f"{tag}_launches"] = check_counts(
+            counters, torch.bfloat16,
+            {k: c * n if cuda else 0
+             for k, c in EXPECTED_TRAIN_LAUNCHES.items()},
+            f"the {tag} of wideresnet-28-10")
+        out[f"{tag}_work_items"] = counted(before, 4 * n, f"the {tag}")
+    if cuda:
+        out["graph_kernel_nodes"] = graph_launches(runner, counters,
+                                                   net["net"])
+        out["replay_ms"] = host_ms(dev, lambda: chunk(2 * n))
+    metrics = torch.cat(metrics)
+    check(bool(torch.isfinite(metrics).all()),
+          "non-finite wideresnet-28-10 train metrics")
+    out["last_metrics"] = dict(zip(runner.keys, metrics[-1].tolist()))
+
+    evaluate = make_vae_eval_step(state.model, num_classes=10, bce=True,
+                                  x_sigma=1.0)
+    img, lab = pool.gather(torch.from_numpy(row(0)[:batch]).to(dev))
+    weight = torch.ones(batch, device=dev)
+    eval_run = lambda: evaluate(  # noqa: E731
+        img, lab, weight, generator=torch.Generator().manual_seed(SEED))
+    zero_counts(counters)
+    before = extras()
+    sums, _ = eval_run()
+    _sync(dev)
+    out["eval_launches"] = check_counts(
+        counters, torch.bfloat16,
+        {k: c if cuda else 0 for k, c in EXPECTED_EVAL_LAUNCHES.items()},
+        "the eval step of wideresnet-28-10")
+    out["eval_work_items"] = counted(before, 1, "the eval step")
+    check(float(sums["count"]) == batch and all(
+        bool(torch.isfinite(v)) for v in sums.values()),
+        "the wideresnet-28-10 eval step gave a wrong count or a non-finite "
+        "sum")
+    out["eval_step_ms"] = host_ms(dev, eval_run)
+    peaks["eval_with_graph_held"] = (torch.cuda.max_memory_allocated(dev)
+                                     / 1e9 if cuda else None)
+    del runner, state, step, evaluate, sums, img, lab, pool
+    if cuda:
+        torch.cuda.empty_cache()
+
+    cpu_model = random_model("cpu", None, net)
+    gpu = ShotVaeInference(copy.deepcopy(cpu_model), device=dev)
+    cpu = ShotVaeInference(cpu_model, device="cpu")
+    images = torch.randint(0, 256, (batch, 32, 32, 3),
+                           generator=torch.Generator().manual_seed(SEED + 4),
+                           dtype=torch.uint8)
+    zero_counts(counters)
+    before = extras()
+    probs = gpu.classify(images)
+    _sync(dev)
+    serving = ("fused_bn_act_conv", "bn_act_inference", "fused_joint_sample")
+    got = tuple(read_counts(counters, torch.float32)[k] for k in serving)
+    want = tuple(c if cuda else 0 for c in EXPECTED_LAUNCHES["classify"])
+    check(got == want and set(read_counts(counters, torch.bfloat16).values())
+          == {0}, f"wideresnet-28-10 classify launched (conv, bn_act, "
+          f"sample) = {got}, expected {want}")
+    counted(before, 0, "classify")
+    check(probs.shape == (batch, 10) and bool(torch.isfinite(probs).all())
+          and float((probs.sum(1) - 1).abs().max()) < 1e-5,
+          "wideresnet-28-10 classify gave a wrong shape or value")
+    k = min(16, batch)
+    out["classify_launches"] = dict(zip(serving, got))
+    out["classify_vs_cpu_max_abs_err"] = max_err(
+        probs[:k].cpu(), cpu.classify(images[:k]), TOL_E2E,
+        what="wideresnet-28-10 classify")
+    out["classify_ms"] = host_ms(dev, lambda: gpu.classify(images))
+    out["peak_memory_gb"] = peaks
+    del gpu, cpu, cpu_model
+    if cuda:
+        torch.cuda.empty_cache()
+    out["vs_cpu"] = dict(zip(VS_CPU_KEYS,
+                             compare_train_step(dev, k, "shot", net)))
+    out["vs_cpu_bf16"] = compare_train_step_bf16(
+        dev, k, "shot", BF16_CALIBRATION_DRAWS, net)
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -4585,7 +4776,8 @@ def encoder_phases(dev, batch: int, steps: int = TRAIN_STEPS,
     t0 = time.perf_counter()
     with exact_f32():  # the kernels and bare steps; serving pins its own
         out["kernels"] = encoder_kernel_phase(dev, batch)
-    for name in ("preactresnet18", "densenet121"):
+    names = ("preactresnet18", "densenet121", "wideresnet-28-10")
+    for name in names:
         res = out["kernels"][name]
         print(f"{name}_sites " + json.dumps(res["sites"]))
         for part in ("bn_leaky_train", "bn_act_inference",
@@ -4596,7 +4788,7 @@ def encoder_phases(dev, batch: int, steps: int = TRAIN_STEPS,
                                         else ((part, rows),)):
                 for row in kernel_rows:
                     print(f"{name} {kernel} {json.dumps(row)}")
-    for name in ("preactresnet18", "densenet121"):
+    for name in names:
         print(f"{name}_kernel_ms_weighted "
               + json.dumps(weighted_rows(out["kernels"][name])))
     print("dense_bc_conv_max_abs_err_bf16_f32 "
@@ -4803,8 +4995,8 @@ def main() -> int:
     print(f"train phase {time.perf_counter() - t0:.1f} s")
     with exact_f32():
         bf16 = bf16_phases(dev, BATCH)
-    for key in ("launches", "packed_conv_launches", "eval_launches",
-                "last_metrics", "timing", "profile"):
+    for key in ("launches", "packed_conv_launches", "banded_conv_launches",
+                "eval_launches", "last_metrics", "timing", "profile"):
         print(f"train_bf16_{key}_at_batch_{BATCH}+{BATCH} "
               + json.dumps(bf16["train"][key]))
     print(f"train_bf16_step_vs_cpu_at_{COMPARE_BATCH}+{COMPARE_BATCH} "
@@ -4898,6 +5090,12 @@ def main() -> int:
          "phase1": system["report"]["phase1"],
          "phase2": system["report"]["phase2"], "card": smi}))
     print(f"system run phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with exact_f32():  # phase 19; classify pins its own
+        wrn10 = wrn28_10_phase(dev, BATCH)
+    print(f"wrn28_10_at_batch_{BATCH}+{BATCH} "
+          + json.dumps(dict(wrn10, card=smi)))
+    print(f"wrn28_10 phase {time.perf_counter() - t0:.1f} s")
     conv_train = sum(r["launches"] for r in conv_bwd_rows)
     check(conv_train * TRAIN_STEPS == train["launches"]["fused_bn_act_conv"],
           f"the fused conv backward rows weigh {conv_train} launches per "

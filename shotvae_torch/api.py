@@ -112,10 +112,16 @@ class ShotVaeInference:
     @torch.inference_mode()
     def reconstruct(self, images_u8,
                     generator: Optional[torch.Generator] = None):
-        """(B, H, W, C) uint8 -> (B, H, W, C) sigmoid reconstruction."""
-        recon, _, _, _ = self.model(self._images(images_u8),
-                                    generator=_default_generator(generator))
-        return torch.sigmoid(recon).permute(0, 2, 3, 1)
+        """(B, H, W, C) uint8 -> (B, H, W, C) sigmoid reconstruction. A
+        profiler sees the call as a ``serve.reconstruct`` span around
+        ``serve.copy_in`` and ``serve.forward`` (the encoder, the draw, the
+        decoder and the sigmoid)."""
+        with span("serve.reconstruct", images=len(images_u8)):
+            x = self._images(images_u8)
+            with span("serve.forward", images=len(x)):
+                recon, _, _, _ = self.model(
+                    x, generator=_default_generator(generator))
+                return torch.sigmoid(recon).permute(0, 2, 3, 1)
 
     @exact_f32()
     @torch.inference_mode()

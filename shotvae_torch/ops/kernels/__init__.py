@@ -2,7 +2,8 @@
 launch counter per data type (``<wrapper>.launches`` for float32,
 ``<wrapper>.launches_bf16`` for bfloat16), and, where a kernel has more
 than one work item, a counter of the launches that took one of them (its
-``extra`` counters, e.g. ``fused_bn_act_conv.launches_bf16_packed``).
+``extra`` counters, e.g. ``fused_bn_act_conv.launches_bf16_packed`` and,
+of those, ``fused_bn_act_conv.launches_bf16_banded``).
 
 A wrapper counts in Python as it launches, so a CUDA graph's replay moves
 no counter by itself: ``held_counts`` takes a capture's counts back out
@@ -22,16 +23,15 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def count_launch(wrapper, dtype: torch.dtype,
-                 extra: str | None = None) -> None:
+def count_launch(wrapper, dtype: torch.dtype, *extra: str) -> None:
     """Count one launch of ``wrapper``'s kernel for ``dtype`` data, and on
-    its ``extra`` counter where given."""
+    each of its ``extra`` counters given."""
     if dtype == torch.bfloat16:
         wrapper.launches_bf16 += 1
     else:
         wrapper.launches += 1
-    if extra is not None:
-        setattr(wrapper, extra, getattr(wrapper, extra) + 1)
+    for name in extra:
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 _COUNTED: list = []  # every wrapper with launch counters

@@ -16,7 +16,9 @@ dtype, each counted on its own counter:
   items: pairs of 8x8 tiles by a resident weight slice, and, where those
   waste work (maps below 8x8, Cin of 256 and more), 128 pixels of packed
   whole images by a 128-channel slice with K streamed (also counted on
-  ``fused_bn_act_conv.launches_bf16_packed``). As the TPU kernel does in
+  ``fused_bn_act_conv.launches_bf16_packed``, and, where an image has more
+  than 128 pixels and an item is a band of its rows, on
+  ``fused_bn_act_conv.launches_bf16_banded``). As the TPU kernel does in
   bf16, the activation is computed in f32 and rounded to bf16 before the
   product (fused_conv.py:115), the weight is cast to bf16 (:167), the
   sums are f32 and y is bf16.
@@ -333,6 +335,19 @@ def conv_f32_plan(b: int, h: int, w: int, cout: int,
     return plan
 
 
+def launch_counters(plan: dict, h: int) -> tuple:
+    """The extra counters of ``fused_bn_act_conv`` that one launch under
+    the bf16 ``plan`` for maps of height ``h`` moves:
+    ``launches_bf16_packed`` for the packed work item, and
+    ``launches_bf16_banded`` too where its items are bands of rows of one
+    image (``rows`` below ``h``)."""
+    if not plan["packed"]:
+        return ()
+    if plan["rows"] < h:
+        return ("launches_bf16_packed", "launches_bf16_banded")
+    return ("launches_bf16_packed",)
+
+
 def _lib(dtype, packed: bool = False):
     source, entry, _, _, plan_args = _PACKED if packed else _KERNELS[dtype]
     fn = getattr(_build.load(source), entry)
@@ -405,7 +420,7 @@ def _fused_conv_forward(x, scale, shift, weight, slope: float):
         raise RuntimeError(f"fused_conv kernel launch failed: "
                            f"{_PLAN_ERRORS.get(err, f'CUDA error {err}')}")
     count_launch(fused_bn_act_conv, x.dtype,
-                 "launches_bf16_packed" if packed else None)
+                 *(launch_counters(plan, h) if packed else ()))
     return y
 
 
@@ -453,7 +468,8 @@ def fused_bn_act_conv(x, scale, shift, weight, *, slope: float = LEAKY_SLOPE):
     return _FusedBnActConv.apply(x, scale, shift, weight.to(x.dtype), slope)
 
 
-init_counts(fused_bn_act_conv, extra=("launches_bf16_packed",))
+init_counts(fused_bn_act_conv, extra=("launches_bf16_packed",
+                                      "launches_bf16_banded"))
 
 
 class _FusedBnActConvTrain(torch.autograd.Function):

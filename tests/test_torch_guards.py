@@ -791,16 +791,7 @@ def test_chip_smoke_baseline_loop_fails_a_wrong_launch_count(monkeypatch,
                                        *_BASELINE_LOOPS["m2"])
 
 
-# phase 11 at batch 2 on the CPU; its M2 epoch at a tiny size: 2 steps of
-# 16 + 16 unlabeled CIFAR-100-shaped images, then 6 valid batches (the 92
-# classes the 232 images hold), 16 test batches and the grid
-_ENCODER_LOOP_CPU = dict(dataset="Cifar100", batch_size=16,
-                         net_name="preactresnet18", ldc=8,
-                         synthetic_data=True, synthetic_size=232,
-                         valid_per_class=1, annotated_per_class=1, yes=True,
-                         reconstruct_freq=1, print_freq=100, br=True)
-
-
+# phases 11 (tests/test_torch_guards_encoders.py) and 12 at a tiny size
 def _encoder_chip_smoke(monkeypatch):
     """chip_smoke.py with its timers cut to one call (on the CPU they time
     nothing of the card) and the bf16 check calibrated on one draw (the
@@ -814,95 +805,6 @@ def _encoder_chip_smoke(monkeypatch):
     monkeypatch.setattr(chip_smoke, "step_times", once)
     monkeypatch.setattr(chip_smoke, "host_ms", lambda dev, fn: (fn(), 0.0)[1])
     return chip_smoke
-
-
-@pytest.mark.parametrize("part", ["kernels", "train", "m2", "serve"])
-def test_chip_smoke_encoder_phase_runs_on_cpu(part, monkeypatch, tmp_path):
-    """chip_smoke.py's phase 11 at batch 2 on the CPU, bf16 as on the card:
-    the sites the kernel rows weigh (preactresnet18: 13 fused, 7
-    standalone of which 3 identity; densenet121: 58 fused and 62
-    standalone, all but 4 in dense blocks), every plain version against
-    itself, no launch counted, the card-against-CPU steps exact when both
-    sides are the CPU, the efficient step equal to the plain one, the M2
-    epoch over preactresnet18 writing only its own run folder, and f32
-    serving."""
-    chip_smoke = _encoder_chip_smoke(monkeypatch)
-    dev = torch.device("cpu")
-    if part == "kernels":
-        out = chip_smoke.encoder_kernel_phase(dev, 2)
-        assert out["preactresnet18"]["sites"] == {
-            "fused": 13, "alone": 7, "identity": 3, "dense_block_fused": 0,
-            "dense_block_alone": 0}
-        assert out["densenet121"]["sites"] == {
-            "fused": 58, "alone": 62, "identity": 0,
-            "dense_block_fused": 58, "dense_block_alone": 58}
-        for name in ("preactresnet18", "densenet121"):
-            res = out[name]
-            assert set(res["bn_leaky_train"][1].values()) == {0.0}
-            for part_ in ("bn_act_inference", "bn_act_inference_f32",
-                          "fused_bn_act_conv_f32"):
-                assert res[part_][1] == 0.0
-            conv_rows = res["fused_bn_act_conv"][0]
-            assert sum(r["launches"] for r in conv_rows) == \
-                res["sites"]["fused"]
-        assert out["dense_bc_conv"][1] == 0.0
-        assert out["f32_conv_check"] == [0.0, 0.0]  # ReLU, identity
-    elif part == "train":
-        out = chip_smoke.encoder_train_phase(dev, 2, steps=1)
-        for name in chip_smoke.ENCODER_PATHS:
-            res = out[name]
-            assert set(res["launches"].values()) == {0}
-            assert all(np.isfinite(v) for v in res["last_metrics"].values())
-        for name in ("preactresnet18", "densenet121"):
-            vs_cpu = out[name]["vs_cpu"]
-            vs_cpu.pop("grad_one_ulp_spread_max")
-            vs_cpu.pop("grad_one_ulp_spread_median")
-            assert set(vs_cpu.values()) == {0.0}
-            assert out[name]["vs_cpu_bf16"]["worst_share_of_tol"] == 0.0
-        eff = out["efficient_vs_plain"]
-        assert eff["num_batches_tracked"] == [4]
-        assert eff["grad_max_abs_err"] == 0.0
-    elif part == "m2":
-        out = chip_smoke.encoder_m2_phase(dev, 2, str(tmp_path),
-                                          _ENCODER_LOOP_CPU, 2, 23, 1)
-        assert set(out["launches"].values()) == {0}
-        loop = out["loop"]
-        assert loop["train_steps"] == 2 and np.isfinite(loop["train_loss"])
-        assert os.listdir(tmp_path) == ["Cifar100-M2-VAE"]
-    else:
-        for name in chip_smoke.EXPECTED_ENCODER_SERVE:
-            out = chip_smoke.encoder_serve_phase(dev, 2, name)
-            assert set(out["launches"].values()) == {0}
-            assert set(out["vs_cpu_max_abs_err"].values()) == {0.0}
-
-
-def test_chip_smoke_encoder_conv_check_fails_a_wrong_slope(monkeypatch):
-    """Phase 11's fused conv rows hold the kernel with ReLU: a kernel that
-    applies LeakyReLU(0.01) where it is asked for slope 0 fails them."""
-    from shotvae_torch.ops.kernels import fused_conv
-
-    chip_smoke = _chip_smoke(monkeypatch)
-    forward = fused_conv._fused_conv_forward
-    monkeypatch.setattr(fused_conv, "_fused_conv_forward",
-                        lambda x, s, h, w, slope: forward(x, s, h, w,
-                                                          slope or 0.01))
-    with pytest.raises(RuntimeError, match="disagrees"):
-        chip_smoke.conv_phase(torch.device("cpu"), 2, torch.bfloat16,
-                              [(2, 64, 4, 4, 64, 1)], 0.0, [])
-
-
-def test_chip_smoke_efficient_check_fails_a_second_tracking(monkeypatch):
-    """The efficient-against-plain check fails a recompute that tracks the
-    running statistics again."""
-    from contextlib import nullcontext
-
-    from shotvae_torch.models import densenet
-
-    chip_smoke = _chip_smoke(monkeypatch)
-    monkeypatch.setattr(densenet, "_recompute_contexts",
-                        lambda: (nullcontext(), nullcontext()))
-    with pytest.raises(RuntimeError, match="running statistics"):
-        chip_smoke.efficient_vs_plain(torch.device("cpu"), 2)
 
 
 # ---------------------------------------------------------------- phase 12
@@ -1039,85 +941,6 @@ def test_chip_smoke_smooth_phase_fails_a_hand_kernel_launch(monkeypatch,
                         counted)
     with pytest.raises(RuntimeError, match="launched hand kernels"):
         _smooth_phase(chip_smoke, str(tmp_path), "mnist")
-
-
-# phase 13 at a tiny size over gloo: the full-width model at 4 + 4 (2 + 2
-# a rank), the loop of _LOOP_CPU (2 steps of 8 + 8 a rank, 27 eval forwards
-# on rank 0 and 26 on rank 1, which draws no grid)
-_DP_BATCH = 4
-
-
-def _dp_chip_smoke(monkeypatch):
-    """chip_smoke loaded as the spawned ranks import it (by name)."""
-    chip_smoke = _chip_smoke(monkeypatch)
-    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)
-    monkeypatch.setattr(chip_smoke, "DP_TIMEOUT_S", 300)
-    return chip_smoke
-
-
-def test_chip_smoke_dp_phase_runs_on_cpu(monkeypatch, tmp_path):
-    """chip_smoke.py's phase 13 on the CPU: the group path at world 1 over
-    gloo against today's step; two ranks over gloo against one process,
-    sync-BN in f32 and bf16 and per replica in bf16; the loop's epoch on
-    both ranks, restored from rank 0's checkpoint, written by rank 0
-    only. No launch is counted on the CPU."""
-    import torch.distributed as dist
-
-    chip_smoke = _dp_chip_smoke(monkeypatch)
-    dev = torch.device("cpu")
-    world1 = chip_smoke.dp_world1_phase(dev, _DP_BATCH)
-    assert not dist.is_initialized()
-    assert world1["backend"] == "gloo"
-    assert world1["vs_today"]["worst_share_of_tol"] <= 1.0
-    assert set(world1["launches"].values()) == {0}
-    out = chip_smoke.dp_two_rank_phase(dev, _DP_BATCH, str(tmp_path),
-                                       dict(_LOOP_CPU), (2, 27))
-    for r in range(2):
-        assert out[f"rank{r}_sync_f32_vs_one_process"][
-            "grad_max_share_of_tol"] <= 1.0
-        assert set(out[f"rank{r}_loop_launches"].values()) == {0}
-    assert out["loop"]["restored_bit_identical"]
-    assert out["loop"]["rank0_files"] > 0 and out["loop"]["rank1_files"] == 0
-
-
-def _planted_dgamma_rank(rank, world, folder):
-    """A rank whose bn_leaky backward returns dgamma summed over the ranks
-    (the global sum) where its own rows' sum belongs: the gradient mean
-    then scales it by the world size."""
-    import chip_smoke
-    from shotvae_torch.ops.kernels import bn_leaky
-
-    backward = bn_leaky._BnLeakyTrain.backward
-
-    def planted(ctx, *grads):
-        dx, dgamma, *rest = backward(ctx, *grads)
-        return (dx, dgamma * world, *rest)
-
-    bn_leaky._BnLeakyTrain.backward = staticmethod(planted)
-    chip_smoke.dp_rank(rank, world, folder)
-
-
-def _raising_rank(rank, world, folder):
-    if rank == 1:
-        raise RuntimeError("rank 1 of phase 13 fails")
-    import chip_smoke
-
-    chip_smoke.dp_rank(rank, world, folder)
-
-
-@pytest.mark.parametrize("rank_fn,match", [
-    (_planted_dgamma_rank, "disagree on the gradient of .*norm"),
-    (_raising_rank, "rank 1 of phase 13 fails")])
-def test_chip_smoke_dp_phase_fails_a_wrong_rank(rank_fn, match, monkeypatch,
-                                                 tmp_path):
-    """Phase 13 fails where a rank's BN weight gradient is the global sum
-    (scaled by the world size after the mean), and where a rank raises:
-    the other rank is stopped and the phase raises."""
-    chip_smoke = _dp_chip_smoke(monkeypatch)
-    with pytest.raises(Exception, match=match):
-        chip_smoke.dp_two_rank_phase(torch.device("cpu"), _DP_BATCH,
-                                     str(tmp_path), None, None, rank_fn)
-
 
 
 # phase 14 at batch 2 on the CPU: the fused step in f32 and bf16 (two

@@ -5,6 +5,7 @@ of its walk) and the bn_leaky reductions' (row blocks, programs), at the
 shapes the main path, the JAX package's tests and the ragged checks give
 them. The kernels themselves run only on the card (chip_smoke.py)."""
 
+import functools
 import importlib.util
 import os
 
@@ -114,12 +115,14 @@ def test_conv_plan_refuses_a_weight_that_does_not_fit():
 # preactresnet18's deep stages at batch 768 and at batches that leave an
 # item's last images past B, densenet121's 4x4 block, maps of 2x2, 5x9
 # and 7x5, DenseNet-BC's Cout of 12, WRN-28-10's widths (8-row bands of a
-# 16x16 map at 320 channels)
+# 16x16 map at 320 channels; at 8 images, the bands of the 768-batch
+# shape's plan: one image an item, rows 8)
 PACKED_SHAPES = [(768, 256, 8, 8, 256), (768, 512, 4, 4, 512),
                  (9, 512, 4, 4, 512), (3, 256, 8, 8, 256),
                  (768, 128, 4, 4, 32), (1, 64, 2, 2, 64), (7, 192, 2, 2, 48),
                  (1, 360, 5, 9, 40), (3, 40, 7, 5, 72), (1, 48, 5, 3, 12),
-                 (2, 320, 16, 16, 320), (2, 640, 8, 8, 640)]
+                 (2, 320, 16, 16, 320), (2, 640, 8, 8, 640),
+                 (8, 320, 16, 16, 320)]
 
 
 def packed_rows(plan: dict, w: int):
@@ -455,10 +458,12 @@ F32_SHAPES = [*F32_SERVING_SHAPES, *CHIP.CONV_CHECK_SHAPES,
               (1, 4, 3, 3, 4)]
 
 
-def f32_thread_runs(bn: int, runs: int):
+@functools.lru_cache(maxsize=None)
+def f32_thread_runs(bn: int, runs: int) -> tuple:
     """Per thread of an f32 block, its runs of 4 pixels and its first
     output channel, in the kernel's mapping (csrc/fused_conv.cu: a warp
-    spans 4 tm by 8 tn; runs tm + r * MT, channels tn * 4 + 0..3)."""
+    spans 4 tm by 8 tn; runs tm + r * MT, channels tn * 4 + 0..3). Cached:
+    every plan walks the threads of one of the four tiles."""
     nt = bn // fc.F32_TN
     mt, wn = fc.F32_THREADS // nt, nt // 8
     out = []
@@ -466,30 +471,34 @@ def f32_thread_runs(bn: int, runs: int):
         warp, lane = divmod(tid, 32)
         tn = (warp % wn) * 8 + lane % 8
         tm = (warp // wn) * 4 + lane // 8
-        out.append(([tm + r * mt for r in range(runs)], 4 * tn))
-    return out
+        out.append((tuple(tm + r * mt for r in range(runs)), 4 * tn))
+    return tuple(out)
 
 
 def f32_stores(b: int, h: int, w: int, cout: int, plan: dict):
     """How often the plan's blocks and threads store each output (pixel,
     channel): block (i, j) holds image rows [r * rows, (r + 1) * rows) and
     columns [s * ws, (s + 1) * ws) for i = r * nseg + s, its threads' runs
-    p at tile row p // (ws / 4), columns 4 * (p % (ws / 4)) + 0..3."""
+    p at tile row p // (ws / 4), columns 4 * (p % (ws / 4)) + 0..3, each
+    with channels c .. c + 3 of its slice. A block's stores are added at
+    once, (run, column, channel) as numpy index arrays."""
     rows, ws, bn = plan["rows"], plan["ws"], plan["bn"]
     stores = np.zeros((b * h, w, cout), np.int32)
-    threads = f32_thread_runs(bn, plan["runs"])
+    pairs = np.array([(p, c) for runs, c in f32_thread_runs(bn, plan["runs"])
+                      for p in runs])
+    t, col = np.divmod(pairs[:, 0], ws // 4)
+    quad = np.arange(4)
     for i in range(plan["grid_m"]):
         g0, x0 = (i // plan["nseg"]) * rows, (i % plan["nseg"]) * ws
+        row = g0 + t
+        ox = x0 + 4 * col[:, None] + quad            # (runs, 4 columns)
         for j in range(plan["grid_n"]):
-            for runs, c in threads:
-                for p in runs:
-                    t, col = divmod(p, ws // 4)
-                    co = j * bn + c
-                    if t >= rows or g0 + t >= b * h or co >= cout:
-                        continue
-                    ox = x0 + 4 * col + np.arange(4)
-                    ox = ox[ox < w]
-                    stores[g0 + t, ox, co:co + 4] += 1
+            co = j * bn + pairs[:, 1][:, None] + quad  # (runs, 4 channels)
+            ok = ((t < rows) & (row < b * h))[:, None, None] \
+                & (ox < w)[:, :, None] & (co < cout)[:, None, :]
+            r_, x_, c_ = np.broadcast_arrays(row[:, None, None],
+                                             ox[:, :, None], co[:, None, :])
+            np.add.at(stores, (r_[ok], x_[ok], c_[ok]), 1)
     return stores
 
 

@@ -8,9 +8,10 @@ its verdict asserted as the JAX package's test asserts its own, plus the
 probe over the model's state_dict and the optimizer's state and the LR
 trace held against the port's schedule; the artifact's keys those of the
 committed ``repro_synthetic.json`` plus the port's extra keys. Then the
-refusals: no checkpoint (exit 1), no card (it raises). And chip_smoke.py's
-phase 18 at a tiny size, its CLI child on the CPU SIGKILLed for real
-(tests/test_torch_guards.py fails its check on planted reports).
+refusals: no checkpoint (exit 1), no card (it raises). chip_smoke.py's
+phase 18 at a tiny size, its CLI child on the CPU SIGKILLed for real, is
+in tests/test_torch_run_repro_phase.py (tests/test_torch_guards.py fails
+its check on planted reports).
 """
 
 import importlib.util
@@ -192,38 +193,3 @@ def test_needs_an_explicit_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA card"):
         _script().main(["--synthetic", "--base-path", str(tmp_path)])
     assert os.listdir(tmp_path) == []
-
-
-# chip_smoke.py's phase 18 on the CPU at a tiny size: the system run at
-# WRN-10-1, batch 64 on 128 images (20 valid, 108 unlabeled: 1 train step
-# an epoch; 1 valid and 4 test eval batches) for 3 epochs, the CLI child
-# on the CPU (one thread) SIGKILLed at epoch 1
-_SYSTEM_RUN_EPOCHS = 3
-_SYSTEM_RUN_CPU = ["--net-name", "wideresnet-10-1", "--batch-size", "64",
-                   "--ldc", "8", "--synthetic-size", "128",
-                   "--valid-per-class", "2", "--annotated-per-class", "2",
-                   "--epochs", str(_SYSTEM_RUN_EPOCHS)]
-
-
-def test_chip_smoke_system_run_phase_runs_on_cpu(monkeypatch, tmp_path):
-    """Phase 18 on the CPU: a real SIGKILL of the CLI child, the probe bit
-    for bit, phase 2 to the last epoch, three in-process runs, no launch
-    counted."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the child's
-    dev, base = torch.device("cpu"), str(tmp_path)
-    out = chip_smoke.system_run_phase(
-        dev, base, "cpu",
-        argv=chip_smoke.system_run_argv(base, dev) + _SYSTEM_RUN_CPU,
-        epochs=_SYSTEM_RUN_EPOCHS, steps=1, eval_forwards=5)
-    phase1 = out["report"]["phase1"]
-    assert phase1["sigkilled"] and phase1["last_epoch"] == 1
-    assert phase1["checkpoint_epoch"] in (1, 2)
-    assert [len(r["epochs"]) for r in out["runs"]] == [
-        2, 2, _SYSTEM_RUN_EPOCHS - phase1["checkpoint_epoch"]]
-    assert set(out["launches"].values()) == {0}
-    assert out["parts"]["phase1_s"] > 0 and len(out["parts"]["probe_s"]) == 2
-    assert list(chip_smoke.system_run_paths(out)) == ["system_run_bf16"]
